@@ -4,20 +4,31 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` with
-nvcc, holds each against its plain PyTorch version at the shapes the
-serving path gives it (and times it beside its bound and a library
-yardstick), then serves packed Llama-3.2-1B at full width and depth with
-seeded random weights through the continuous-batching engine: the
+nvcc, holds each against its plain PyTorch version at the shapes its
+path gives it (and times it beside its bound and a library yardstick),
+then drives the port's two paths on Llama-3.2-1B at full width and
+depth with seeded random weights.
+
+Serving: packed Llama-3.2-1B through the continuous-batching engine: the
 one-shot 80% block prune of the JAX launcher (gate and up masks differ,
 so the split fused-GLU kernel runs), then a short run whose up weight
 takes gate's mask (the joint kernel). Each serving run resets the kernel
 launch counters just before and reads them just after, and fails unless
 every kernel of its path launched. The packed output is checked against
 a pruned-dense run of the same weights (plain torch.matmul MLP): at each
-of the 16 layers on the dense run's hidden states, and end to end
-through the engine on the model's first two layers (random weights make
-the full depth chaotic; see ``phase_e2e``). A profiled window of decode
-slabs shows where a step's time goes.
+of the 16 layers on the dense run's hidden states, end to end through
+the engine on the model's first two layers, and in next-token logits at
+full depth (see ``phase_e2e``). A profiled window of decode slabs shows
+where a step's time goes.
+
+Training: 12 steps of the BLaST trainer (``train_loop.train``: masked
+dense with in-step prune-and-grow, f32 params, bf16 compute) on 8 x 128
+synthetic tokens, checked for a falling finite loss, exact per-column
+keep counts after every refresh and exactly-zero pruned blocks in the
+params and both Adam moments; no kernel launches there. Then the trained
+masks are packed layer by layer and the fine-tuning gradient through
+``make_bspmm_trainable`` (forward ``bspmm``, dX ``bspmm_t``) is held
+against the trainer's own masked-dense STE gradient at all 16 layers.
 
 Prints JSON lines; the line before the last is a ``kernels`` summary and
 the last is ``{"ok": true, "device": {...}}``. Any failed phase raises
@@ -56,7 +67,10 @@ REPLACES = {
                         "src/repro/kernels/bspmm.py:124"),
     "paged_flash_decode": ("src/repro_torch/csrc/paged_attention.cu",
                            "src/repro/kernels/paged_attention.py:53"),
+    "bspmm_t": ("src/repro_torch/csrc/bspmm_t.cu",
+                "src/repro/kernels/bspmm_t.py:46"),
 }
+TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEP_SIZE = 12, 128, 8, 4
 
 
 def emit(**obj):
@@ -308,16 +322,20 @@ def phase_kernels(torch, card, packed, joint):
     return summary
 
 
+def _counters():
+    from repro_torch.kernels import bspmm as kb, bspmm_t as kt
+    from repro_torch.kernels import paged_attention as pa
+    return (kb.LAUNCHES, kt.LAUNCHES, pa.LAUNCHES)
+
+
 def _reset_counts():
-    from repro_torch.kernels import bspmm as kb, paged_attention as pa
-    for d in (kb.LAUNCHES, pa.LAUNCHES):
+    for d in _counters():
         for k in d:
             d[k] = 0
 
 
 def _read_counts():
-    from repro_torch.kernels import bspmm as kb, paged_attention as pa
-    return {**kb.LAUNCHES, **pa.LAUNCHES}
+    return {k: v for d in _counters() for k, v in d.items()}
 
 
 def _serve(cfg, params, prompts, new_tokens):
@@ -420,11 +438,7 @@ def phase_e2e(torch, cfg, packed, dense, prompts):
     """Packed (kernels) against pruned-dense (plain torch.matmul MLP) on
     the served prompts.
 
-    With seeded random weights the model is chaotic: a difference of one
-    rounding grows by a factor of about 2-3 per layer, so two correct
-    paths that round differently disagree completely by the last of 16
-    layers (printed below beside dense bf16 vs dense f32, which disagree
-    as much). So the check is made where it can be:
+    The checks:
 
     * every layer, teacher-forced: on the hidden states the dense model
       feeds each of the 16 MLPs, the packed MLP (fused GLU + BSpMM
@@ -434,7 +448,12 @@ def phase_e2e(torch, cfg, packed, dense, prompts):
     * end to end through the engine on the model's first 2 layers (same
       weights): next-token logits within 2**-5 of their magnitude, and
       the first generated token equal wherever the dense logits' top-2
-      margin exceeds twice that tolerance."""
+      margin exceeds twice that tolerance;
+    * at full depth, the next-token logits of the first 4 prompts within
+      2**-5 of their magnitude (printed beside dense bf16 vs dense f32).
+      With the reference's init, whose attention weights were 8-16x too
+      large, the random network was chaotic in depth and this could not
+      hold; the port's init uses the true fan-in (models/params.py)."""
     from repro_torch.models import transformer
     hs = _mlp_inputs(torch, cfg, dense, prompts)
     worst, n = 0.0, cfg.num_layers
@@ -483,9 +502,12 @@ def phase_e2e(torch, cfg, packed, dense, prompts):
                   "first generated token differs outside a near-tie")
         else:
             exempt += 1
-    full = max(float((_last_logits(torch, cfg, packed, p)
-                      - _last_logits(torch, cfg, dense, p)).abs().max())
-               for p in prompts[:4])
+    full, full_mag = 0.0, 0.0
+    for p in prompts[:4]:
+        ld = _last_logits(torch, cfg, dense, p)
+        full = max(full, float((_last_logits(torch, cfg, packed, p)
+                                - ld).abs().max()))
+        full_mag = max(full_mag, float(ld.abs().max()))
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     chaos = max(float((_last_logits(torch, cfg, dense, p)
                        - _last_logits(torch, cfg32, dense, p)).abs().max())
@@ -496,7 +518,11 @@ def phase_e2e(torch, cfg, packed, dense, prompts):
          exempt_near_ties=exempt, packed_launches=counts,
          dense_launches=dense_counts,
          full_depth_packed_vs_dense_max_abs=full,
+         full_depth_logit_magnitude=full_mag,
          full_depth_dense_bf16_vs_f32_max_abs=chaos)
+    check(full <= 2.0 ** -5 * full_mag,
+          f"full-depth packed vs dense logits differ by {full} at "
+          f"magnitude {full_mag}")
 
 
 def phase_profile(torch, cfg, packed, prompts):
@@ -536,6 +562,330 @@ def phase_profile(torch, cfg, packed, prompts):
                "device_ms": e.self_device_time_total / 1e3} for e in top])
 
 
+def phase_kernels_t(torch, card, packed):
+    """The transposed BSpMM against its plain version on the card, at the
+    training shapes: dY (M, 8192) -> dX (M, 2048) through layer 0's
+    packed gate (Kb = 16, 256 visits) and dY (M, 2048) -> dX (M, 8192)
+    through its packed down (Kb = 64, 208 visits), M in {5, 128, 1024},
+    bf16 and f32; then, at M = 128 on the down shape, a balanced mask
+    with block-rows 0 and 5 never visited and a global-selection mask
+    that packs zero padding at idx 0. Library yardstick: torch.matmul of
+    dY by the unpacked pruned weight's transpose. Returns the summary at
+    M = 1024, bf16, gate shape (8 sequences of 128 tokens)."""
+    from repro_torch.core import topk
+    from repro_torch.core.packing import PackedBCSC, pack, unpack
+    from repro_torch.core.prune_grow import BlastSpec, initial_mask
+    from repro_torch.kernels import bspmm_t as kt, ops
+    timer = Timer(torch)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    mlp0 = {k: v.layer(0) for k, v in packed["layers"]["mlp"].items()}
+    w = torch.randn(8192, 2048, generator=gen, device=DEVICE)
+    hole = w.clone()
+    hole[:128] = 0.0
+    hole[5 * 128:6 * 128] = 0.0
+    spec = BlastSpec(b_in=128, b_out=128, s_init=0.8)
+    norms = topk.block_norms(w, 128, 128)
+    glob = topk.topk_mask_global(norms, norms.numel() // 5)
+    extra = {}
+    for name, (wt, m) in {"down_empty_rows": (hole, initial_mask(spec, hole)),
+                          "down_global": (w, glob)}.items():
+        extra[name] = (pack(topk.apply_block_mask(wt, m, 128, 128), m, 128,
+                            128), int(m.sum()))
+    visited = set(extra["down_empty_rows"][0].idx.reshape(-1).tolist())
+    check(not {0, 5} & visited, "the empty-rows mask visits rows 0 or 5")
+    check(bool((extra["down_global"][0].idx == 0).sum()
+               > extra["down_global"][0].nb), "the global mask is not padded")
+    cases = [("gate", mlp0["w_gate"], None, m) for m in (5, 128, 1024)]
+    cases += [("down", mlp0["w_down"], None, m) for m in (5, 128, 1024)]
+    cases += [(k, p, n, 128) for k, (p, n) in extra.items()]
+    summary = None
+    for dt in (torch.bfloat16, torch.float32):
+        es = 2 if dt == torch.bfloat16 else 4
+        key = "bf16" if dt == torch.bfloat16 else "f32"
+        for name, p0, kept, m in cases:
+            p = PackedBCSC(p0.blocks.to(dt).contiguous(), p0.idx, p0.kb)
+            kept = p.nb * p.nnz if kept is None else kept
+            table = kt.device_table(p.idx, p.kb)
+            wt_dense = unpack(p).t()
+            dy = torch.randn(m, p.nb * p.b_out, generator=gen,
+                             device=DEVICE).to(dt)
+            k_fn = lambda: ops.bspmm_t(dy, p, table)  # noqa: E731
+            p_fn = lambda: ops.bspmm_t_plain(dy, p)  # noqa: E731
+            l_fn = lambda: torch.matmul(dy, wt_dense)  # noqa: E731
+            got, want = k_fn(), p_fn()
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            tol = ulp_tol(torch, want, dt)
+            nbytes = (dy.numel() * es + p.blocks.numel() * es
+                      + table.numel() * 4 + m * p.kb * p.b_in * es)
+            ops_ = 2 * m * kept * p.b_in * p.b_out
+            b_ms, b_by = bound_ms(card, nbytes, ops_, key)
+            row = dict(max_abs_err=err, tol=tol, ms=timer.ms(k_fn),
+                       plain_ms=timer.ms(p_fn), library_ms=timer.ms(l_fn),
+                       bound_ms=b_ms, bound_by=b_by, shape=[m, name],
+                       dtype=key, visits_max=int(table.shape[1]),
+                       rows_never_visited=int((table[:, 0] < 0).sum()))
+            emit(phase="kernel", name="bspmm_t", **row)
+            check(err <= tol and math.isfinite(err),
+                  f"bspmm_t {key} {name} M={m}: max abs err {err} > {tol}")
+            if name == "down_empty_rows":
+                check(not bool(got.reshape(m, p.kb, 128)[:, [0, 5]].any()),
+                      "bspmm_t wrote non-zeros into never-visited rows")
+            if key == "bf16" and name == "gate" and m == 1024:
+                summary = row
+    return summary
+
+
+def _record_steps(train_loop):
+    """Wrap the loop's step factory so every step's (step, new masks) is
+    kept; returns (list, restore)."""
+    seen = []
+    make = train_loop.step_mod.make_train_step
+
+    def recording(*a, **kw):
+        fn = make(*a, **kw)
+
+        def step(state, batch):
+            new, metrics = fn(state, batch)
+            seen.append((state.step, new.masks))
+            return new, metrics
+        return step
+
+    train_loop.step_mod.make_train_step = recording
+    return seen, lambda: setattr(train_loop.step_mod, "make_train_step",
+                                 make)
+
+
+def phase_train(torch, cfg):
+    """12 steps of the BLaST trainer on full-width, full-depth
+    Llama-3.2-1B (f32 params, bf16 compute, remat per layer): masked
+    dense with in-step prune-and-grow every 4 steps toward s = 0.8 by
+    step 12 (launch/train.py's overrides of total_steps, its warmup and
+    guard). The peak learning rate is AdamWConfig's default, 3e-4:
+    launch/train.py's CLI default of 3e-3 is sized for the smoke configs
+    and makes a full-width 1B model's loss oscillate upward."""
+    from repro_torch.core import sparse_mlp as sm, topk
+    from repro_torch.core.schedule import keep_count, sparsity_at
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw
+    from repro_torch.training import train_loop
+    cfg = dataclasses.replace(cfg, blast=dataclasses.replace(
+        cfg.blast, total_steps=TRAIN_STEPS, step_size=TRAIN_STEP_SIZE))
+    src = SyntheticLM(cfg.vocab_size, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, seed=SEED)
+    opt = adamw.AdamWConfig(total_steps=TRAIN_STEPS,
+                            warmup_steps=max(TRAIN_STEPS // 20, 5))
+    loop = train_loop.TrainLoopConfig(total_steps=TRAIN_STEPS, log_every=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seen, restore = _record_steps(train_loop)
+    _reset_counts()
+    t0 = time.monotonic()
+    try:
+        state, hist = train_loop.train(cfg, opt, src, loop, device=DEVICE,
+                                       seed=SEED, log_fn=lambda m: None)
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = [h for h in hist if "event" not in h]
+    losses = [h["loss"] for h in steps]
+    step_s = [h["sec_per_step"] for h in steps[1:]]
+    med = statistics.median(step_s)
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    emit(phase="train", config=cfg.name, layers=cfg.num_layers,
+         steps=TRAIN_STEPS, tokens_per_step=tokens,
+         params=registry.count_params(cfg), losses=losses,
+         grad_norms=[h["grad_norm"] for h in steps],
+         sparsity_final=float(steps[-1]["sparsity"]),
+         anomalies=sum(int(h["anomaly"]) for h in steps),
+         first_step_s=steps[0]["sec_per_step"], median_step_ms=med * 1e3,
+         tokens_per_s=tokens / med, wall_s=wall,
+         max_memory_allocated_bytes=peak, launches=counts)
+    check(len(steps) == TRAIN_STEPS, f"{len(steps)} logged steps")
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    check(not any(counts.values()), f"training launched kernels: {counts}")
+    spec, flags = cfg.blast, registry.dense_layer_flags(cfg)
+    refreshes = []
+    for step, masks in seen:
+        if step % TRAIN_STEP_SIZE:
+            continue
+        s = sparsity_at(step, s_init=spec.s_init, s_max=spec.s_max,
+                        total_steps=spec.total_steps, decay=spec.decay)
+        kept = {}
+        for path, m in masks.items():
+            per_col = m.sum(dim=-2).cpu()                  # (L, Nb)
+            want = keep_count(s, m.shape[-2])
+            check(bool((per_col[~flags] == want).all()),
+                  f"step {step} {path}: kept per column "
+                  f"{per_col[~flags].unique().tolist()} != {want}")
+            check(bool(m[flags.to(m.device)].all()),
+                  f"{path}: a dense_last layer pruned")
+            kept[path.split("/")[-1]] = want
+        refreshes.append({"step": step, "sparsity": s, "kept_per_col": kept})
+    check(len(refreshes) == 3, f"refreshes seen: {refreshes}")
+    for path, mask in state.masks.items():
+        bi, bo = sm.block_dims_for(spec, path)
+        pruned = ~topk.expand_mask(mask, bi, bo)
+        for tree, name in ((state.params, "params"),
+                           (state.opt_state["m"], "m"),
+                           (state.opt_state["v"], "v")):
+            check(not bool(sm.get_path(tree, path)[pruned].any()),
+                  f"{path}: pruned blocks not zero in {name}")
+    emit(phase="train_refreshes", refreshes=refreshes)
+    return cfg, opt, src, state
+
+
+def phase_train_profile(torch, cfg, opt, src, state):
+    """Where a training step's time goes: two more steps of the trained
+    state under torch.profiler, a refresh step (12) and a plain one (13).
+    Device time is the sum of the GPU kernels' own time; the busy share
+    divides it by the step's wall time, which the profiler's CPU-side
+    tracing lengthens. GEMM kernels are those whose name says gemm,
+    xmma, cutlass or nvjet (cuBLAS's); the rest are elementwise,
+    reductions and copies."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.training import step as step_mod
+    fn = step_mod.make_train_step(cfg, opt)
+    for i in range(2):
+        batch = {k: torch.as_tensor(v, device=DEVICE)
+                 for k, v in src.batch(state.step).items()}
+        refresh = state.step % cfg.blast.step_size == 0
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            state, _ = fn(state, batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.monotonic() - t0) * 1e3
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
+        gemm_ms = sum(e.self_device_time_total for e in kern if any(
+            w in e.key.lower()
+            for w in ("gemm", "xmma", "cutlass", "nvjet"))) / 1e3
+        top = sorted(kern, key=lambda e: -e.self_device_time_total)[:12]
+        emit(phase="train_profile", step=state.step - 1, refresh=refresh,
+             wall_ms=wall_ms,
+             device_ms=dev_ms if dev_ms > 0 else "not measured",
+             gemm_device_ms=gemm_ms if dev_ms > 0 else "not measured",
+             device_busy_share=dev_ms / wall_ms if dev_ms > 0
+             else "not measured",
+             kernel_launches=sum(e.count for e in kern),
+             top=[{"kernel": e.key[:90], "count": e.count,
+                   "device_ms": e.self_device_time_total / 1e3}
+                  for e in top])
+
+
+def _train_mlp_inputs(torch, cfg, state, tokens):
+    """The hidden state entering every layer's MLP in a no-grad forward
+    of the trained model (one (M, d) matrix per layer)."""
+    from repro_torch.models import transformer
+    seen = []
+    forward = transformer.mlp_forward
+
+    def recording(cfg_, p, x, masks=None):
+        seen.append(x.reshape(-1, x.shape[-1]).clone())
+        return forward(cfg_, p, x, masks)
+
+    transformer.mlp_forward = recording
+    try:
+        with torch.no_grad():
+            transformer.forward(cfg, state.params, tokens,
+                                masks=state.masks)
+    finally:
+        transformer.mlp_forward = forward
+    return seen
+
+
+def phase_finetune_packed(torch, cfg, state, batch):
+    """The paper's fine-tuning stage at fixed masks, against the trainer.
+    Every layer's gate, up and down are packed with that layer's trained
+    mask; on that layer's MLP input from one batch (8 x 128 tokens), the
+    gradient of sum(Y * C) (C seeded) through three make_bspmm_trainable
+    products (forward bspmm, dX bspmm_t, dBlocks gathered) is held
+    against the gradient through the trainer's masked-dense STE GLU: dX
+    everywhere, dW at every kept block. f32 within 1e-4 and bf16 within
+    2**-5 of each gradient's magnitude (bf16 rounds gate, up, the
+    activation, the product and each partial gradient on both sides,
+    from f32 sums taken in other orders). Counters reset before each
+    dtype's 16 layers and read after: bspmm and bspmm_t 48 each."""
+    from repro_torch.core import sparse_mlp as sm
+    from repro_torch.core.packing import pack
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    hs = _train_mlp_inputs(torch, cfg, state,
+                           torch.as_tensor(batch["tokens"], device=DEVICE))
+    check(len(hs) == cfg.num_layers, f"{len(hs)} MLP inputs recorded")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    leaves = ("w_gate", "w_up", "w_down")
+    spec = cfg.blast
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        key = "bf16" if dt == torch.bfloat16 else "f32"
+        frac = 1e-4 if dt == torch.float32 else 2.0 ** -5
+        worst, nnz_l = {"dx": 0.0, "dw": 0.0}, {}
+        _reset_counts()
+        for i, h in enumerate(hs):
+            p_l = transformer._layer_view(state.params["layers"], i)["mlp"]
+            m_l = transformer._layer_masks(
+                {k: v[i] for k, v in state.masks.items()}, "layers")
+            x = h.to(dt).contiguous()
+            c = torch.randn(x.shape, generator=gen, device=DEVICE)
+            # the trainer's masked-dense STE GLU
+            xd = x.clone().requires_grad_()
+            ws = [p_l[k].detach().requires_grad_() for k in leaves]
+            y = sm.glu_mlp(xd, *ws, act=cfg.mlp_act, masks=m_l, spec=spec)
+            dense = torch.autograd.grad((y.float() * c).sum(), [xd, *ws])
+            # three trainable packed products
+            fs, blocks = [], []
+            for k, w in zip(leaves, ws):
+                bi, bo = sm.block_dims_for(spec, "layers/mlp/" + k)
+                pk = pack(w.detach().to(dt), m_l[k], bi, bo)
+                fs.append((ops.make_bspmm_trainable(pk.idx, pk.kb), pk))
+                blocks.append(pk.blocks.requires_grad_())
+                nnz_l.setdefault(k, []).append(pk.nnz)
+            xp = x.clone().requires_grad_()
+            hg = fs[0][0](xp, blocks[0])
+            hu = fs[1][0](xp, blocks[1])
+            yp = fs[2][0](sm.act_fn(cfg.mlp_act)(hg) * hu, blocks[2])
+            packed = torch.autograd.grad((yp.float() * c).sum(),
+                                         [xp, *blocks])
+            checks = [("dx", packed[0], dense[0])]
+            for (_, pk), db, dw in zip(fs, packed[1:], dense[1:]):
+                nb, nnz, bi, bo = pk.blocks.shape
+                dwb = dw.reshape(pk.kb, bi, nb, bo).permute(2, 0, 1, 3)
+                cols = torch.arange(nb, device=DEVICE)[:, None]
+                checks.append(("dw", db, dwb[cols, pk.idx.long()]))
+            for what, got, want in checks:
+                tol = frac * float(want.float().abs().max())
+                err = float((got.float() - want.float()).abs().max())
+                check(math.isfinite(err) and err <= tol,
+                      f"layer {i} {key} {what}: err {err} > tol {tol}")
+                worst[what] = max(worst[what], err / tol)
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        n = 3 * cfg.num_layers
+        check(counts["bspmm"] == n and counts["bspmm_t"] == n,
+              f"{key}: bspmm {counts['bspmm']}, bspmm_t {counts['bspmm_t']}"
+              f" launches, expected {n} each")
+        check(not any(v for k, v in counts.items()
+                      if k not in ("bspmm", "bspmm_t")),
+              f"{key}: other kernels launched: {counts}")
+        out[key] = counts
+        emit(phase="finetune_packed", dtype=key, layers=len(hs),
+             rows=int(hs[0].shape[0]), tol_fraction=frac,
+             max_err_over_tol=worst, launches=counts,
+             nnz_per_layer=nnz_l)
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -564,17 +914,26 @@ def main():
         must_not=("fused_glu_split",))
     phase_e2e(torch, cfg, packed, dense, prompts)
     phase_profile(torch, cfg, packed, prompts)
+    summary["bspmm_t"] = phase_kernels_t(torch, card, packed)
+    del packed, joint, dense
+    torch.cuda.empty_cache()
+
+    tcfg, opt, src, state = phase_train(torch, cfg)
+    ft = phase_finetune_packed(torch, tcfg, state, src.batch(TRAIN_STEPS))
+    phase_train_profile(torch, tcfg, opt, src, state)
 
     kernels = []
     for name, (src, repl) in REPLACES.items():
         s = summary[name]
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=repl,
-            launches=counts[name] + jcounts[name],
+            launches=sum(c[name] for c in (counts, jcounts, *ft.values())),
             max_abs_err=s["max_abs_err"], ms=s["ms"],
             plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
             bound_by=s["bound_by"], library_ms=s["library_ms"],
             matched=True, timed_shape=s["shape"], dtype=s["dtype"]))
+    check(all(k["launches"] > 0 for k in kernels),
+          f"a kernel never launched on a main path: {kernels}")
     emit(kernels=kernels)
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),

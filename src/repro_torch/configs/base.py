@@ -75,6 +75,14 @@ class ModelConfig:
         return self.num_experts > 0
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+
 def derive_block_shape(d_in: int, d_out: int, tp: int,
                        shard_out: bool = True) -> tuple[int, int]:
     """Largest (b_in, b_out) in {128,64,32,16,8} tiling the per-shard

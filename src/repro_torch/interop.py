@@ -1,4 +1,4 @@
-"""numpy <-> torch conversion of parameter trees.
+"""numpy <-> torch conversion of parameter trees and train states.
 
 Tests hand the same weights to both packages: the JAX side is brought to
 numpy there (``jax.device_get``), and ``to_torch`` turns the nested dict
@@ -7,7 +7,10 @@ of arrays into the port's tree, with any packed leaf (an object carrying
 ``to_numpy`` is the reverse. bfloat16 arrays cross as their 16-bit
 pattern, so values are bit-exact both ways; ``to_numpy`` returns them
 with numpy's ``bfloat16`` dtype, which exists once ``ml_dtypes`` has been
-imported by the caller (JAX does so).
+imported by the caller (JAX does so). ``train_state`` carries a
+reference ``TrainState`` across (step, params, masks and the Adam
+moments), so both trainers can start from the same state; the port
+keeps its own ``torch.Generator`` and does not imitate JAX's PRNG.
 """
 from __future__ import annotations
 
@@ -58,3 +61,18 @@ def to_numpy(tree):
         return {"blocks": array(tree.blocks), "idx": array(tree.idx),
                 "kb": tree.kb, "joint": tree.joint}
     return array(tree)
+
+
+def train_state(state, device="cpu", seed: int = 0):
+    """A reference train state (any object with ``step``, ``params``,
+    ``opt_state`` {'m', 'v'} and ``masks``, numpy leaves) -> the port's
+    ``training.step.TrainState`` on ``device``."""
+    from repro_torch.training.step import TrainState
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return TrainState(
+        step=int(np.asarray(state.step)),
+        params=to_torch(state.params, device),
+        opt_state={k: to_torch(state.opt_state[k], device)
+                   for k in ("m", "v")},
+        masks=to_torch(dict(state.masks), device), generator=gen)

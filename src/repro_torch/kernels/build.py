@@ -21,7 +21,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build" / "torch_kernels"
-SOURCES = ("bspmm.cu", "paged_attention.cu")
+SOURCES = ("bspmm.cu", "bspmm_t.cu", "paged_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
 

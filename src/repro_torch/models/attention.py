@@ -1,5 +1,6 @@
-"""GQA attention over the paged KV pool (port of the paged part of
-``repro/models/attention.py``).
+"""GQA attention (port of ``repro/models/attention.py``): the
+full-sequence causal or windowed attention of training, and attention
+over the paged KV pool for serving.
 
 The pool ``(n_pages, page_size, KV, hd)`` is shared by every lane; lane
 b's logical cache slot ``s`` lives at pool page ``block_tables[b, s //
@@ -45,11 +46,15 @@ def attn_param_specs(cfg) -> dict:
     d, hd = cfg.d_model, cfg.head_dim
     h, kv = eff_heads(cfg)
     specs = {
-        "wq": ParamSpec((d, h, hd), ("embed", "heads", "head_dim")),
-        "wk": ParamSpec((d, kv, hd), ("embed", "kv_heads", "head_dim")),
-        "wv": ParamSpec((d, kv, hd), ("embed", "kv_heads", "head_dim")),
+        "wq": ParamSpec((d, h, hd), ("embed", "heads", "head_dim"),
+                        fan_in=d),
+        "wk": ParamSpec((d, kv, hd), ("embed", "kv_heads", "head_dim"),
+                        fan_in=d),
+        "wv": ParamSpec((d, kv, hd), ("embed", "kv_heads", "head_dim"),
+                        fan_in=d),
         "wo": ParamSpec((h, hd, d), ("heads", "head_dim", "embed"),
-                        scale=1.0 / math.sqrt(2 * cfg.num_layers)),
+                        scale=1.0 / math.sqrt(2 * cfg.num_layers),
+                        fan_in=h * hd),
     }
     if cfg.qkv_bias:
         specs["bq"] = ParamSpec((h, hd), ("heads", "head_dim"), init="zeros")
@@ -105,6 +110,29 @@ def _scores_to_out(cfg, q, k, v, q_pos, k_pos, causal, window):
     out = torch.einsum("bhgqs,bshk->bqhgk", probs.to(v.dtype).float(),
                        v.float())
     return out.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def multihead_attention(cfg, p, x, positions, *, causal=True, window=0,
+                        q_chunk=1024):
+    """Full-sequence (training) self-attention. x (B,S,D); positions
+    (B,S). Queries run in chunks of ``q_chunk`` when S is a multiple of
+    it, which bounds the score transient to (q_chunk, S).
+
+    Returns (out (B,S,D), (k, v))."""
+    q, k, v = _project_qkv(cfg, p, x)
+    if cfg.rope_theta > 0:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    s = q.shape[1]
+    if s <= q_chunk or s % q_chunk:
+        out = _scores_to_out(cfg, q, k, v, positions, positions, causal,
+                             window)
+    else:
+        out = torch.cat([
+            _scores_to_out(cfg, q[:, i:i + q_chunk], k, v,
+                           positions[:, i:i + q_chunk], positions, causal,
+                           window) for i in range(0, s, q_chunk)], dim=1)
+    return _out_proj(p, out), (k, v)
 
 
 def _cache_positions(smax: int, offsets: torch.Tensor) -> torch.Tensor:

@@ -6,6 +6,16 @@ dtype and init; ``init_params`` materialises it with a
 ``torch.Generator`` on the requested device. The numbers differ from
 ``jax.random``'s for the same seed: parity tests share weights through
 ``interop``, not seeds.
+
+One deliberate difference in the distribution: the reference scales a
+normal leaf by the size of its second-to-last axis, which for the 3-D
+attention weights is a head axis (``wq`` (d, H, hd) gets 1/sqrt(H),
+``wk``/``wv`` 1/sqrt(KV), ``wo`` (H, hd, d) 1/sqrt(hd)), 8-16x the
+1/sqrt(fan-in) of the product it computes. At Llama-3.2-1B's depth
+that makes the seeded random network's attention so sharp that its
+gradient norm grows by orders of magnitude with depth and training
+does not lower the loss. ``ParamSpec.fan_in`` names the true fan-in
+where the shape does not show it.
 """
 from __future__ import annotations
 
@@ -24,6 +34,7 @@ class ParamSpec:
     init: str = "normal"                  # normal|zeros|ones|embed
     scale: float = 1.0                    # fan-in scaling multiplier
     dtype: str = "float32"
+    fan_in: int = 0                       # 0: the second-to-last axis
 
     def __post_init__(self):
         if len(self.shape) != len(self.axes):
@@ -41,7 +52,8 @@ def _init_leaf(gen: torch.Generator, spec: ParamSpec,
         std = 0.02 * spec.scale
     else:
         # fan-in scaled normal (last-but-one dim is fan-in for matrices)
-        fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
+        fan_in = spec.fan_in or (spec.shape[-2] if len(spec.shape) >= 2
+                                 else spec.shape[-1])
         std = spec.scale / math.sqrt(max(fan_in, 1))
     w = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
                     device=device)

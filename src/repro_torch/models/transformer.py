@@ -1,18 +1,25 @@
-"""Decoder-only transformer LM, dense family (port of the dense, paged
-part of ``repro/models/transformer.py``).
+"""Decoder-only transformer LM, dense family (port of the dense part of
+``repro/models/transformer.py``): the training forward and the paged
+serving steps.
 
 Params are nested dicts whose layer leaves are stacked on a leading
 layer axis, exactly as in the reference; the reference's ``lax.scan``
-over that axis becomes a Python loop over per-layer views. gemma2-style
-``local_global`` stacks run as (local, global) pairs. The KV pool is
+over that axis becomes a Python loop over per-layer views, and BLaST
+masks ride along as per-layer views of the stacked mask tree.
+gemma2-style ``local_global`` stacks run as (local, global) pairs. With
+``cfg.remat`` each layer of the training forward is recomputed in the
+backward (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``
+with nothing saved): this changes memory, not numbers. The KV pool is
 updated in place (models/attention.py).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core import sparse_mlp as sm
 from repro_torch.core.packing import PackedBCSC
@@ -63,8 +70,8 @@ def layer_param_specs(cfg) -> dict:
 def _stack_specs(specs: dict, n: int) -> dict:
     """Prepend a stacked 'layers' dim to every leaf."""
     return {k: (_stack_specs(v, n) if isinstance(v, dict) else
-                ParamSpec((n,) + v.shape, ("layers",) + v.axes,
-                          init=v.init, scale=v.scale, dtype=v.dtype))
+                dataclasses.replace(v, shape=(n,) + v.shape,
+                                    axes=("layers",) + v.axes))
             for k, v in specs.items()}
 
 
@@ -104,6 +111,15 @@ def sparse_paths(cfg) -> list[str]:
     return [f"{s}/{leaf}" for s in stacks for leaf in leaves]
 
 
+def dense_layer_flags(cfg) -> torch.Tensor:
+    """(stack,) bool on the CPU: True where the MLP stays dense (the last
+    ``dense_last`` layers, paper §5.4.4). For paired stacks the flag
+    covers the pair."""
+    ns, per = n_stacks(cfg)
+    n_dense = math.ceil(cfg.blast.dense_last / per)
+    return torch.arange(ns) >= (ns - n_dense)
+
+
 # ----------------------------------------------------------------- forward
 def _layer_view(tree, i: int):
     """Entry ``i`` of the leading layer axis of every leaf (views)."""
@@ -114,12 +130,76 @@ def _layer_view(tree, i: int):
     return tree[i]
 
 
-def mlp_forward(cfg, p, x):
+def _unbind(tree, n: int | None = None) -> list:
+    """The per-layer trees of a stacked tree, by one ``unbind`` of each
+    leaf: its backward stacks the 16 layer gradients once, where
+    indexing each layer would add a zero-filled full-size gradient per
+    layer. A None tree gives ``n`` Nones."""
+    if tree is None:
+        return [None] * n
+    cols = {k: _unbind(v) if isinstance(v, dict) else v.unbind(0)
+            for k, v in tree.items()}
+    n = len(next(iter(cols.values())))
+    return [{k: v[i] for k, v in cols.items()} for i in range(n)]
+
+
+def _layer_masks(masks: dict | None, stack: str) -> dict | None:
+    """The stacked masks of one stack's MLP, keyed by leaf name."""
+    if not masks:
+        return None
+    prefix = stack + "/mlp/"
+    out = {k[len(prefix):]: v for k, v in masks.items()
+           if k.startswith(prefix)}
+    return out or None
+
+
+def mlp_forward(cfg, p, x, masks=None):
     if cfg.mlp_kind == "glu":
         return sm.glu_mlp(x, p["w_gate"], p["w_up"], p["w_down"],
-                          act=cfg.mlp_act)
+                          act=cfg.mlp_act, masks=masks, spec=cfg.blast)
     return sm.mlp2(x, p["w_in"], p["w_out"], p.get("b_in"), p.get("b_out"),
-                   act=cfg.mlp_act)
+                   act=cfg.mlp_act, masks=masks, spec=cfg.blast)
+
+
+def _block(cfg, p, x, positions, masks, window):
+    """One pre-norm transformer block (full causal attention)."""
+    h = norm(cfg.norm_kind, x, p["ln_attn_scale"], p.get("ln_attn_bias"))
+    x = x + attn.multihead_attention(cfg, p["attn"], h, positions,
+                                     causal=True, window=window)[0]
+    h = norm(cfg.norm_kind, x, p["ln_mlp_scale"], p.get("ln_mlp_bias"))
+    return x + mlp_forward(cfg, p["mlp"], h, masks)
+
+
+def forward(cfg, params, tokens, *, masks=None):
+    """Training/prefill forward: tokens (B,S) int -> (logits (B,S,V) f32,
+    aux loss). ``masks`` is the BLaST mask tree (None: dense)."""
+    b, s = tokens.shape
+    x = embed_inputs(cfg, params, tokens)
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x.device)[None].expand(b, s)
+    remat = cfg.remat and torch.is_grad_enabled()
+
+    def layer(p_l, m_l, x, window):
+        if remat:
+            return torch.utils.checkpoint.checkpoint(
+                _block, cfg, p_l, x, positions, m_l, window,
+                use_reentrant=False)
+        return _block(cfg, p_l, x, positions, m_l, window)
+
+    if cfg.layer_pattern == "local_global":
+        loc = _unbind(params["layers_local"])
+        glb = _unbind(params["layers_global"])
+        m_loc = _unbind(_layer_masks(masks, "layers_local"), len(loc))
+        m_glb = _unbind(_layer_masks(masks, "layers_global"), len(glb))
+        for p_l, m_l, p_g, m_g in zip(loc, m_loc, glb, m_glb):
+            x = layer(p_l, m_l, x, cfg.sliding_window)
+            x = layer(p_g, m_g, x, 0)
+    else:
+        lay = _unbind(params["layers"])
+        for p_l, m_l in zip(lay, _unbind(_layer_masks(masks, "layers"),
+                                         len(lay))):
+            x = layer(p_l, m_l, x, cfg.sliding_window)
+    return logits_from_hidden(cfg, params, x), 0.0
 
 
 def embed_inputs(cfg, params, tokens):

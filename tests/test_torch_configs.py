@@ -62,3 +62,38 @@ def test_derive_block_shape_and_with_blast(dims):
                               if f.name != "blast"})
     assert (dataclasses.asdict(jbase.with_blast(jc, tp=dims[2]))
             == dataclasses.asdict(tbase.with_blast(tc, tp=dims[2])))
+
+
+def test_init_scales_attention_weights_by_their_fan_in():
+    """The port's seeded init draws every normal leaf with std
+    scale / sqrt(fan-in), the fan-in being the size of the axes the
+    weight contracts: d_model for wq/wk/wv, heads x head_dim for wo. The
+    reference uses the second-to-last axis, a head axis for these 3-D
+    weights (its wq std is 1/sqrt(num_heads)); its specs agree with the
+    port's in shape and axes."""
+    import math
+
+    import jax
+
+    from repro.models import registry as jreg
+    from repro_torch.models import params as tparams, registry as treg
+
+    cfg = tpm.LLAMA32_1B_SMOKE
+    jspecs = jax.tree_util.tree_leaves(
+        jreg.param_specs(jpm.LLAMA32_1B_SMOKE),
+        is_leaf=lambda x: hasattr(x, "axes"))
+    tspecs = [s for _, s in tparams._leaves(treg.param_specs(cfg))]
+    assert [(s.shape, s.axes) for s in jspecs] == [
+        (s.shape, s.axes) for s in tspecs]
+    p = treg.init_params(cfg, 0, device="cpu")["layers"]
+    d, h, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
+    down = 1.0 / math.sqrt(2 * cfg.num_layers)
+    want = {"wq": 1 / math.sqrt(d), "wk": 1 / math.sqrt(d),
+            "wv": 1 / math.sqrt(d), "wo": down / math.sqrt(h * hd)}
+    for k, std in want.items():
+        assert float(p["attn"][k].std()) == pytest.approx(std, rel=0.1), k
+    assert float(p["mlp"]["w_gate"].std()) == pytest.approx(
+        1 / math.sqrt(d), rel=0.1)
+    jwq = jreg.init_params(jpm.LLAMA32_1B_SMOKE,
+                           jax.random.PRNGKey(0))["layers"]["attn"]["wq"]
+    assert float(jwq.std()) == pytest.approx(1 / math.sqrt(h), rel=0.1)

@@ -57,6 +57,8 @@ def test_entry_points_default_to_the_gpu():
     from repro_torch.models import registry, transformer
     from repro_torch.models.params import init_params
     from repro_torch.serving import engine
+    from repro_torch.training import step, train_loop
     for fn in (engine.Engine.__init__, engine.generate, registry.init_params,
-               init_params, transformer.init_paged_cache):
+               init_params, transformer.init_paged_cache, step.init_state,
+               train_loop.train):
         assert inspect.signature(fn).parameters["device"].default == "cuda"

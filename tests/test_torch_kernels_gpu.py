@@ -17,10 +17,12 @@ torch = pytest.importorskip("torch")
 # oversubscribe the host
 torch.set_num_threads(1)
 
-from repro_torch.core.packing import PackedBCSC, pack  # noqa: E402
+from repro_torch.core import topk  # noqa: E402
+from repro_torch.core.packing import PackedBCSC, pack, unpack  # noqa: E402
 from repro_torch.core.prune_grow import (BlastSpec, initial_mask,  # noqa: E402
                                          prune_weight)
 from repro_torch.kernels import bspmm as tbs, ops as tops  # noqa: E402
+from repro_torch.kernels import bspmm_t as tbt  # noqa: E402
 from repro_torch.kernels import paged_attention as tpa  # noqa: E402
 
 DTYPES = ["float32", "bfloat16"]
@@ -121,3 +123,87 @@ def test_launchers_reject_what_the_kernels_do_not_take(cuda):
         tbs.bspmm(x[:, :256].contiguous().half(), p)
     with pytest.raises(ValueError, match="K="):
         tbs.bspmm(x, p)
+
+
+def _mask_cases(k, n, bi, bo, gen):
+    """Balanced magnitude mask; the same with block-rows 0 and 2 of W
+    zeroed, so no kept block visits them; a global-selection mask, which
+    packs with zero padding blocks at idx 0."""
+    w = torch.randn(k, n, generator=gen) / k ** 0.5
+    spec = BlastSpec(b_in=bi, b_out=bo, s_init=0.75)
+    hole = w.clone()
+    hole[:bi] = 0.0
+    hole[2 * bi:3 * bi] = 0.0
+    norms = topk.block_norms(w, bi, bo)
+    glob = topk.topk_mask_global(norms, norms.numel() // 4)
+    return {"balanced": (w, initial_mask(spec, w)),
+            "empty_rows": (hole, initial_mask(spec, hole)),
+            "global": (w, glob)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [5, 128, 1024])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("block", [(128, 128), (32, 16), (16, 64)])
+def test_bspmm_t_matches_plain(cuda, m, dtype, block):
+    dt = getattr(torch, dtype)
+    bi, bo = block
+    k, n = 8 * bi, 4 * bo
+    gen = torch.Generator().manual_seed(m + bi)
+    dy = torch.randn(m, n, generator=gen).to(cuda, dt)
+    for name, (w, mask) in _mask_cases(k, n, bi, bo, gen).items():
+        p = pack(topk.apply_block_mask(w, mask, bi, bo), mask, bi, bo)
+        p = PackedBCSC(p.blocks.to(cuda, dt), p.idx.to(cuda), p.kb)
+        table = tbt.device_table(p.idx, p.kb)
+        before = tbt.LAUNCHES["bspmm_t"]
+        got = tops.bspmm_t(dy, p, table)
+        want = tops.bspmm_t_plain(dy, p)
+        torch.cuda.synchronize()
+        assert tbt.LAUNCHES["bspmm_t"] == before + 1
+        assert got.dtype == dt and got.shape == (m, k)
+        assert float((got.float() - want.float()).abs().max()) <= _tol(
+            dt, want), name
+        if name == "empty_rows":
+            assert not bool(got[:, :bi].any()), "unvisited row not zero"
+
+
+@pytest.mark.gpu
+def test_trainable_bspmm_matches_dense_autograd(cuda):
+    """f32: dX everywhere and dW at kept blocks against autograd of the
+    pruned dense product; bspmm and bspmm_t each launch once."""
+    gen = torch.Generator().manual_seed(7)
+    m, k, n, b = 96, 256, 512, 128
+    w = torch.randn(k, n, generator=gen) / k ** 0.5
+    mask = initial_mask(BlastSpec(b_in=b, b_out=b, s_init=0.5), w)
+    wm = topk.apply_block_mask(w, mask, b, b)
+    p = pack(wm, mask, b, b)
+    x = torch.randn(m, k, generator=gen).to(cuda).requires_grad_()
+    c = torch.randn(m, n, generator=gen).to(cuda)
+    blocks = p.blocks.to(cuda).requires_grad_()
+    f = tops.make_bspmm_trainable(p.idx.to(cuda), p.kb)
+    before = (tbs.LAUNCHES["bspmm"], tbt.LAUNCHES["bspmm_t"])
+    dx, db = torch.autograd.grad((f(x, blocks) * c).sum(), (x, blocks))
+    assert (tbs.LAUNCHES["bspmm"], tbt.LAUNCHES["bspmm_t"]) == (
+        before[0] + 1, before[1] + 1)
+    wd = wm.to(cuda).requires_grad_()
+    dx_d, dw_d = torch.autograd.grad(((x @ wd) * c).sum(), (x, wd))
+    torch.cuda.synchronize()
+    assert float((dx - dx_d).abs().max()) <= _tol(torch.float32, dx_d)
+    kept = topk.expand_mask(mask, b, b).to(cuda)
+    dw = unpack(PackedBCSC(db, p.idx.to(cuda), p.kb))
+    assert float((dw - dw_d)[kept].abs().max()) <= _tol(torch.float32, dw_d)
+
+
+@pytest.mark.gpu
+def test_bspmm_t_launcher_rejects_what_the_kernel_does_not_take(cuda):
+    p = _packed(0, 256, 256, 128, 128, 0.5, torch.bfloat16, cuda)
+    dy = torch.randn(8, 512, device=cuda, dtype=torch.bfloat16)
+    table = tbt.device_table(p.idx, p.kb)
+    with pytest.raises(ValueError, match="contiguous"):
+        tbt.bspmm_t(dy[:, ::2], p, table)
+    with pytest.raises(TypeError, match="int32"):
+        tbt.bspmm_t(dy[:, :256].contiguous(), p, table.long())
+    with pytest.raises(TypeError, match="not supported"):
+        tbt.bspmm_t(dy[:, :256].contiguous().half(), p, table)
+    with pytest.raises(ValueError, match="N="):
+        tbt.bspmm_t(dy, p, table)
