@@ -89,12 +89,25 @@ def check(cond, msg):
 # ------------------------------------------------------------------ timing
 class Timer:
     """Median device time of one call, each rep after an L2 flush: on the
-    served path every layer's weights arrive cold from device memory."""
+    served path every layer's weights arrive cold from device memory. The
+    flush writes the 256 MB buffer FLUSHES times (~0.34 ms of device
+    work), so the card is still busy while the host runs the wrapper and
+    enqueues the kernel: the events then bracket the kernel, not the
+    host (a single pass did not hide a slow host's wrapper time)."""
+
+    FLUSHES = 4
 
     def __init__(self, torch, reps=25):
         self.torch, self.reps = torch, reps
         self.flush = torch.empty(256 * 2**20, dtype=torch.uint8,
                                  device=DEVICE)
+        for _ in range(50):      # a busy card first: clocks up before the
+            self.flush.zero_()   # first case is timed
+        torch.cuda.synchronize()
+
+    def flush_l2(self):
+        for _ in range(self.FLUSHES):
+            self.flush.zero_()
 
     def ms(self, fn):
         torch = self.torch
@@ -102,7 +115,7 @@ class Timer:
         torch.cuda.synchronize()
         pairs = []
         for _ in range(self.reps):
-            self.flush.zero_()
+            self.flush_l2()
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -111,6 +124,28 @@ class Timer:
             pairs.append((s, e))
         torch.cuda.synchronize()
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def profiled_ms(torch, timer, fn, reps=25):
+    """The profiler's mean device duration of the port's block-sparse
+    kernels (``bsp::`` in the name) in ``fn``, each call after the same L2
+    flush as ``Timer``; "not measured" when the profiler records none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            timer.flush_l2()
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and "bsp::" in e.key]
+    n = sum(e.count for e in evs)
+    if not n:
+        return "not measured"
+    return sum(e.self_device_time_total for e in evs) / n / 1e3
 
 
 def bound_ms(card, nbytes, ops, dtype_key):
@@ -206,8 +241,12 @@ def phase_kernels(torch, card, packed, joint):
     shapes: layer 0's real packed weights, M in {5, 8, 128} rows
     (decode lanes and a prefill chunk of 8 lanes x 16) for the MLP
     kernels, B=8 lanes and R in {1, 4, 16, 32} pages for decode, in bf16
-    and f32. Returns per-kernel summaries at the decode shape (M=8 bf16,
-    R=16 bf16: the largest read bucket of the served traffic)."""
+    and f32; and bspmm at packed fine-tuning's M = 1024 rows on the gate
+    shape X (1024, 2048) -> (1024, 8192) and the down shape. Each bspmm
+    line names the kernel and split it took; the decode-shape bspmm line
+    also gives the profiler's kernel duration beside the event time.
+    Returns per-kernel summaries at the decode shape (M=8 bf16, R=16
+    bf16: the largest read bucket of the served traffic)."""
     import torch.nn.functional as F
     from repro_torch.core.packing import PackedBCSC, unpack
     from repro_torch.kernels import bspmm as kb, ops
@@ -227,19 +266,20 @@ def phase_kernels(torch, card, packed, joint):
     dense_gu_j = torch.cat([unpack(jmlp0["w_gate"]),
                             unpack(jmlp0["w_up"])], dim=1)
 
-    def record(name, dt, shape, got, want, t_k, t_p, t_l, nbytes, ops_):
+    def record(name, dt, shape, got, want, t_k, t_p, t_l, nbytes, ops_,
+               **extra):
         err = float((got.float() - want.float()).abs().max())
         tol = ulp_tol(torch, want, dt)
         key = "bf16" if dt == torch.bfloat16 else "f32"
         b_ms, b_by = bound_ms(card, nbytes, ops_, key)
         emit(phase="kernel", name=name, dtype=key, shape=shape,
              max_abs_err=err, tol=tol, ms=t_k, plain_ms=t_p,
-             library_ms=t_l, bound_ms=b_ms, bound_by=b_by)
+             library_ms=t_l, bound_ms=b_ms, bound_by=b_by, **extra)
         check(err <= tol and math.isfinite(err),
               f"{name} {key} {shape}: max abs err {err} > tol {tol}")
         return dict(max_abs_err=err, tol=tol, ms=t_k, plain_ms=t_p,
                     library_ms=t_l, bound_ms=b_ms, bound_by=b_by,
-                    shape=shape, dtype=key)
+                    shape=shape, dtype=key, **extra)
 
     for dt in (torch.bfloat16, torch.float32):
         es = 2 if dt == torch.bfloat16 else 4
@@ -277,10 +317,31 @@ def phase_kernels(torch, card, packed, joint):
                     ops.flops_bspmm(m, jgate) * 2),
             }
             for name, (k_fn, p_fn, l_fn, nbytes, ops_) in rows.items():
+                extra = {}
+                if name == "bspmm":
+                    extra["plan"] = kb.launch_plan(h, down).describe()
+                    if dt == torch.bfloat16 and m == 8:
+                        extra["profiler_ms"] = profiled_ms(torch, timer, k_fn)
                 res = record(name, dt, [m], k_fn(), p_fn(), timer.ms(k_fn),
-                             timer.ms(p_fn), timer.ms(l_fn), nbytes, ops_)
+                             timer.ms(p_fn), timer.ms(l_fn), nbytes, ops_,
+                             **extra)
                 if dt == torch.bfloat16 and m == 8:
                     summary[name] = res
+        # packed fine-tuning's forward: M = 1024 rows (8 x 128 tokens)
+        for shape, p in (("gate", gate), ("down", down)):
+            m = 1024
+            x = torch.randn(m, p.kb * p.b_in, generator=gen,
+                            device=DEVICE).to(dt)
+            wdense = unpack(p)
+            k_fn = lambda: kb.bspmm(x, p)  # noqa: E731
+            p_fn = lambda: ops.bspmm_plain(x, p)  # noqa: E731
+            l_fn = lambda: torch.matmul(x, wdense)  # noqa: E731
+            nbytes = (x.numel() * es + p.blocks.numel() * es
+                      + p.idx.numel() * 4 + m * p.nb * p.b_out * es)
+            record("bspmm", dt, [m, shape], k_fn(), p_fn(), timer.ms(k_fn),
+                   timer.ms(p_fn), timer.ms(l_fn), nbytes,
+                   ops.flops_bspmm(m, p),
+                   plan=kb.launch_plan(x, p).describe())
         # decode: B=8 lanes, 8 kv heads x 4 query heads of 64, pages of 16,
         # a pool of 256 pages per layer (the served engine's)
         b, kvh, g, hd, ps, n_pages = 8, 8, 4, 64, 16, 256
@@ -605,11 +666,12 @@ def phase_kernels_t(torch, card, packed):
         for name, p0, kept, m in cases:
             p = PackedBCSC(p0.blocks.to(dt).contiguous(), p0.idx, p0.kb)
             kept = p.nb * p.nnz if kept is None else kept
-            table = kt.device_table(p.idx, p.kb)
+            plan = kt.device_plan(p.idx, p.kb)
             wt_dense = unpack(p).t()
             dy = torch.randn(m, p.nb * p.b_out, generator=gen,
                              device=DEVICE).to(dt)
-            k_fn = lambda: ops.bspmm_t(dy, p, table)  # noqa: E731
+            lp = kt.launch_plan(dy, p, plan)
+            k_fn = lambda: ops.bspmm_t(dy, p, plan)  # noqa: E731
             p_fn = lambda: ops.bspmm_t_plain(dy, p)  # noqa: E731
             l_fn = lambda: torch.matmul(dy, wt_dense)  # noqa: E731
             got, want = k_fn(), p_fn()
@@ -617,14 +679,17 @@ def phase_kernels_t(torch, card, packed):
             err = float((got.float() - want.float()).abs().max())
             tol = ulp_tol(torch, want, dt)
             nbytes = (dy.numel() * es + p.blocks.numel() * es
-                      + table.numel() * 4 + m * p.kb * p.b_in * es)
+                      + plan.visits.numel() * 4
+                      + plan.bounds[lp.splits - 1].numel() * 4
+                      + m * p.kb * p.b_in * es)
             ops_ = 2 * m * kept * p.b_in * p.b_out
             b_ms, b_by = bound_ms(card, nbytes, ops_, key)
             row = dict(max_abs_err=err, tol=tol, ms=timer.ms(k_fn),
                        plain_ms=timer.ms(p_fn), library_ms=timer.ms(l_fn),
                        bound_ms=b_ms, bound_by=b_by, shape=[m, name],
-                       dtype=key, visits_max=int(table.shape[1]),
-                       rows_never_visited=int((table[:, 0] < 0).sum()))
+                       dtype=key, plan=lp.describe(),
+                       visits_max=plan.max_len,
+                       rows_never_visited=int((plan.lengths == 0).sum()))
             emit(phase="kernel", name="bspmm_t", **row)
             check(err <= tol and math.isfinite(err),
                   f"bspmm_t {key} {name} M={m}: max abs err {err} > {tol}")
@@ -931,7 +996,8 @@ def main():
             max_abs_err=s["max_abs_err"], ms=s["ms"],
             plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
             bound_by=s["bound_by"], library_ms=s["library_ms"],
-            matched=True, timed_shape=s["shape"], dtype=s["dtype"]))
+            matched=True, timed_shape=s["shape"], dtype=s["dtype"],
+            **({"plan": s["plan"]} if "plan" in s else {})))
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel never launched on a main path: {kernels}")
     emit(kernels=kernels)

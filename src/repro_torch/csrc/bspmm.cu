@@ -1,5 +1,5 @@
 // Block-sparse products over packed balanced BCSC, hand-written for
-// Hopper (sm_90a). Three kernels, one template:
+// Hopper (sm_90a):
 //
 //   bspmm            replaces src/repro/kernels/bspmm.py  _bspmm_kernel / bspmm
 //   fused_glu_split  replaces src/repro/kernels/bspmm.py  _fused_glu_kernel / fused_glu
@@ -10,27 +10,41 @@
 // idx (Nb, nnz) int32, the block-row of each kept block. X is (M, K)
 // row-major, Y is (M, Nb * b_out) row-major in X's type.
 //
-// What bounds it on an H100: at the serving shapes (M = 8 lanes per decode
-// step, 8 x 16 rows per prefill chunk) each kept weight block is used by at
-// most M rows, about 2 * M / sizeof(weight) operations per weight byte,
-// far below the ~295 operations per byte where the tensor cores would
-// become the limit. So the kernels are bound by the bytes of the kept
-// blocks. The design: one thread block owns one (BM x b_out) output tile
-// (grid = (ceil(M / BM), Nb)) and loops over the column's nnz kept blocks,
-// the loop that replaces the TPU grid's sequential third axis. Pruned
-// blocks are never read; at M <= BM every kept weight byte is read exactly
-// once. Each step loads the block's own idx entry, stages the X tile of
-// that block-row and the weight block in shared memory (in K chunks of at
-// most 16 KB of f32 per operand, so all three kernels stay under the 48 KB
-// static limit), and accumulates in f32 registers. The GLU activation is
-// applied in the epilogue, so the (M, d_ff) gate and up products never
-// reach device memory. Rows past M are masked (the TPU wrapper required
-// M % blk_m == 0). Plain f32 FMAs; wgmma, TMA and a pipelined ring are
-// later work.
+// bspmm runs the shared main loops of bsp_mma.cuh (FWD = true): the visit
+// list of output block-column j is its nnz slots, A is the X tile at
+// block-row idx[j, k], B the row-major block (ldmatrix.trans). What bounds
+// it on an H100, at the served shapes (Llama-3.2-1B down projection, 16
+// block-columns of 13 kept 128 x 128 bf16 blocks, 6.8 MB):
+//  * decode, M = 8 rows: bound by the weight bytes (a byte feeds ~8
+//    operations, against ~295 where the tensor cores would set the pace).
+//    Only 16 output tiles exist, so the host splits each column's 13
+//    visits over a cluster of up to 8 CTAs and the 128-wide block into two
+//    64-wide tiles: 16 x 2 x S CTAs, each streaming a few 16 KB half
+//    blocks through a 4-stage cp.async ring (32-48 KB in flight per CTA),
+//    with M padded to one 16-row mma tile (kernel 3, 16 x 64 x 64).
+//  * prefill chunk, M = 128, and fine-tuning, M = 1024: the 128 x 128 x 32
+//    tile (kernel 5) or the 64 x 64 x 32 one (kernel 4), chosen with the
+//    split by the host's cost model (kernels/split_plan.py); at M = 1024
+//    the work is bound by operations (each weight byte feeds ~1024).
+// f32, f32 X over bf16 weights, and block sides that are no multiple of 16
+// take the f32 FMA loop (kernels 0 and 1). The host chooses by dtype,
+// shape and alignment before the launch and raises on what no kernel
+// takes.
+//
+// The fused GLU kernels (MODE 1 and 2 of bsp_kernel below) keep the first
+// port's design: one thread block owns one (BM x b_out) output tile
+// (grid = (ceil(M / BM), Nb)) and loops over the column's nnz kept
+// blocks, staging the X tile(s) and the weight blocks in shared memory in
+// K chunks, accumulating in f32 registers with plain FMAs, and applying
+// the activation in the epilogue, so the (M, d_ff) gate and up products
+// never reach device memory. Rows past M are masked. Moving them onto the
+// shared tensor-core main loop is later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+
+#include "bsp_mma.cuh"
 
 namespace {
 
@@ -58,7 +72,6 @@ __device__ __forceinline__ float act_fn(int act, float g) {
   return fmaxf(g, 0.0f);
 }
 
-// MODE 0: Y = X Wa.
 // MODE 1: Y = act(X Wa) * (X Wb), idx tables ia and ib: two X tiles a step.
 // MODE 2: the same with one shared idx table ia: one X tile feeds both.
 template <typename TX, typename TW, int MODE>
@@ -68,9 +81,8 @@ __global__ void __launch_bounds__(NT)
                const int* __restrict__ ib, TX* __restrict__ y, int M, int K,
                int nnz, int b_in, int b_out, int act) {
   constexpr int NX = MODE == 1 ? 2 : 1;  // X tiles per step
-  constexpr int NW = MODE == 0 ? 1 : 2;  // weight blocks per step
   __shared__ float xs[NX][BM * KC_MAX];
-  __shared__ float ws[NW][W_CAP];
+  __shared__ float ws[2][W_CAP];
 
   const int j = blockIdx.y;        // block-column
   const int m0 = blockIdx.x * BM;  // first row of the tile
@@ -81,9 +93,9 @@ __global__ void __launch_bounds__(NT)
   const int n_rg = NT / b_out;     // row stride between a thread's rows
   const int kc_max = min(KC_MAX, W_CAP / b_out);
 
-  float acc[NW][BM];
+  float acc[2][BM];
 #pragma unroll
-  for (int w = 0; w < NW; ++w)
+  for (int w = 0; w < 2; ++w)
 #pragma unroll
     for (int i = 0; i < BM; ++i) acc[w][i] = 0.f;
 
@@ -104,20 +116,19 @@ __global__ void __launch_bounds__(NT)
       const size_t w0 = wofs + static_cast<size_t>(k0) * b_out;
       for (int e = tid; e < kc * b_out; e += NT) {
         ws[0][e] = ld(wa + w0 + e);
-        if constexpr (NW == 2) ws[1][e] = ld(wb + w0 + e);
+        ws[1][e] = ld(wb + w0 + e);
       }
       __syncthreads();
       if (rg < BM) {
         for (int kk = 0; kk < kc; ++kk) {
           const float wva = ws[0][kk * b_out + c];
-          float wvb = 0.f;
-          if constexpr (NW == 2) wvb = ws[1][kk * b_out + c];
+          const float wvb = ws[1][kk * b_out + c];
 #pragma unroll
           for (int i = 0; i < BM; ++i) {
             const int r = rg + i * n_rg;
             if (r < BM) {
               acc[0][i] += xs[0][r * kc + kk] * wva;
-              if constexpr (NW == 2) acc[1][i] += xs[NX - 1][r * kc + kk] * wvb;
+              acc[1][i] += xs[NX - 1][r * kc + kk] * wvb;
             }
           }
         }
@@ -131,8 +142,7 @@ __global__ void __launch_bounds__(NT)
     for (int i = 0; i < BM; ++i) {
       const int r = rg + i * n_rg, row = m0 + r;
       if (r < BM && row < M) {
-        float v = acc[0][i];
-        if constexpr (NW == 2) v = act_fn(act, v) * acc[1][i];
+        const float v = act_fn(act, acc[0][i]) * acc[1][i];
         st(y + static_cast<size_t>(row) * n + static_cast<size_t>(j) * b_out + c, v);
       }
     }
@@ -181,11 +191,19 @@ int dispatch(int x_dtype, int w_dtype, const void* x, const void* wa,
 extern "C" {
 
 // Each returns cudaGetLastError() after the launch (0 = launched).
-int bspmm_launch(const void* x, const void* blocks, const void* idx, void* y,
-                 int M, int K, int nb, int nnz, int b_in, int b_out,
-                 int x_dtype, int w_dtype, int device, void* stream) {
-  return dispatch<0>(x_dtype, w_dtype, x, blocks, idx, blocks, idx, y, M, K, nb,
-                     nnz, b_in, b_out, 0, device, stream);
+// bounds: (Nb, splits + 1) int32 chunk starts into the flat slots
+// j * nnz + k (kernels/split_plan.py); kernel: the id of bsp::run; bn, bk:
+// the FMA loop's tile width and K chunk (ignored by the tensor-core ones).
+int bspmm_launch(const void* x, const void* blocks, const void* idx,
+                 const void* bounds, void* y, int M, int K, int nb, int nnz,
+                 int b_in, int b_out, int n_split, int splits, int kernel,
+                 int bn, int bk, int x_dtype, int w_dtype, int device,
+                 void* stream) {
+  bsp::Args a{x, blocks, static_cast<const int*>(idx), nullptr,
+              static_cast<const int*>(bounds), y, M, K, nb * b_out, nnz,
+              b_in, b_out, n_split, bn, bk};
+  return bsp::run<true>(a, nb, kernel, splits, x_dtype, w_dtype, device,
+                        stream);
 }
 
 int fused_glu_split_launch(const void* x, const void* w_gate,

@@ -20,8 +20,9 @@ import torch
 from repro_torch.core.packing import PackedBCSC
 
 
-def tensor(a, device="cpu") -> torch.Tensor:
-    """One numpy array (bfloat16 included) -> torch tensor."""
+def tensor(a, *, device) -> torch.Tensor:
+    """One numpy array (bfloat16 included) -> torch tensor on ``device``
+    (named by every caller: the tests pass "cpu")."""
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
@@ -41,15 +42,16 @@ def _is_packed_like(x) -> bool:
     return all(hasattr(x, a) for a in ("blocks", "idx", "kb", "joint"))
 
 
-def to_torch(tree, device="cpu"):
-    """Nested dict of numpy arrays (and packed leaves) -> torch tree."""
+def to_torch(tree, *, device):
+    """Nested dict of numpy arrays (and packed leaves) -> torch tree on
+    ``device``."""
     if isinstance(tree, dict):
-        return {k: to_torch(v, device) for k, v in tree.items()}
+        return {k: to_torch(v, device=device) for k, v in tree.items()}
     if _is_packed_like(tree):
-        return PackedBCSC(blocks=tensor(tree.blocks, device),
-                          idx=tensor(tree.idx, device),
+        return PackedBCSC(blocks=tensor(tree.blocks, device=device),
+                          idx=tensor(tree.idx, device=device),
                           kb=int(tree.kb), joint=bool(tree.joint))
-    return tensor(tree, device)
+    return tensor(tree, device=device)
 
 
 def to_numpy(tree):
@@ -63,7 +65,7 @@ def to_numpy(tree):
     return array(tree)
 
 
-def train_state(state, device="cpu", seed: int = 0):
+def train_state(state, *, device, seed: int = 0):
     """A reference train state (any object with ``step``, ``params``,
     ``opt_state`` {'m', 'v'} and ``masks``, numpy leaves) -> the port's
     ``training.step.TrainState`` on ``device``."""
@@ -72,7 +74,7 @@ def train_state(state, device="cpu", seed: int = 0):
     gen.manual_seed(seed)
     return TrainState(
         step=int(np.asarray(state.step)),
-        params=to_torch(state.params, device),
-        opt_state={k: to_torch(state.opt_state[k], device)
+        params=to_torch(state.params, device=device),
+        opt_state={k: to_torch(state.opt_state[k], device=device)
                    for k in ("m", "v")},
-        masks=to_torch(dict(state.masks), device), generator=gen)
+        masks=to_torch(dict(state.masks), device=device), generator=gen)

@@ -6,16 +6,23 @@ These functions take CUDA tensors only and always launch their kernel;
 ``kernels/ops.py`` holds the plain PyTorch versions and sends a CPU
 tensor there. Every launch adds one to its entry in ``LAUNCHES``, so a
 run can show that it went through the kernels.
+
+``bspmm`` runs the shared main loops of ``csrc/bsp_mma.cuh``. Its split
+plan (``split_plan.py``) depends on shapes alone: every column of a
+balanced pack is a run of nnz consecutive slots, so the chunk bounds of a
+(Nb, nnz, splits) are built once and cached on the device, never per
+call, and the kernel and split are chosen once per (M, shape, dtype).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from repro_torch.core.packing import PackedBCSC, pad_nnz
-from repro_torch.kernels import build
+from repro_torch.kernels import build, split_plan
 
 LAUNCHES = {"bspmm": 0, "fused_glu_split": 0, "fused_glu_joint": 0}
 
@@ -24,7 +31,7 @@ ACT_IDS = {"silu": 0, "gelu": 1, "relu": 2}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    "bspmm_launch": [_P, _P, _P, _P] + [_I] * 9 + [_P],
+    "bspmm_launch": [_P] * 5 + [_I] * 14 + [_P],
     "fused_glu_split_launch": [_P] * 6 + [_I] * 10 + [_P],
     "fused_glu_joint_launch": [_P] * 5 + [_I] * 10 + [_P],
 }
@@ -69,8 +76,7 @@ def _check_operands(x: torch.Tensor, packs: list[PackedBCSC]) -> None:
 
 
 def _common(x: torch.Tensor, p: PackedBCSC):
-    dev = x.device.index if x.device.index is not None else \
-        torch.cuda.current_device()
+    dev = device_index(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     nb, nnz, b_in, b_out = p.blocks.shape
     out = torch.empty((x.shape[0], nb * b_out), dtype=x.dtype,
@@ -83,14 +89,53 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
+@functools.cache
+def n_sms(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def device_index(x: torch.Tensor) -> int:
+    return x.device.index if x.device.index is not None else \
+        torch.cuda.current_device()
+
+
+def aligned16(*ptrs_and_strides: int) -> bool:
+    """Every pointer and byte stride given is a multiple of 16."""
+    return all(v % 16 == 0 for v in ptrs_and_strides)
+
+
+def launch_plan(x: torch.Tensor, packed: PackedBCSC) -> split_plan.Launch:
+    """The kernel and split ``bspmm`` takes for these operands."""
+    nb, nnz, b_in, b_out = packed.blocks.shape
+    ea, ew = x.element_size(), packed.blocks.element_size()
+    ok = aligned16(x.data_ptr(), packed.blocks.data_ptr(), x.shape[1] * ea,
+                   b_in * ea, b_out * ew)
+    return split_plan.choose(
+        x.shape[0], b_in, b_out, nb, nnz, nb * nnz,
+        bf16=x.dtype == packed.blocks.dtype == torch.bfloat16, a_size=ea,
+        w_size=ew, aligned=ok, n_sm=n_sms(device_index(x)))
+
+
+@functools.cache
+def column_bounds(device: str, nb: int, nnz: int,
+                  splits: int) -> torch.Tensor:
+    """(Nb, splits + 1) int32 chunk starts of the balanced columns' visit
+    lists (slots j * nnz + k), on ``device``; built once per key."""
+    b = split_plan.split_bounds(np.full(nb, nnz), splits)
+    return torch.from_numpy(b).to(device)
+
+
 def bspmm(x: torch.Tensor, packed: PackedBCSC) -> torch.Tensor:
     """Y = X @ W with W packed balanced BCSC; (M, K) -> (M, Nb*b_out) in
-    X's dtype, f32 accumulation."""
+    X's dtype, f32 accumulation, one rounding."""
     _check_operands(x, [packed])
     out, dev, stream, dims = _common(x, packed)
+    lp = launch_plan(x, packed)
+    bounds = column_bounds(str(x.device), packed.nb, packed.nnz, lp.splits)
     rc = _fn("bspmm_launch")(
         x.data_ptr(), packed.blocks.data_ptr(), packed.idx.data_ptr(),
-        out.data_ptr(), *dims, DTYPE_CODES[x.dtype],
+        bounds.data_ptr(), out.data_ptr(), *dims, lp.n_split, lp.splits,
+        lp.kernel.kid, lp.bn, lp.bk, DTYPE_CODES[x.dtype],
         DTYPE_CODES[packed.blocks.dtype], dev, stream)
     _raise_on(rc, "bspmm")
     LAUNCHES["bspmm"] += 1

@@ -3,9 +3,10 @@ load them with ``ctypes`` (a plain C interface: pointers and the stream
 as ``c_void_p``, sizes as ``c_int``).
 
 Each source becomes its own shared library in ``build/torch_kernels/`` at
-the repository root, named by a hash of the source and the flags, so an
-edited source rebuilds and an unchanged one is reused. All missing
-libraries are compiled at once, one ``nvcc`` process per source started
+the repository root, named by a hash of the source, every header under
+``csrc/`` (``*.cuh``, which the sources include) and the flags, so an
+edited source or header rebuilds and an unchanged one is reused. All
+missing libraries are compiled at once, one ``nvcc`` process per source started
 together. Nothing here runs at import: the first kernel launch (or
 ``build_all``) triggers the build, so CPU-only hosts never need ``nvcc``.
 """
@@ -41,8 +42,11 @@ def nvcc_path() -> str:
                        "to build the CUDA kernels")
 
 
-def library_path(source: str) -> Path:
-    h = hashlib.sha256((CSRC / source).read_bytes())
+def library_path(source: str, csrc: Path = CSRC) -> Path:
+    h = hashlib.sha256((csrc / source).read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
 

@@ -98,11 +98,11 @@ def bspmm_t_plain(dy: torch.Tensor, packed: PackedBCSC) -> torch.Tensor:
 
 
 def bspmm_t(dy: torch.Tensor, packed: PackedBCSC,
-            table: torch.Tensor | None = None) -> torch.Tensor:
-    """``table``: the kernel's transposed table
-    (``kernels/bspmm_t.device_table``), built per call when omitted."""
+            plan: "_kt.TransposedPlan | None" = None) -> torch.Tensor:
+    """``plan``: the kernel's transposed visit lists
+    (``kernels/bspmm_t.device_plan``), built per call when omitted."""
     if _on_cuda(dy):
-        return _kt.bspmm_t(dy, packed, table)
+        return _kt.bspmm_t(dy, packed, plan)
     return bspmm_t_plain(dy, packed)
 
 
@@ -119,9 +119,9 @@ def bspmm_grad_blocks(x: torch.Tensor, dy: torch.Tensor,
 
 class _TrainableBSpMM(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, blocks, idx, kb, table):
+    def forward(ctx, x, blocks, idx, kb, plan):
         ctx.save_for_backward(x, blocks)
-        ctx.idx, ctx.kb, ctx.table = idx, kb, table
+        ctx.idx, ctx.kb, ctx.plan = idx, kb, plan
         return bspmm(x, PackedBCSC(blocks, idx, kb))
 
     @staticmethod
@@ -129,7 +129,7 @@ class _TrainableBSpMM(torch.autograd.Function):
         x, blocks = ctx.saved_tensors
         p = PackedBCSC(blocks, ctx.idx, ctx.kb)
         dy = dy.contiguous()
-        dx = bspmm_t(dy, p, ctx.table) if ctx.needs_input_grad[0] else None
+        dx = bspmm_t(dy, p, ctx.plan) if ctx.needs_input_grad[0] else None
         db = (bspmm_grad_blocks(x, dy, p) if ctx.needs_input_grad[1]
               else None)
         return dx, db, None, None, None
@@ -140,13 +140,14 @@ def make_bspmm_trainable(idx: torch.Tensor, kb: int):
     structure (idx closed over: the paper's fine-tuning stage at final
     sparsity). Returns f(x, blocks): the forward is ``bspmm``, dX the
     transposed BSpMM and dBlocks ``bspmm_grad_blocks``, each on kept
-    blocks only. For a CUDA idx the kernel's transposed table is built
-    here, once (one host copy of idx), not per call."""
+    blocks only. For a CUDA idx the kernel's transposed visit lists and
+    their split bounds are built here, once (one host copy of idx), not
+    per call."""
     idx = idx.contiguous()
-    table = _kt.device_table(idx, kb) if _on_cuda(idx) else None
+    plan = _kt.device_plan(idx, kb) if _on_cuda(idx) else None
 
     def f(x: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
-        return _TrainableBSpMM.apply(x, blocks, idx, kb, table)
+        return _TrainableBSpMM.apply(x, blocks, idx, kb, plan)
     return f
 
 

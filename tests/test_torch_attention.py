@@ -66,7 +66,7 @@ def test_paged_write_drops_bitwise(case):
 def _attn_params(cfg, seed=0):
     p = jreg.init_params(cfg, jax.random.PRNGKey(seed))["layers"]["attn"]
     p = jax.tree_util.tree_map(lambda a: a[0], p)
-    return p, interop.to_torch(jax.device_get(p))
+    return p, interop.to_torch(jax.device_get(p), device="cpu")
 
 
 @pytest.mark.parametrize("window", [0, 5])
@@ -85,8 +85,8 @@ def test_paged_decode_attention_matches(window, pool_dtype):
         cfg, jp, jnp.asarray(x), pool_k, pool_v, jnp.asarray(bt),
         jnp.asarray(pos), read_pages=3, window=window,
         offsets=jnp.asarray(offsets))
-    tk = interop.tensor(np.asarray(pool_k))
-    tv = interop.tensor(np.asarray(pool_v))
+    tk = interop.tensor(np.asarray(pool_k), device="cpu")
+    tv = interop.tensor(np.asarray(pool_v), device="cpu")
     ty, tk2, tv2 = tattn.paged_decode_attention(
         cfg, tp, torch.from_numpy(x), tk, tv, torch.from_numpy(bt),
         torch.from_numpy(pos), read_pages=3, window=window,

@@ -51,7 +51,7 @@ def _packed(seed, k, n, bi, bo, s, selection="balanced"):
 
 
 def _port(p) -> PackedBCSC:
-    return interop.to_torch(jax.device_get(p))
+    return interop.to_torch(jax.device_get(p), device="cpu")
 
 
 def test_transposed_table_lists_every_slot_once():

@@ -24,6 +24,7 @@ from repro_torch.core.prune_grow import (BlastSpec, initial_mask,  # noqa: E402
 from repro_torch.kernels import bspmm as tbs, ops as tops  # noqa: E402
 from repro_torch.kernels import bspmm_t as tbt  # noqa: E402
 from repro_torch.kernels import paged_attention as tpa  # noqa: E402
+from repro_torch.core.packing import pack_stacked  # noqa: E402
 
 DTYPES = ["float32", "bfloat16"]
 
@@ -154,9 +155,9 @@ def test_bspmm_t_matches_plain(cuda, m, dtype, block):
     for name, (w, mask) in _mask_cases(k, n, bi, bo, gen).items():
         p = pack(topk.apply_block_mask(w, mask, bi, bo), mask, bi, bo)
         p = PackedBCSC(p.blocks.to(cuda, dt), p.idx.to(cuda), p.kb)
-        table = tbt.device_table(p.idx, p.kb)
+        plan = tbt.device_plan(p.idx, p.kb)
         before = tbt.LAUNCHES["bspmm_t"]
-        got = tops.bspmm_t(dy, p, table)
+        got = tops.bspmm_t(dy, p, plan)
         want = tops.bspmm_t_plain(dy, p)
         torch.cuda.synchronize()
         assert tbt.LAUNCHES["bspmm_t"] == before + 1
@@ -198,12 +199,133 @@ def test_trainable_bspmm_matches_dense_autograd(cuda):
 def test_bspmm_t_launcher_rejects_what_the_kernel_does_not_take(cuda):
     p = _packed(0, 256, 256, 128, 128, 0.5, torch.bfloat16, cuda)
     dy = torch.randn(8, 512, device=cuda, dtype=torch.bfloat16)
-    table = tbt.device_table(p.idx, p.kb)
+    plan = tbt.device_plan(p.idx, p.kb)
     with pytest.raises(ValueError, match="contiguous"):
-        tbt.bspmm_t(dy[:, ::2], p, table)
-    with pytest.raises(TypeError, match="int32"):
-        tbt.bspmm_t(dy[:, :256].contiguous(), p, table.long())
+        tbt.bspmm_t(dy[:, ::2], p, plan)
+    other = tbt.device_plan(torch.zeros_like(p.idx)[:1], p.kb)
+    with pytest.raises(ValueError, match="plan lists"):
+        tbt.bspmm_t(dy[:, :256].contiguous(), p, other)
     with pytest.raises(TypeError, match="not supported"):
-        tbt.bspmm_t(dy[:, :256].contiguous().half(), p, table)
+        tbt.bspmm_t(dy[:, :256].contiguous().half(), p, plan)
     with pytest.raises(ValueError, match="N="):
-        tbt.bspmm_t(dy, p, table)
+        tbt.bspmm_t(dy, p, plan)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [5, 8, 128, 1024])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("block", [(128, 128), (32, 16), (16, 64), (8, 8)])
+def test_bspmm_kernels_match_plain(cuda, m, dtype, block):
+    """Every main loop against the plain version: bf16 blocks whose sides
+    are multiples of 16 take the tensor cores, f32 and b = 8 the FMA
+    loop; the global-selection mask packs zero padding at idx 0."""
+    dt = getattr(torch, dtype)
+    bi, bo = block
+    k, n = 8 * bi, 4 * bo
+    gen = torch.Generator().manual_seed(m + bi + bo)
+    x = torch.randn(m, k, generator=gen).to(cuda, dt)
+    for name, (w, mask) in _mask_cases(k, n, bi, bo, gen).items():
+        p = pack(topk.apply_block_mask(w, mask, bi, bo), mask, bi, bo)
+        p = PackedBCSC(p.blocks.to(cuda, dt), p.idx.to(cuda), p.kb)
+        lp = tbs.launch_plan(x, p)
+        tc = dt == torch.bfloat16 and bi % 16 == 0 and bo % 16 == 0
+        assert (lp.kernel.kid >= 2) == tc, lp
+        before = tbs.LAUNCHES["bspmm"]
+        got = tops.bspmm(x, p)
+        want = tops.bspmm_plain(x, p)
+        torch.cuda.synchronize()
+        assert tbs.LAUNCHES["bspmm"] == before + 1
+        assert got.dtype == dt and got.shape == (m, n)
+        assert float((got.float() - want.float()).abs().max()) <= _tol(
+            dt, want), (name, lp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_bspmm_t_global_mask_at_fine_tuning_rows(cuda, dtype):
+    """The served down shape (dY (1024, 2048) -> dX (1024, 8192), 128 x
+    128 blocks) under a global-selection mask: block-row 0's list is
+    long (zero padding at idx 0); in bf16 it is split across a cluster
+    (in f32 the FMA loop's total work fills the card, so one CTA per
+    tile is cheapest)."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(5)
+    k, n, b, m = 8192, 2048, 128, 1024
+    w = torch.randn(k, n, generator=gen) / k ** 0.5
+    norms = topk.block_norms(w, b, b)
+    mask = topk.topk_mask_global(norms, norms.numel() // 5)
+    p = pack(topk.apply_block_mask(w, mask, b, b), mask, b, b)
+    p = PackedBCSC(p.blocks.to(cuda, dt), p.idx.to(cuda), p.kb)
+    plan = tbt.device_plan(p.idx, p.kb)
+    assert plan.max_len > 2 * plan.total / p.kb      # a long row 0
+    dy = torch.randn(m, n, generator=gen).to(cuda, dt)
+    if dt == torch.bfloat16:
+        assert tbt.launch_plan(dy, p, plan).splits > 1
+    got = tops.bspmm_t(dy, p, plan)
+    want = tops.bspmm_t_plain(dy, p)
+    torch.cuda.synchronize()
+    assert float((got.float() - want.float()).abs().max()) <= _tol(dt, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_split_kernels_are_bitwise_deterministic(cuda, dtype):
+    """Split visit lists are reduced in rank order, not by atomics: two
+    runs of the same case give the same bits (bf16 splits both products
+    at these shapes; f32 runs them unsplit, and is held to the same)."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(9)
+    k, n, b = 2048, 8192, 128
+    w = torch.randn(k, n, generator=gen) / k ** 0.5
+    mask = initial_mask(BlastSpec(b_in=b, b_out=b, s_init=0.8), w)
+    p = pack(topk.apply_block_mask(w, mask, b, b), mask, b, b)
+    p = PackedBCSC(p.blocks.to(cuda, dt), p.idx.to(cuda), p.kb)
+    plan = tbt.device_plan(p.idx, p.kb)
+    for m in (8, 1024):
+        x = torch.randn(m, k, generator=gen).to(cuda, dt)
+        dy = torch.randn(m, n, generator=gen).to(cuda, dt)
+        if dt == torch.bfloat16:
+            assert max(tbs.launch_plan(x, p).splits,
+                       tbt.launch_plan(dy, p, plan).splits) > 1
+        y1, y2 = tops.bspmm(x, p), tops.bspmm(x, p)
+        d1, d2 = tops.bspmm_t(dy, p, plan), tops.bspmm_t(dy, p, plan)
+        torch.cuda.synchronize()
+        assert torch.equal(y1, y2) and torch.equal(d1, d2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_kernels_take_stacked_layer_views_and_unaligned_rows(cuda, dtype):
+    """Both kernels on ``.layer(i)`` views of a stacked pack (a storage
+    offset), and bspmm on an X that starts 2 bytes off a 16-byte
+    boundary, which no 16-byte copy may touch (the element-load FMA loop
+    takes it)."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(3)
+    n_l, k, n, b, m = 3, 512, 1024, 128, 64
+    w = torch.randn(n_l, k, n, generator=gen) / k ** 0.5
+    spec = BlastSpec(b_in=b, b_out=b, s_init=0.75)
+    masks = torch.stack([initial_mask(spec, w[i]) for i in range(n_l)])
+    wm = torch.stack([topk.apply_block_mask(w[i], masks[i], b, b)
+                      for i in range(n_l)])
+    ps = pack_stacked(wm, masks, b, b, nnz=int(masks.sum(-2).max()))
+    ps = PackedBCSC(ps.blocks.to(cuda, dt), ps.idx.to(cuda), ps.kb)
+    x = torch.randn(m, k, generator=gen).to(cuda, dt)
+    dy = torch.randn(m, n, generator=gen).to(cuda, dt)
+    for i in range(n_l):
+        p = ps.layer(i)
+        assert p.blocks.storage_offset() == i * p.blocks.numel()
+        plan = tbt.device_plan(p.idx, p.kb)
+        cases = [(tops.bspmm(x, p), tops.bspmm_plain(x, p)),
+                 (tops.bspmm_t(dy, p, plan), tops.bspmm_t_plain(dy, p))]
+        for got, want in cases:
+            assert float((got.float() - want.float()).abs().max()) <= _tol(
+                dt, want), i
+    buf = torch.empty(m * k + 1, device=cuda, dtype=dt)
+    xo = buf[1:].view(m, k)
+    xo.copy_(x)
+    p = ps.layer(1)
+    assert xo.data_ptr() % 16 and tbs.launch_plan(xo, p).kernel.kid == 0
+    got, want = tops.bspmm(xo, p), tops.bspmm_plain(xo, p)
+    torch.cuda.synchronize()
+    assert float((got.float() - want.float()).abs().max()) <= _tol(dt, want)

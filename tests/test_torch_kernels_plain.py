@@ -34,7 +34,7 @@ def _packed(seed, k, n, bi, bo, s, dtype=jnp.float32):
 
 
 def _t(p):
-    return interop.to_torch(p)
+    return interop.to_torch(p, device="cpu")
 
 
 def _x(seed, m, k):
@@ -106,7 +106,8 @@ def _both(q4, pk, pv, bt, bias, softcap=0.0):
         jnp.asarray(q4), jnp.asarray(pk), jnp.asarray(pv), jnp.asarray(bt),
         jnp.asarray(bias), scale=scale, softcap=softcap, interpret=True))
     got = tpa.paged_flash_decode_plain(
-        *map(interop.tensor, (q4, pk, pv, bt, bias)), scale=scale,
+        *(interop.tensor(a, device="cpu") for a in (q4, pk, pv, bt, bias)),
+        scale=scale,
         softcap=softcap).numpy()
     return got, want
 
@@ -127,7 +128,8 @@ def test_paged_flash_decode_plain(softcap):
         got, want = _both(q4, pk, pv, bt, bias, softcap)
         np.testing.assert_allclose(got, want, **TOL)
         np.testing.assert_allclose(
-            tpa.mask_bias(interop.tensor(posb), interop.tensor(kpos),
+            tpa.mask_bias(interop.tensor(posb, device="cpu"),
+                          interop.tensor(kpos, device="cpu"),
                           window).numpy(),
             np.asarray(jpa.mask_bias(posb, kpos, window)))
 
@@ -166,7 +168,7 @@ def test_paged_decode_attn_adapter():
     got = tpa.paged_decode_attn(
         cfg, torch.from_numpy(q), torch.from_numpy(pk), torch.from_numpy(pv),
         torch.from_numpy(bt)[:, :2], torch.from_numpy(posb),
-        interop.tensor(kpos)).numpy()
+        interop.tensor(kpos, device="cpu")).numpy()
     np.testing.assert_allclose(got, want, **TOL)
 
 

@@ -93,14 +93,16 @@ def test_adamw_update_matches_reference(clip):
     jp, jo = jax.tree_util.tree_map(jnp.asarray, p), {
         "m": jax.tree_util.tree_map(jnp.asarray, m),
         "v": jax.tree_util.tree_map(jnp.asarray, v)}
-    tp, to = interop.to_torch(p), {"m": interop.to_torch(m),
-                                   "v": interop.to_torch(v)}
+    tp = interop.to_torch(p, device="cpu")
+    to = {"m": interop.to_torch(m, device="cpu"),
+          "v": interop.to_torch(v, device="cpu")}
     jupdate = jax.jit(lambda g, o, p, s: jadam.update(c, g, o, p, s))
     for step in range(6):
         g = _tree(10 + step)
         jp, jo, jm = jupdate(jax.tree_util.tree_map(jnp.asarray, g), jo, jp,
                              jnp.int32(step))
-        tp, to, tm = tadam.update(tc, interop.to_torch(g), to, tp, step)
+        tp, to, tm = tadam.update(tc, interop.to_torch(g, device="cpu"), to,
+                                  tp, step)
         assert float(tm["grad_norm"]) == pytest.approx(
             float(jm["grad_norm"]), rel=1e-6)
         assert tm["lr"] == float(jm["lr"])
@@ -111,10 +113,10 @@ def test_adamw_update_matches_reference(clip):
 
 def test_adamw_update_leaves_its_inputs_unchanged():
     c = tadam.AdamWConfig(peak_lr=1e-2, warmup_steps=0)
-    p = interop.to_torch(_tree(0))
+    p = interop.to_torch(_tree(0), device="cpu")
     o = tadam.init(p)
     before = [x.clone() for x in tadam.tree_leaves(p)]
-    tadam.update(c, interop.to_torch(_tree(1)), o, p, 3)
+    tadam.update(c, interop.to_torch(_tree(1), device="cpu"), o, p, 3)
     for x, y in zip(tadam.tree_leaves(p), before):
         assert torch.equal(x, y)
     assert all(not bool(x.any()) for x in tadam.tree_leaves(o))
@@ -134,7 +136,8 @@ def test_lr_at_matches_jitted_reference_bitwise():
 
 def test_global_norm_and_clip():
     g = _tree(3)
-    clipped, norm = tadam.clip_by_global_norm(interop.to_torch(g), 1.0)
+    clipped, norm = tadam.clip_by_global_norm(
+        interop.to_torch(g, device="cpu"), 1.0)
     jclipped, jnorm = jadam.clip_by_global_norm(
         jax.tree_util.tree_map(jnp.asarray, g), 1.0)
     assert float(norm) == pytest.approx(float(jnorm), rel=1e-6)
@@ -155,7 +158,7 @@ def test_mask_moments_zeroes_pruned_blocks():
         jax.tree_util.tree_map(jnp.asarray, opt),
         {k: jnp.asarray(v) for k, v in masks.items()}, spec)
     got = tadam.mask_moments(
-        {k: interop.to_torch(v) for k, v in opt.items()},
+        {k: interop.to_torch(v, device="cpu") for k, v in opt.items()},
         {k: torch.from_numpy(v) for k, v in masks.items()},
         tpg.BlastSpec(**dataclasses.asdict(spec)))
     for w in ("m", "v"):

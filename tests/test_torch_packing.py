@@ -82,7 +82,8 @@ def _masked(seed, k=128, n=96, bi=16, bo=16, s=0.75, dtype=jnp.bfloat16,
 
 
 def _port(wm, m):
-    return interop.tensor(np.asarray(wm)), interop.tensor(np.asarray(m))
+    return (interop.tensor(np.asarray(wm), device="cpu"),
+            interop.tensor(np.asarray(m), device="cpu"))
 
 
 @pytest.mark.parametrize("balanced", [True, False])

@@ -117,12 +117,12 @@ def test_refresh_masks_tree_with_dense_flags_bitwise():
         jcfg.blast, p, g, m, s, jflags))(params, grads, masks, jnp.int32(9))
     tflags = treg.dense_layer_flags(tcfg)
     np.testing.assert_array_equal(tflags.numpy(), np.asarray(jflags))
-    tp = interop.to_torch(jax.device_get(params))
+    tp = interop.to_torch(jax.device_get(params), device="cpu")
     tmasks = treg.init_masks(tcfg, tp)
     _masks_equal(tmasks, masks)
     tm, tparams, tg = tsm.refresh_masks(
-        tcfg.blast, tp, interop.to_torch(jax.device_get(grads)), tmasks, 9,
-        tflags)
+        tcfg.blast, tp, interop.to_torch(jax.device_get(grads), device="cpu"),
+        tmasks, 9, tflags)
     _masks_equal(tm, jm)
     _masks_equal(tg, jg)
     _assert_tree_close(tparams, jp)
@@ -195,7 +195,8 @@ def test_forward_with_masks_and_its_gradients(name):
     out = {}
     for remat in (False, True):
         tcfg = port_cfg(jcfg, remat=remat)
-        leaves = tts._leaf_params(interop.to_torch(jax.device_get(params)))
+        leaves = tts._leaf_params(
+            interop.to_torch(jax.device_get(params), device="cpu"))
         tl, (tlogits, _) = tts.loss_fn(tcfg, leaves, tmasks, tb)
         tg = torch.autograd.grad(tl, tadam.tree_leaves(leaves))
         out[remat] = (tl.detach(), tlogits.detach(), tg)
@@ -223,7 +224,7 @@ def six_steps():
         jcfg = make()
         jopt, topt = _opt()
         js = jts.init_state(jcfg, jax.random.PRNGKey(0))
-        ts = interop.train_state(jax.device_get(js))
+        ts = interop.train_state(jax.device_get(js), device="cpu")
         jstep = jax.jit(jts.make_train_step(jcfg, jopt))
         tstep = tts.make_train_step(port_cfg(jcfg), topt)
         src = SyntheticLM(jcfg.vocab_size, 16, 4, seed=1)
@@ -272,7 +273,7 @@ def two_steps_in():
     jcfg = tiny_cfg()
     jopt, topt = _opt()
     js = jts.init_state(jcfg, jax.random.PRNGKey(0))
-    ts = interop.train_state(jax.device_get(js))
+    ts = interop.train_state(jax.device_get(js), device="cpu")
     tstep = tts.make_train_step(port_cfg(jcfg), topt)
     jstep = jax.jit(jts.make_train_step(jcfg, jopt))
     src = SyntheticLM(jcfg.vocab_size, 16, 4, seed=1)
@@ -310,13 +311,14 @@ def test_microbatches_and_in_step_teacher_match_reference():
     jopt, topt = _opt(weight_decay=0.0)
     tparams = jreg.init_params(jteacher, jax.random.PRNGKey(3))
     js = jts.init_state(jcfg, jax.random.PRNGKey(0))
-    ts = interop.train_state(jax.device_get(js))
+    ts = interop.train_state(jax.device_get(js), device="cpu")
     jstep = jax.jit(jts.make_train_step(
         jcfg, jopt, kd_beta=0.5, teacher_cfg=jteacher,
         teacher_params_static=tparams, microbatches=2))
     tstep = tts.make_train_step(
         port_cfg(jcfg), topt, kd_beta=0.5, teacher_cfg=port_cfg(jteacher),
-        teacher_params_static=interop.to_torch(jax.device_get(tparams)),
+        teacher_params_static=interop.to_torch(jax.device_get(tparams),
+                                               device="cpu"),
         microbatches=2)
     src = SyntheticLM(jcfg.vocab_size, 16, 4, seed=1)
     for i in range(2):
@@ -341,7 +343,7 @@ def _loop_runs():
                 .loss_spike(7, 1e3).nan_grads(9).nan_grads(10, "inf")
                 .nan_grads(11))
     js = jts.init_state(jcfg, jax.random.PRNGKey(0))
-    ts = interop.train_state(jax.device_get(js))
+    ts = interop.train_state(jax.device_get(js), device="cpu")
     jl = jloop.TrainLoopConfig(total_steps=14, log_every=3,
                                straggler_factor=1e9,
                                guard=jloop.GuardConfig(**gcfg))

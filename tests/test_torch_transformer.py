@@ -52,7 +52,7 @@ def serving_params(jcfg, packed, s=0.8, seed=0):
         masks[path] = jax.vmap(lambda wi: initial_mask(pspec, wi))(w)
     jp = (jexport.pack_params(jcfg, params, masks) if packed
           else jexport.prune_params(jcfg, params, masks))
-    return jp, interop.to_torch(jax.device_get(jp))
+    return jp, interop.to_torch(jax.device_get(jp), device="cpu")
 
 
 CFGS = {"tiny": tiny_cfg, "smoke": lambda: jpm.LLAMA32_1B_SMOKE}
@@ -137,8 +137,9 @@ def test_export_memory_report_and_joint_marking():
              "layers/mlp/w_down": jax.vmap(lambda w: initial_mask(dspec, w))(
                  params["layers"]["mlp"]["w_down"])}
     jpk = jexport.pack_params(jcfg, params, masks)
-    tparams = interop.to_torch(jax.device_get(params))
-    tmasks = {k: interop.tensor(np.asarray(v)) for k, v in masks.items()}
+    tparams = interop.to_torch(jax.device_get(params), device="cpu")
+    tmasks = {k: interop.tensor(np.asarray(v), device="cpu")
+              for k, v in masks.items()}
     tpk = texport.pack_params(tcfg, tparams, tmasks)
     for leaf in ("w_gate", "w_up", "w_down"):
         j, t = jpk["layers"]["mlp"][leaf], tpk["layers"]["mlp"][leaf]
@@ -199,8 +200,9 @@ def test_pack_params_unbalanced_masks():
         pspec = dataclasses.replace(spec, b_in=bi, b_out=bo)
         masks[path] = jax.vmap(lambda w: initial_mask(pspec, w))(
             jsm.get_path(params, path))
-    tparams = interop.to_torch(jax.device_get(params))
-    tmasks = {k: interop.tensor(np.asarray(v)) for k, v in masks.items()}
+    tparams = interop.to_torch(jax.device_get(params), device="cpu")
+    tmasks = {k: interop.tensor(np.asarray(v), device="cpu")
+              for k, v in masks.items()}
     jrep, trep = {}, {}
     with pytest.warns(jexport.UnbalancedMaskWarning):
         jpk = jexport.pack_params(jcfg, params, masks, pad_report=jrep)
