@@ -126,10 +126,12 @@ class Timer:
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def profiled_ms(torch, timer, fn, reps=25):
-    """The profiler's mean device duration of the port's block-sparse
-    kernels (``bsp::`` in the name) in ``fn``, each call after the same L2
-    flush as ``Timer``; "not measured" when the profiler records none."""
+def profiled_ms(torch, timer, fn, name, reps=25):
+    """The profiler's mean device duration of the kernels whose name
+    holds ``name`` (``bsp::`` for the shared block-sparse loops,
+    ``paged_decode`` for paged decode) in ``fn``, each call after the
+    same L2 flush as ``Timer``; "not measured" when the profiler records
+    none."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -141,7 +143,7 @@ def profiled_ms(torch, timer, fn, reps=25):
             fn()
         torch.cuda.synchronize()
     evs = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and "bsp::" in e.key]
+           if e.device_type == DeviceType.CUDA and name in e.key]
     n = sum(e.count for e in evs)
     if not n:
         return "not measured"
@@ -243,16 +245,19 @@ def phase_kernels(torch, card, packed, joint):
     kernels, B=8 lanes and R in {1, 4, 16, 32} pages for decode, in bf16
     and f32; and bspmm at packed fine-tuning's M = 1024 rows on the gate
     shape X (1024, 2048) -> (1024, 8192) and the down shape. Each bspmm
-    line names the kernel and split it took; the decode-shape bspmm line
-    also gives the profiler's kernel duration beside the event time.
+    and split fused-GLU line names the kernel and split it took (``plan``)
+    and each paged line its CTAs per (lane, kv head) (``splits``); their
+    bf16 lines also give the profiler's kernel duration beside the event
+    time.
     Returns per-kernel summaries at the decode shape (M=8 bf16, R=16
     bf16: the largest read bucket of the served traffic)."""
     import torch.nn.functional as F
     from repro_torch.core.packing import PackedBCSC, unpack
-    from repro_torch.kernels import bspmm as kb, ops
+    from repro_torch.kernels import bspmm as kb, ops, split_plan
     from repro_torch.kernels import paged_attention as pa
     timer = Timer(torch)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    n_sm = kb.n_sms(torch.cuda.current_device())
     summary = {}
 
     def cast(p, dt):
@@ -316,12 +321,15 @@ def phase_kernels(torch, card, packed, joint):
                     + jgate.idx.numel() * 4 + m * n_ff * es,
                     ops.flops_bspmm(m, jgate) * 2),
             }
+            plans = {"bspmm": kb.launch_plan(h, down),
+                     "fused_glu_split": kb.launch_plan(x, gate, up)}
             for name, (k_fn, p_fn, l_fn, nbytes, ops_) in rows.items():
                 extra = {}
-                if name == "bspmm":
-                    extra["plan"] = kb.launch_plan(h, down).describe()
-                    if dt == torch.bfloat16 and m == 8:
-                        extra["profiler_ms"] = profiled_ms(torch, timer, k_fn)
+                if name in plans:
+                    extra["plan"] = plans[name].describe()
+                    if dt == torch.bfloat16:
+                        extra["profiler_ms"] = profiled_ms(torch, timer,
+                                                           k_fn, "bsp::")
                 res = record(name, dt, [m], k_fn(), p_fn(), timer.ms(k_fn),
                              timer.ms(p_fn), timer.ms(l_fn), nbytes, ops_,
                              **extra)
@@ -375,9 +383,13 @@ def phase_kernels(torch, card, packed, joint):
             nbytes = (q4.numel() * es + valid * kvh * hd * es * 2
                       + bt.numel() * 4 + bias.numel() * 4 + q4.numel() * 4)
             ops_ = 4 * valid * kvh * g * hd
+            extra = {"splits": split_plan.decode_splits(b, kvh, r, n_sm)}
+            if dt == torch.bfloat16:
+                extra["profiler_ms"] = profiled_ms(torch, timer, k_fn,
+                                                   "paged_decode")
             res = record("paged_flash_decode", dt, [b, r], k_fn(), p_fn(),
                          timer.ms(k_fn), timer.ms(p_fn), timer.ms(l_fn),
-                         nbytes, ops_)
+                         nbytes, ops_, **extra)
             if dt == torch.bfloat16 and r == 16:
                 summary["paged_flash_decode"] = res
     return summary
@@ -997,7 +1009,8 @@ def main():
             plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
             bound_by=s["bound_by"], library_ms=s["library_ms"],
             matched=True, timed_shape=s["shape"], dtype=s["dtype"],
-            **({"plan": s["plan"]} if "plan" in s else {})))
+            **{k: s[k] for k in ("plan", "splits", "profiler_ms")
+               if k in s}))
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel never launched on a main path: {kernels}")
     emit(kernels=kernels)

@@ -31,14 +31,20 @@
 // shape and alignment before the launch and raises on what no kernel
 // takes.
 //
-// The fused GLU kernels (MODE 1 and 2 of bsp_kernel below) keep the first
-// port's design: one thread block owns one (BM x b_out) output tile
-// (grid = (ceil(M / BM), Nb)) and loops over the column's nnz kept
-// blocks, staging the X tile(s) and the weight blocks in shared memory in
-// K chunks, accumulating in f32 registers with plain FMAs, and applying
-// the activation in the epilogue, so the (M, d_ff) gate and up products
-// never reach device memory. Rows past M are masked. Moving them onto the
-// shared tensor-core main loop is later work.
+// The split fused GLU runs the same main loops in their GLU mode
+// (bsp_mma.cuh): each visit stages the X tiles at idx_gate and idx_up with
+// the gate and up blocks, and the cluster reduction applies the
+// activation to the f32 sums. At decode (M = 8, W_gate and W_up each 64
+// block-columns of 4 kept 128 x 128 bf16 blocks, 8.4 MB) it is bound by
+// those weight bytes, like bspmm.
+//
+// The joint fused GLU (fused_glu_joint_launch, bsp_kernel below) keeps the
+// first port's design: one thread block owns one (BM x b_out) output tile
+// (grid = (ceil(M / BM), Nb)) and loops over the column's nnz kept blocks,
+// staging one X tile and both weight blocks in shared memory in K chunks,
+// accumulating in f32 registers with plain FMAs, and applying the
+// activation in the epilogue. Rows past M are masked. Moving it onto the
+// GLU mode of the shared main loop is later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -62,26 +68,15 @@ __device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);  // round to nearest even, as astype does
 }
 
-// 0 = silu, 1 = gelu (tanh approximation), 2 = relu
-__device__ __forceinline__ float act_fn(int act, float g) {
-  if (act == 0) return g / (1.0f + expf(-g));
-  if (act == 1) {
-    const float c = 0.7978845608028654f;  // sqrt(2 / pi)
-    return 0.5f * g * (1.0f + tanhf(c * (g + 0.044715f * g * g * g)));
-  }
-  return fmaxf(g, 0.0f);
-}
-
-// MODE 1: Y = act(X Wa) * (X Wb), idx tables ia and ib: two X tiles a step.
-// MODE 2: the same with one shared idx table ia: one X tile feeds both.
-template <typename TX, typename TW, int MODE>
+// Y = act(X Wa) * (X Wb) with one shared idx table ia: one X tile feeds
+// both products.
+template <typename TX, typename TW>
 __global__ void __launch_bounds__(NT)
     bsp_kernel(const TX* __restrict__ x, const TW* __restrict__ wa,
                const int* __restrict__ ia, const TW* __restrict__ wb,
-               const int* __restrict__ ib, TX* __restrict__ y, int M, int K,
-               int nnz, int b_in, int b_out, int act) {
-  constexpr int NX = MODE == 1 ? 2 : 1;  // X tiles per step
-  __shared__ float xs[NX][BM * KC_MAX];
+               TX* __restrict__ y, int M, int K, int nnz, int b_in, int b_out,
+               int act) {
+  __shared__ float xs[BM * KC_MAX];
   __shared__ float ws[2][W_CAP];
 
   const int j = blockIdx.y;        // block-column
@@ -101,17 +96,14 @@ __global__ void __launch_bounds__(NT)
 
   for (int k = 0; k < nnz; ++k) {
     const int slot = j * nnz + k;
-    const int col_a = ia[slot] * b_in;
-    int col_b = col_a;
-    if constexpr (MODE == 1) col_b = ib[slot] * b_in;
+    const int col = ia[slot] * b_in;
     const size_t wofs = static_cast<size_t>(slot) * b_in * b_out;
     for (int k0 = 0; k0 < b_in; k0 += kc_max) {
       const int kc = min(kc_max, b_in - k0);
       for (int e = tid; e < BM * kc; e += NT) {
         const int r = e / kc, cc = e % kc, row = m0 + r;
-        const size_t base = static_cast<size_t>(row) * K + k0 + cc;
-        xs[0][e] = row < M ? ld(x + base + col_a) : 0.f;
-        if constexpr (NX == 2) xs[1][e] = row < M ? ld(x + base + col_b) : 0.f;
+        xs[e] = row < M ? ld(x + static_cast<size_t>(row) * K + col + k0 + cc)
+                        : 0.f;
       }
       const size_t w0 = wofs + static_cast<size_t>(k0) * b_out;
       for (int e = tid; e < kc * b_out; e += NT) {
@@ -127,8 +119,8 @@ __global__ void __launch_bounds__(NT)
           for (int i = 0; i < BM; ++i) {
             const int r = rg + i * n_rg;
             if (r < BM) {
-              acc[0][i] += xs[0][r * kc + kk] * wva;
-              acc[1][i] += xs[NX - 1][r * kc + kk] * wvb;
+              acc[0][i] += xs[r * kc + kk] * wva;
+              acc[1][i] += xs[r * kc + kk] * wvb;
             }
           }
         }
@@ -142,48 +134,23 @@ __global__ void __launch_bounds__(NT)
     for (int i = 0; i < BM; ++i) {
       const int r = rg + i * n_rg, row = m0 + r;
       if (r < BM && row < M) {
-        const float v = act_fn(act, acc[0][i]) * acc[1][i];
+        const float v = bsp::act_fn(act, acc[0][i]) * acc[1][i];
         st(y + static_cast<size_t>(row) * n + static_cast<size_t>(j) * b_out + c, v);
       }
     }
   }
 }
 
-template <typename TX, typename TW, int MODE>
+template <typename TX, typename TW>
 int launch(const void* x, const void* wa, const void* ia, const void* wb,
-           const void* ib, void* y, int M, int K, int nb, int nnz, int b_in,
-           int b_out, int act, void* stream) {
+           void* y, int M, int K, int nb, int nnz, int b_in, int b_out,
+           int act, void* stream) {
   const dim3 grid((M + BM - 1) / BM, nb);
-  bsp_kernel<TX, TW, MODE><<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+  bsp_kernel<TX, TW><<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const TX*>(x), static_cast<const TW*>(wa),
       static_cast<const int*>(ia), static_cast<const TW*>(wb),
-      static_cast<const int*>(ib), static_cast<TX*>(y), M, K, nnz, b_in, b_out,
-      act);
+      static_cast<TX*>(y), M, K, nnz, b_in, b_out, act);
   return static_cast<int>(cudaGetLastError());
-}
-
-// dtype codes: 0 = float32, 1 = bfloat16. X may be f32 over bf16 weights
-// (the f32 test configs serve bf16-packed weights).
-template <int MODE>
-int dispatch(int x_dtype, int w_dtype, const void* x, const void* wa,
-             const void* ia, const void* wb, const void* ib, void* y, int M,
-             int K, int nb, int nnz, int b_in, int b_out, int act, int device,
-             void* stream) {
-  if (b_out < 1 || b_out > NT || NT % b_out != 0 || b_in < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (x_dtype == 0 && w_dtype == 0)
-    return launch<float, float, MODE>(x, wa, ia, wb, ib, y, M, K, nb, nnz, b_in,
-                                      b_out, act, stream);
-  if (x_dtype == 1 && w_dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16, MODE>(
-        x, wa, ia, wb, ib, y, M, K, nb, nnz, b_in, b_out, act, stream);
-  if (x_dtype == 0 && w_dtype == 1)
-    return launch<float, __nv_bfloat16, MODE>(x, wa, ia, wb, ib, y, M, K, nb,
-                                              nnz, b_in, b_out, act, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -206,21 +173,44 @@ int bspmm_launch(const void* x, const void* blocks, const void* idx,
                         stream);
 }
 
+// The split fused GLU: bspmm's arguments plus the up blocks, their idx
+// table and the activation id (0 silu, 1 gelu, 2 relu).
 int fused_glu_split_launch(const void* x, const void* w_gate,
                            const void* idx_gate, const void* w_up,
-                           const void* idx_up, void* y, int M, int K, int nb,
-                           int nnz, int b_in, int b_out, int act, int x_dtype,
-                           int w_dtype, int device, void* stream) {
-  return dispatch<1>(x_dtype, w_dtype, x, w_gate, idx_gate, w_up, idx_up, y, M,
-                     K, nb, nnz, b_in, b_out, act, device, stream);
+                           const void* idx_up, const void* bounds, void* y,
+                           int M, int K, int nb, int nnz, int b_in, int b_out,
+                           int n_split, int splits, int kernel, int bn, int bk,
+                           int act, int x_dtype, int w_dtype, int device,
+                           void* stream) {
+  bsp::Args a{x, w_gate, static_cast<const int*>(idx_gate), nullptr,
+              static_cast<const int*>(bounds), y, M, K, nb * b_out, nnz,
+              b_in, b_out, n_split, bn, bk, w_up,
+              static_cast<const int*>(idx_up), act};
+  return bsp::run<true, true>(a, nb, kernel, splits, x_dtype, w_dtype, device,
+                              stream);
 }
 
+// The joint fused GLU; x may be f32 over bf16 weights (dtype codes 0 =
+// float32, 1 = bfloat16).
 int fused_glu_joint_launch(const void* x, const void* w_gate, const void* w_up,
                            const void* idx, void* y, int M, int K, int nb,
                            int nnz, int b_in, int b_out, int act, int x_dtype,
                            int w_dtype, int device, void* stream) {
-  return dispatch<2>(x_dtype, w_dtype, x, w_gate, idx, w_up, idx, y, M, K, nb,
-                     nnz, b_in, b_out, act, device, stream);
+  if (b_out < 1 || b_out > NT || NT % b_out != 0 || b_in < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (x_dtype == 0 && w_dtype == 0)
+    return launch<float, float>(x, w_gate, idx, w_up, y, M, K, nb, nnz, b_in,
+                                b_out, act, stream);
+  if (x_dtype == 1 && w_dtype == 1)
+    return launch<__nv_bfloat16, __nv_bfloat16>(x, w_gate, idx, w_up, y, M, K,
+                                                nb, nnz, b_in, b_out, act,
+                                                stream);
+  if (x_dtype == 0 && w_dtype == 1)
+    return launch<float, __nv_bfloat16>(x, w_gate, idx, w_up, y, M, K, nb,
+                                        nnz, b_in, b_out, act, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

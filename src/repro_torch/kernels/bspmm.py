@@ -7,11 +7,13 @@ These functions take CUDA tensors only and always launch their kernel;
 tensor there. Every launch adds one to its entry in ``LAUNCHES``, so a
 run can show that it went through the kernels.
 
-``bspmm`` runs the shared main loops of ``csrc/bsp_mma.cuh``. Its split
-plan (``split_plan.py``) depends on shapes alone: every column of a
-balanced pack is a run of nnz consecutive slots, so the chunk bounds of a
+``bspmm`` and the split ``fused_glu`` run the shared main loops of
+``csrc/bsp_mma.cuh`` (the GLU in their GLU mode). Their split plan
+(``split_plan.py``) depends on shapes alone: every column of a balanced
+pack is a run of nnz consecutive slots, so the chunk bounds of a
 (Nb, nnz, splits) are built once and cached on the device, never per
 call, and the kernel and split are chosen once per (M, shape, dtype).
+The joint ``fused_glu`` keeps its own kernel (``bsp_kernel``).
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ ACT_IDS = {"silu": 0, "gelu": 1, "relu": 2}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "bspmm_launch": [_P] * 5 + [_I] * 14 + [_P],
-    "fused_glu_split_launch": [_P] * 6 + [_I] * 10 + [_P],
+    "fused_glu_split_launch": [_P] * 7 + [_I] * 15 + [_P],
     "fused_glu_joint_launch": [_P] * 5 + [_I] * 10 + [_P],
 }
 
@@ -71,8 +73,9 @@ def _check_operands(x: torch.Tensor, packs: list[PackedBCSC]) -> None:
         if p.kb * p.b_in != x.shape[1]:
             raise ValueError(f"x has K={x.shape[1]}, weight has "
                              f"{p.kb} x {p.b_in} rows")
-        if p.b_out > 256 or 256 % p.b_out:
-            raise ValueError(f"b_out={p.b_out} must divide 256")
+        if p.b_out > split_plan.FMA_BN and p.b_out % split_plan.FMA_BN:
+            raise ValueError(f"b_out={p.b_out} must be at most "
+                             f"{split_plan.FMA_BN} or a multiple of it")
 
 
 def _common(x: torch.Tensor, p: PackedBCSC):
@@ -104,16 +107,21 @@ def aligned16(*ptrs_and_strides: int) -> bool:
     return all(v % 16 == 0 for v in ptrs_and_strides)
 
 
-def launch_plan(x: torch.Tensor, packed: PackedBCSC) -> split_plan.Launch:
-    """The kernel and split ``bspmm`` takes for these operands."""
+def launch_plan(x: torch.Tensor, packed: PackedBCSC,
+                p_up: PackedBCSC | None = None) -> split_plan.Launch:
+    """The kernel and split ``bspmm`` takes for these operands, or, with
+    ``p_up``, the split ``fused_glu`` (``packed`` its gate)."""
     nb, nnz, b_in, b_out = packed.blocks.shape
     ea, ew = x.element_size(), packed.blocks.element_size()
-    ok = aligned16(x.data_ptr(), packed.blocks.data_ptr(), x.shape[1] * ea,
-                   b_in * ea, b_out * ew)
+    ptrs = [x.data_ptr(), packed.blocks.data_ptr()]
+    if p_up is not None:
+        ptrs.append(p_up.blocks.data_ptr())
+    ok = aligned16(*ptrs, x.shape[1] * ea, b_in * ea, b_out * ew)
     return split_plan.choose(
         x.shape[0], b_in, b_out, nb, nnz, nb * nnz,
         bf16=x.dtype == packed.blocks.dtype == torch.bfloat16, a_size=ea,
-        w_size=ew, aligned=ok, n_sm=n_sms(device_index(x)))
+        w_size=ew, aligned=ok, n_sm=n_sms(device_index(x)),
+        glu=p_up is not None)
 
 
 @functools.cache
@@ -146,7 +154,8 @@ def fused_glu(x: torch.Tensor, p_gate: PackedBCSC, p_up: PackedBCSC, *,
               act: str = "silu") -> torch.Tensor:
     """H = act(X Wg) * (X Wu) in one kernel: the joint kernel when both
     operands carry the ``joint`` promise (one idx table, each X tile
-    loaded once), else the split kernel (two idx tables)."""
+    loaded once), else the split kernel (two idx tables, the GLU mode of
+    ``bsp_mma.cuh``); f32 sums, the activation on them, one rounding."""
     if act not in ACT_IDS:
         raise ValueError(f"act {act!r} not in {sorted(ACT_IDS)}")
     if p_gate.nnz != p_up.nnz:   # align with zero blocks (exact)
@@ -161,6 +170,8 @@ def fused_glu(x: torch.Tensor, p_gate: PackedBCSC, p_up: PackedBCSC, *,
     out, dev, stream, dims = _common(x, p_gate)
     codes = (DTYPE_CODES[x.dtype], DTYPE_CODES[p_gate.blocks.dtype])
     if p_gate.joint and p_up.joint:
+        if p_gate.b_out > 256 or 256 % p_gate.b_out:
+            raise ValueError(f"b_out={p_gate.b_out} must divide 256")
         rc = _fn("fused_glu_joint_launch")(
             x.data_ptr(), p_gate.blocks.data_ptr(), p_up.blocks.data_ptr(),
             p_gate.idx.data_ptr(), out.data_ptr(), *dims, ACT_IDS[act],
@@ -168,10 +179,14 @@ def fused_glu(x: torch.Tensor, p_gate: PackedBCSC, p_up: PackedBCSC, *,
         _raise_on(rc, "fused_glu_joint")
         LAUNCHES["fused_glu_joint"] += 1
     else:
+        lp = launch_plan(x, p_gate, p_up)
+        bounds = column_bounds(str(x.device), p_gate.nb, p_gate.nnz,
+                               lp.splits)
         rc = _fn("fused_glu_split_launch")(
             x.data_ptr(), p_gate.blocks.data_ptr(), p_gate.idx.data_ptr(),
-            p_up.blocks.data_ptr(), p_up.idx.data_ptr(), out.data_ptr(),
-            *dims, ACT_IDS[act], *codes, dev, stream)
+            p_up.blocks.data_ptr(), p_up.idx.data_ptr(), bounds.data_ptr(),
+            out.data_ptr(), *dims, lp.n_split, lp.splits, lp.kernel.kid,
+            lp.bn, lp.bk, ACT_IDS[act], *codes, dev, stream)
         _raise_on(rc, "fused_glu_split")
         LAUNCHES["fused_glu_split"] += 1
     return out

@@ -5,8 +5,10 @@ attention adapter (port of ``repro/kernels/paged_attention.py``).
 ``paged_flash_decode`` launches the kernel for CUDA tensors and runs
 ``paged_flash_decode_plain`` for CPU tensors. Both fold each lane's
 pages, picked through its block table, into an f32 online softmax; the
-plain version walks the pages in a Python loop exactly as the kernel
-does. Masking (causal, window, ragged left-pad) arrives as an additive
+plain version walks the pages in a Python loop (``fold_pages``). The
+kernel splits the page axis into S contiguous chunks, one CTA each
+(``split_plan.decode_splits``), and merges their (m, l, acc) partials.
+Masking (causal, window, ragged left-pad) arrives as an additive
 0 / -1e30 bias row per (lane, slot), built by ``mask_bias``.
 """
 from __future__ import annotations
@@ -17,12 +19,13 @@ import math
 
 import torch
 
-from repro_torch.kernels import build
-from repro_torch.kernels.bspmm import DTYPE_CODES
+from repro_torch.kernels import build, split_plan
+from repro_torch.kernels.bspmm import DTYPE_CODES, device_index, n_sms
 
 NEG_INF = -1e30
 
 LAUNCHES = {"paged_flash_decode": 0}
+MAX_G, MAX_HD = 8, 256    # what the kernel holds in registers
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -31,27 +34,28 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 def _fn():
     f = build.library("paged_attention.cu").paged_flash_decode_launch
     f.argtypes = ([_P, _P, _P, _P, _I, _P, _P] + [_I] * 7
-                  + [ctypes.c_float, ctypes.c_float] + [_I] * 3 + [_P])
+                  + [ctypes.c_float, ctypes.c_float] + [_I] * 4 + [_P])
     f.restype = ctypes.c_int
     return f
 
 
-def paged_flash_decode_plain(q4, pool_k, pool_v, block_tables, bias, *,
-                             scale: float, softcap: float = 0.0):
-    """q4 (B, KV, G, hd); pool_k/v (n_pages, ps, KV, hd); block_tables
-    (B, R) int32; bias (B, R*ps) f32 -> (B, KV, G, hd) f32."""
+def fold_pages(q4, pool_k, pool_v, block_tables, bias, pages, *,
+               scale: float, softcap: float = 0.0):
+    """The online softmax of every (lane, kv head) over the table columns
+    ``pages`` (a range), in order: (m, l, acc) of shapes (B, KV, G, 1)
+    twice and (B, KV, G, hd), f32. A range with no valid slot leaves
+    (-1e30, 0, 0)."""
     b, kvh, g, hd = q4.shape
     ps = pool_k.shape[1]
-    r = block_tables.shape[1]
     qf = q4.float()
     m = torch.full((b, kvh, g, 1), NEG_INF, dtype=torch.float32,
                    device=q4.device)
     l = torch.zeros_like(m)
     acc = torch.zeros((b, kvh, g, hd), dtype=torch.float32, device=q4.device)
-    for j in range(r):
-        pages = block_tables[:, j].long()
-        k = pool_k[pages].permute(0, 2, 1, 3).float()      # (B, KV, ps, hd)
-        v = pool_v[pages].permute(0, 2, 1, 3).float()
+    for j in pages:
+        idx = block_tables[:, j].long()
+        k = pool_k[idx].permute(0, 2, 1, 3).float()        # (B, KV, ps, hd)
+        v = pool_v[idx].permute(0, 2, 1, 3).float()
         s = torch.einsum("bhgd,bhsd->bhgs", qf, k) * scale
         if softcap:
             s = torch.tanh(s / softcap) * softcap
@@ -64,6 +68,16 @@ def paged_flash_decode_plain(q4, pool_k, pool_v, block_tables, bias, *,
         acc = acc * alpha + torch.einsum(
             "bhgs,bhsd->bhgd", p.to(q4.dtype).float(), v)
         m = m_new
+    return m, l, acc
+
+
+def paged_flash_decode_plain(q4, pool_k, pool_v, block_tables, bias, *,
+                             scale: float, softcap: float = 0.0):
+    """q4 (B, KV, G, hd); pool_k/v (n_pages, ps, KV, hd); block_tables
+    (B, R) int32; bias (B, R*ps) f32 -> (B, KV, G, hd) f32."""
+    _, l, acc = fold_pages(q4, pool_k, pool_v, block_tables, bias,
+                           range(block_tables.shape[1]), scale=scale,
+                           softcap=softcap)
     return acc / l.clamp_min(1e-30)
 
 
@@ -78,10 +92,13 @@ def _check(q4, pool_k, pool_v, block_tables, bias) -> None:
         raise ValueError("pool_k/pool_v must be (n_pages, ps, KV, hd)")
     if not (pool_k.is_contiguous() and pool_v.is_contiguous()):
         raise ValueError("pool pages must be contiguous")
-    b, kvh, _, hd = q4.shape
+    b, kvh, g, hd = q4.shape
     if pool_k.shape[2] != kvh or pool_k.shape[3] != hd:
         raise ValueError(f"pool {tuple(pool_k.shape)} does not match q4 "
                          f"{tuple(q4.shape)}")
+    if g > MAX_G or hd > MAX_HD:
+        raise ValueError(f"the kernel takes G <= {MAX_G} query heads per "
+                         f"kv head and hd <= {MAX_HD}, got G={g}, hd={hd}")
     if q4.dtype not in DTYPE_CODES or pool_k.dtype != pool_v.dtype or not (
             pool_k.dtype == q4.dtype or (q4.dtype == torch.float32
                                          and pool_k.dtype == torch.bfloat16)):
@@ -110,13 +127,14 @@ def paged_flash_decode(q4, pool_k, pool_v, block_tables, bias, *,
     _check(q4, pool_k, pool_v, block_tables, bias)
     b, kvh, g, hd = q4.shape
     n_pages, ps = pool_k.shape[:2]
+    r = block_tables.shape[1]
     out = torch.empty((b, kvh, g, hd), dtype=torch.float32, device=q4.device)
-    dev = q4.device.index if q4.device.index is not None else \
-        torch.cuda.current_device()
+    dev = device_index(q4)
     rc = _fn()(q4.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
                block_tables.data_ptr(), block_tables.stride(0),
-               bias.data_ptr(), out.data_ptr(), b, kvh, g, hd, ps,
-               block_tables.shape[1], n_pages, float(scale), float(softcap),
+               bias.data_ptr(), out.data_ptr(), b, kvh, g, hd, ps, r,
+               n_pages, float(scale), float(softcap),
+               split_plan.decode_splits(b, kvh, r, n_sms(dev)),
                DTYPE_CODES[q4.dtype], DTYPE_CODES[pool_k.dtype], dev,
                torch.cuda.current_stream(q4.device).cuda_stream)
     if rc != 0:

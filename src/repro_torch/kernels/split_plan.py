@@ -1,6 +1,7 @@
 """Host-side plan of the block-sparse products' CUDA launches
 (``csrc/bsp_mma.cuh``): which main loop runs, and how each output tile's
-visit list is split across the CTAs of a cluster.
+visit list is split across the CTAs of a cluster; and the split of paged
+decode's page axis (``csrc/paged_attention.cu``, ``decode_splits``).
 
 A *visit list* is the ordered run of kept blocks that feed one output
 block: for ``bspmm`` block-column j's nnz slots, for ``bspmm_t`` the slots
@@ -22,8 +23,11 @@ a CTA, raised until no chunk is longer than 2.5 times the mean list
 (global-selection padding makes one list long; a larger bound left the
 served global case 2.6x its balanced twin, a smaller one splits the
 balanced down shape at M = 1024, which is slower), at most 8 and at most
-the longest list. Everything here is numpy and ints; the wrappers cache
-the device copies.
+the longest list. The split fused GLU (``glu=True``) stages two operand
+pairs per visit, so its tiles take twice the shared memory
+(``smem_bytes``); where that leaves one CTA to an SM, the SM-filling part
+of the split is capped at one wave of CTAs. Everything here is numpy and
+ints; the wrappers cache the device copies.
 """
 from __future__ import annotations
 
@@ -34,6 +38,10 @@ import math
 import numpy as np
 
 MAX_SPLITS = 8   # portable thread-block-cluster size
+# H100: shared memory of one CTA at most, and of one SM (bsp::MAX_SMEM;
+# the runtime reserves 1 KB of an SM's share per CTA)
+MAX_SMEM = 232448
+SM_SMEM, CTA_RESERVED = 233472, 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,15 +51,16 @@ class KernelSpec:
     bm: int           # rows of an output tile
     bn: int           # output-block columns of a tile (0: min(64, N_t))
     bk: int           # K chunk of one ring stage (0: min(16, K_t))
+    stages: int       # ring stages
 
 
 KERNELS = (
-    KernelSpec(0, "fma", 64, 0, 0),
-    KernelSpec(1, "fma_cp_async", 64, 0, 0),
-    KernelSpec(2, "mma_32x16x16", 32, 16, 16),
-    KernelSpec(3, "mma_16x64x128", 16, 64, 128),
-    KernelSpec(4, "mma_64x64x64", 64, 64, 64),
-    KernelSpec(5, "mma_128x128x64", 128, 128, 64),
+    KernelSpec(0, "fma", 64, 0, 0, 3),
+    KernelSpec(1, "fma_cp_async", 64, 0, 0, 3),
+    KernelSpec(2, "mma_32x16x16", 32, 16, 16, 4),
+    KernelSpec(3, "mma_16x64x128", 16, 64, 128, 4),
+    KernelSpec(4, "mma_64x64x64", 64, 64, 64, 4),
+    KernelSpec(5, "mma_128x128x64", 128, 128, 64, 3),
 )
 FMA_BN, FMA_BK = 64, 16
 # the small-M tile serves decode: at M <= 16 one 16-row mma tile holds
@@ -86,6 +95,27 @@ def split_bounds(lengths, splits: int) -> np.ndarray:
             + (c[None, :] * lengths[:, None]) // splits).astype(np.int32)
 
 
+def smem_bytes(k: KernelSpec, *, glu: bool, a_size: int,
+               w_size: int) -> int:
+    """Dynamic shared memory of one forward CTA of kernel ``k``
+    (``bsp::Tc`` / ``bsp::Fma`` with FWD: the ring, or the f32 partial
+    tiles that reuse it, whichever is larger)."""
+    nop = 2 if glu else 1
+    if k.kid < 2:      # Fma: [64][16 + pad] A, [16][64 + pad] B, 64 x 68
+        a_b = a_size * k.bm * (FMA_BK + 16 // a_size)
+        op = a_b + w_size * FMA_BK * (FMA_BN + 16 // w_size)
+        red = 4 * nop * k.bm * (FMA_BN + 4)
+    else:              # Tc (bf16): [bm][bk + 8] A, [bk][bn + 8] B
+        op = 2 * (k.bm * (k.bk + 8) + k.bk * (k.bn + 8))
+        red = 4 * nop * k.bm * (k.bn + 8)
+    return max(k.stages * nop * op, red)
+
+
+def ctas_per_sm(smem: int) -> int:
+    """How many CTAs of ``smem`` bytes of shared memory one SM holds."""
+    return max(1, SM_SMEM // (smem + CTA_RESERVED))
+
+
 def pick_kernel(m: int, k_t: int, n_t: int, *, bf16: bool, a_size: int,
                 w_size: int, aligned: bool) -> KernelSpec:
     """The main loop for an (M x K_t) A tile against blocks whose output
@@ -118,12 +148,13 @@ def fma_vec_ok(k_t: int, n_t: int, a_size: int, w_size: int,
 @functools.cache
 def choose(m: int, k_t: int, n_t: int, n_lists: int, max_len: int,
            total_len: int, *, bf16: bool, a_size: int, w_size: int,
-           aligned: bool, n_sm: int) -> Launch:
+           aligned: bool, n_sm: int, glu: bool = False) -> Launch:
     """The launch for an (M x K_t) A tile against blocks whose output
     width is N_t, over ``n_lists`` visit lists of at most ``max_len``
     visits and ``total_len`` in all. ``aligned``: every base pointer and
     row stride that a 16-byte copy touches is 16-byte aligned. ``bf16``:
-    both operands bf16. Cached: a served shape is planned once."""
+    both operands bf16. ``glu``: the split fused GLU (two operand pairs
+    per visit). Cached: a served shape is planned once."""
     if m < 1 or k_t < 1 or n_t < 1 or n_lists < 1:
         raise ValueError(f"empty product: M={m}, K_t={k_t}, N_t={n_t}, "
                          f"{n_lists} lists")
@@ -133,7 +164,22 @@ def choose(m: int, k_t: int, n_t: int, n_lists: int, max_len: int,
     bk = k.bk or min(FMA_BK, k_t)
     tiles = n_lists * math.ceil(m / k.bm) * (n_t // bn)
     mean = max(total_len / n_lists, 1.0)
-    splits = max(math.ceil(n_sm / tiles),
-                 math.ceil(max_len / (CHUNK_OVER_MEAN * mean)))
+    fill = math.ceil(n_sm / tiles)
+    if glu:    # no second wave: one CTA to an SM at the decode tile
+        occ = ctas_per_sm(smem_bytes(k, glu=True, a_size=a_size,
+                                     w_size=w_size))
+        fill = min(fill, max(1, n_sm * occ // tiles))
+    splits = max(fill, math.ceil(max_len / (CHUNK_OVER_MEAN * mean)))
     splits = max(1, min(MAX_SPLITS, splits, max_len))
     return Launch(k, splits, bn, bk, n_t // bn)
+
+
+@functools.cache
+def decode_splits(b: int, kvh: int, r: int, n_sm: int) -> int:
+    """CTAs per (lane, kv head) of paged decode over R pages: the least
+    that gives every SM a CTA, at most 8 (one portable cluster) and at
+    most R. CTA c takes pages ``split_bounds([R], S)[0, c:c + 2]``, the
+    contiguous range [c R / S, (c + 1) R / S)."""
+    if b < 1 or kvh < 1 or r < 1:
+        raise ValueError(f"empty decode: B={b}, KV={kvh}, R={r}")
+    return max(1, min(MAX_SPLITS, r, math.ceil(n_sm / (b * kvh))))

@@ -182,3 +182,60 @@ def test_cuda_launchers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA kernel"):
         tbs.fused_glu(x, _t(jp), _t(jp))
     assert tbs.LAUNCHES == dict.fromkeys(tbs.LAUNCHES, 0)
+
+
+def _merge_chunks(q4, pk, pv, bt, bias, splits, scale, softcap):
+    """The kernel's algebra in torch: the pages cut into ``splits``
+    contiguous chunks (``split_plan.split_bounds``), each folded on its
+    own, the (m, l, acc) partials merged in chunk order."""
+    from repro_torch.kernels import split_plan
+    args = [interop.tensor(a, device="cpu") for a in (q4, pk, pv, bt, bias)]
+    bounds = split_plan.split_bounds([bt.shape[1]], splits)[0]
+    parts = [tpa.fold_pages(*args, range(bounds[c], bounds[c + 1]),
+                            scale=scale, softcap=softcap)
+             for c in range(splits)]
+    m_star = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    l = torch.zeros_like(m_star)
+    acc = torch.zeros_like(parts[0][2])
+    for m, lc, ac in parts:
+        f = torch.exp(m - m_star)
+        l = l + lc * f
+        acc = acc + ac * f
+    return (acc / l.clamp_min(1e-30)).numpy(), parts
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 5])
+@pytest.mark.parametrize("softcap", [0.0, 5.0])
+def test_paged_split_merge_matches_reference(splits, softcap):
+    """Chunked partials merged as the kernel's cluster merges them equal
+    the reference's Pallas kernel (interpret mode): ragged lanes, a
+    window, a fully masked lane (lane 2) and a lane whose later chunks
+    are fully masked (lane 1: one live page of five)."""
+    q4, pk, pv = _decode_case(11, 3, 5, n_pages=12)
+    bt = np.asarray([[3, 1, 7, 2, 9], [0, 5, 2, 11, 4], [6, 6, 8, 10, 1]],
+                    np.int32)
+    ps, r = pk.shape[1], bt.shape[1]
+    offsets = jnp.asarray([2, 0, 0], jnp.int32)
+    posb = jnp.asarray([[r * ps - 1], [3], [r * ps - 1]], jnp.int32) \
+        - offsets[:, None]
+    bias = np.array(jpa.mask_bias(posb, jattn._cache_positions(r * ps,
+                                                               offsets), 9))
+    bias[2] = jpa.NEG_INF                            # a fully masked lane
+    scale = 1.0 / np.sqrt(q4.shape[-1])
+    want = np.asarray(jpa.paged_flash_decode(
+        jnp.asarray(q4), jnp.asarray(pk), jnp.asarray(pv), jnp.asarray(bt),
+        jnp.asarray(bias), scale=scale, softcap=softcap, interpret=True))
+    got, parts = _merge_chunks(q4, pk, pv, bt, bias, splits, scale, softcap)
+    np.testing.assert_allclose(got, want, **TOL)
+    assert not got[2].any()                          # masked lane gives 0
+    for m, l, acc in parts[1:]:                      # lane 1's dead chunks
+        if splits > 1:
+            assert (m[1] == jpa.NEG_INF).all() and not l[1].any()
+            assert not acc[1].any()
+    # one chunk is the plain version itself
+    if splits == 1:
+        plain = tpa.paged_flash_decode_plain(
+            *(interop.tensor(a, device="cpu") for a in (q4, pk, pv, bt,
+                                                        bias)),
+            scale=scale, softcap=softcap).numpy()
+        np.testing.assert_array_equal(got, plain)

@@ -144,3 +144,81 @@ def test_library_path_changes_with_a_shared_header(tmp_path):
     header.write_text(header.read_text() + "\n// edited\n")
     after = {s: build.library_path(s, csrc) for s in build.SOURCES}
     assert all(after[s] != before[s] for s in build.SOURCES)
+
+
+@pytest.mark.parametrize("b,kvh", [(1, 8), (8, 8), (16, 8), (33, 8),
+                                   (4, 2), (200, 1)])
+@pytest.mark.parametrize("r", [1, 2, 3, 4, 16, 32, 100])
+def test_decode_splits_cover_every_page_once_in_order(b, kvh, r):
+    """Paged decode's split of the page axis: at most min(8, R) CTAs per
+    (lane, kv head), the least that gives each of 132 SMs a CTA, and
+    chunks that cover pages 0..R-1 exactly once, in order."""
+    s = split_plan.decode_splits(b, kvh, r, 132)
+    assert 1 <= s <= min(split_plan.MAX_SPLITS, r)
+    assert s == min(split_plan.MAX_SPLITS, r) or b * kvh * s >= 132
+    assert s == 1 or b * kvh * (s - 1) < 132
+    bounds = split_plan.split_bounds([r], s)
+    pages = [j for c0, c1 in _chunks(bounds, 0, s) for j in range(c0, c1)]
+    assert pages == list(range(r))
+    # the kernel's chunk c is [c R / S, (c + 1) R / S)
+    assert [c0 for c0, _ in _chunks(bounds, 0, s)] == [
+        c * r // s for c in range(s)]
+    assert split_plan.decode_splits(b, kvh, r, 132) is s
+    with pytest.raises(ValueError, match="empty"):
+        split_plan.decode_splits(b, kvh, 0, 132)
+
+
+@pytest.mark.parametrize("m", [5, 8, 128])
+def test_glu_plan_takes_the_tensor_cores_for_served_bf16_shapes(m):
+    """Llama-3.2-1B's W_gate / W_up (64 block-columns of 4 kept 128 x 128
+    blocks): bf16 takes the tensor cores; f32, f32 X over bf16 weights,
+    b = 8 blocks and unaligned rows take the FMA loop."""
+    def glu(dtype="bf16", w_size=None, aligned=True, b=128, lists=64):
+        a_size = 2 if dtype == "bf16" else 4
+        return split_plan.choose(m, b, b, lists, 4, 4 * lists,
+                                 bf16=dtype == "bf16" and w_size is None,
+                                 a_size=a_size, w_size=w_size or a_size,
+                                 aligned=aligned, n_sm=132, glu=True)
+    assert glu().kernel.kid == (3 if m <= 16 else 5)
+    assert glu("f32").kernel.kid == 1
+    assert glu("f32", w_size=2).kernel.kid == 1
+    assert glu(b=8).kernel.kid == 1
+    assert glu(aligned=False).kernel.kid == 0
+    assert glu(b=16, lists=16).kernel.kid >= 2
+
+
+@pytest.mark.parametrize("glu", [False, True])
+@pytest.mark.parametrize("sizes", [(2, 2), (4, 4), (4, 2)])
+def test_every_tile_fits_one_cta_in_227_kb(glu, sizes):
+    """Ring stages (two operand pairs each for the GLU) and the f32
+    partial tiles that reuse them fit one CTA's shared memory; at the
+    decode tile the GLU's 4-stage ring is 182 KB, one CTA to an SM."""
+    a_size, w_size = sizes
+    for k in split_plan.KERNELS:
+        if k.kid >= 2 and sizes != (2, 2):
+            continue                       # tensor cores take bf16 only
+        smem = split_plan.smem_bytes(k, glu=glu, a_size=a_size,
+                                     w_size=w_size)
+        assert 0 < smem <= split_plan.MAX_SMEM, k
+    decode = split_plan.KERNELS[3]
+    assert split_plan.smem_bytes(decode, glu=True, a_size=2,
+                                 w_size=2) == 4 * 2 * 2 * (16 * 136 + 128 * 72)
+    assert split_plan.ctas_per_sm(split_plan.smem_bytes(
+        decode, glu=True, a_size=2, w_size=2)) == 1
+    assert split_plan.ctas_per_sm(split_plan.smem_bytes(
+        decode, glu=False, a_size=2, w_size=2)) == 2
+
+
+@pytest.mark.parametrize("m", [5, 8, 128])
+def test_glu_split_stays_within_one_wave(m):
+    """A GLU tile that holds one CTA to an SM is split no further than one
+    wave of CTAs fills (128 decode tiles: unsplit, not two waves); the
+    same shape as bspmm splits to give every SM a CTA."""
+    kw = dict(bf16=True, a_size=2, w_size=2, aligned=True, n_sm=132)
+    glu = split_plan.choose(m, 128, 128, 64, 4, 256, glu=True, **kw)
+    smem = split_plan.smem_bytes(glu.kernel, glu=True, a_size=2, w_size=2)
+    tiles = 64 * math.ceil(m / glu.kernel.bm) * glu.n_split
+    assert tiles * glu.splits <= 132 * split_plan.ctas_per_sm(smem)
+    plain = split_plan.choose(m, 128, 128, 64, 4, 256, **kw)
+    assert plain.kernel == glu.kernel
+    assert tiles * plain.splits >= 132 or plain.splits == 4
