@@ -245,10 +245,10 @@ def phase_kernels(torch, card, packed, joint):
     kernels, B=8 lanes and R in {1, 4, 16, 32} pages for decode, in bf16
     and f32; and bspmm at packed fine-tuning's M = 1024 rows on the gate
     shape X (1024, 2048) -> (1024, 8192) and the down shape. Each bspmm
-    and split fused-GLU line names the kernel and split it took (``plan``)
-    and each paged line its CTAs per (lane, kv head) (``splits``); their
-    bf16 lines also give the profiler's kernel duration beside the event
-    time.
+    and fused-GLU line (split and joint) names the kernel and split it
+    took (``plan``) and each paged line its CTAs per (lane, kv head)
+    (``splits``); their bf16 lines also give the profiler's kernel
+    duration beside the event time.
     Returns per-kernel summaries at the decode shape (M=8 bf16, R=16
     bf16: the largest read bucket of the served traffic)."""
     import torch.nn.functional as F
@@ -322,7 +322,8 @@ def phase_kernels(torch, card, packed, joint):
                     ops.flops_bspmm(m, jgate) * 2),
             }
             plans = {"bspmm": kb.launch_plan(h, down),
-                     "fused_glu_split": kb.launch_plan(x, gate, up)}
+                     "fused_glu_split": kb.launch_plan(x, gate, up),
+                     "fused_glu_joint": kb.launch_plan(x, jgate, jup)}
             for name, (k_fn, p_fn, l_fn, nbytes, ops_) in rows.items():
                 extra = {}
                 if name in plans:

@@ -2,8 +2,8 @@
 // BCSC (core/packing.py), hand-written for Hopper (sm_90a):
 //
 //   FWD = true   bspmm      Y  = X  W                  (csrc/bspmm.cu)
-//   FWD = true,  fused_glu  H  = act(X Wg) * (X Wu)    (csrc/bspmm.cu,
-//   GLU = true              split: two idx tables)
+//   FWD = true,  fused_glu  H  = act(X Wg) * (X Wu)    (csrc/bspmm.cu;
+//   G = SPLIT_GLU / JOINT_GLU  two idx tables / one shared idx table)
 //   FWD = false  bspmm_t    dX = dY W^T                (csrc/bspmm_t.cu)
 //
 // W is blocks (Nb, nnz, b_in, b_out) row-major plus idx (Nb, nnz), the
@@ -31,18 +31,27 @@
 // selection padding (zero blocks at idx 0) is visited like any block, so
 // it adds exact zeros. Rows past M are zero-filled on load and not stored.
 //
-// GLU mode (the split fused GLU): the visit list of block-column j is its
-// nnz slots, as for bspmm, and every visit stages two operand pairs into
-// one ring stage, the X tile at idx_gate[slot] with the gate block and the
-// X tile at idx_up[slot] with the up block, which feed two f32 accumulator
-// sets. The cluster reduction sums the gate partials and the up partials,
-// each in rank order, and only then applies act(g) * u in f32 and rounds
-// once to X's type: the TPU kernel's epilogue (activation on the f32
-// sums). So the (M, d_ff) gate and up products never reach device memory,
-// and splitting a column's visits over a cluster stays exact. Stage and
-// partial buffer double; every tile still fits one CTA's 227 KB
-// (static_assert below), the 16 x 64 x 128 decode tile's 4-stage ring at
-// 182 KB only one CTA to an SM (kernels/split_plan.py plans for it).
+// GLU modes (the fused GLU, G = SPLIT_GLU or JOINT_GLU): the visit list
+// of block-column j is its nnz slots, as for bspmm, and every visit feeds
+// two f32 accumulator sets, gate and up. The split GLU (gate and up
+// pruned apart, two idx tables) stages two operand pairs into one ring
+// stage, the X tile at idx_gate[slot] with the gate block and the X tile
+// at idx_up[slot] with the up block. The joint GLU (one idx table shared
+// by gate and up, core/packing.py::mark_joint) stages the X tile at
+// idx[slot] once, beside both blocks, and both main loops read each
+// k-step of it once for the two products, as the TPU kernel DMAs its X
+// tile once per step. Each accumulator sums the split kernel's products
+// (idx_up = idx) in the same order, so the two modes agree bitwise. The
+// cluster reduction sums the gate partials and the up partials, each in
+// rank order, and only then applies act(g) * u in f32 and rounds once to
+// X's type: the TPU kernel's epilogue (activation on the f32 sums). So
+// the (M, d_ff) gate and up products never reach device memory, and
+// splitting a column's visits over a cluster stays exact. The partial
+// buffer doubles and a stage grows by one operand pair (split) or one
+// weight tile (joint); every tile still fits one CTA's 227 KB
+// (static_assert below). The 16 x 64 x 128 decode tile's 4-stage ring
+// (182 KB split, 165 KB joint) leaves one CTA to an SM
+// (kernels/split_plan.py plans for it).
 //
 // Two main loops share that plan and epilogue:
 //  * tc_kernel (bf16 x bf16, block sides multiples of 16): mma.sync
@@ -82,11 +91,15 @@ struct Args {
   int M, lda, ldo, nnz, b_in, b_out;
   int n_split;         // output-width tiles per output block
   int bn, bk;          // fma_kernel only: tile width, K chunk
-  // GLU mode only: the up blocks, their idx table, the activation id
+  // GLU modes only: the up blocks, their idx table (split GLU only), the
+  // activation id
   const void* w2 = nullptr;
   const int* idx2 = nullptr;
   int act = 0;
 };
+
+// The forward product's GLU mode (kernels/split_plan.py: glu, joint).
+enum Glu : int { NO_GLU = 0, SPLIT_GLU = 1, JOINT_GLU = 2 };
 
 // Largest dynamic shared memory of one CTA on an H100 (227 KB).
 constexpr size_t MAX_SMEM = 232448;
@@ -165,7 +178,8 @@ __device__ __forceinline__ void put4(bf16* p, float4 v) {
 
 // ------------------------------------------------------------ the plan
 // Where visit v of this CTA reads: its slot, A's first column and W's
-// block for operand pair op (1: the GLU's up pair).
+// block for operand pair op (1: the GLU's up pair; the joint GLU reads
+// A for pair 0 only).
 template <bool FWD>
 __device__ __forceinline__ int slot_of(const Args& a, int v) {
   return FWD ? v : __ldg(a.visits + v);
@@ -236,33 +250,38 @@ __device__ __forceinline__ void cluster_reduce_store(const Args& a, float* red,
 }
 
 // ------------------------------------------------------------ tensor cores
-template <int BM, int BN, int BK, int WM, int WN, int STAGES, bool FWD,
-          bool GLU>
+// A stage holds NA X tiles and NOP weight tiles: [A0 B0] (bspmm, bspmm_t),
+// [A0 B0 A1 B1] (split GLU), [A B0 B1] (joint GLU). X tile a feeds the
+// weight tiles a, a + NA, ... < NOP (joint: the one X tile feeds both).
+template <int BM, int BN, int BK, int WM, int WN, int STAGES, bool FWD, Glu G>
 struct Tc {
   static constexpr int NT = WM * WN * 32;
   static constexpr int WTM = BM / WM, WTN = BN / WN;
   static constexpr int MI = WTM / 16, NI = WTN / 8;
-  static constexpr int NOP = GLU ? 2 : 1;               // operand pairs
+  static constexpr int NOP = G ? 2 : 1;                 // weight tiles
+  static constexpr int NA = G == JOINT_GLU ? 1 : NOP;   // X tiles
   static constexpr int LDA = BK + 8;                    // A tile [BM][LDA]
   static constexpr int B_ROWS = FWD ? BK : BN;          // FWD: [k][n]
   static constexpr int B_COLS = FWD ? BN : BK;          // else [n][k]
   static constexpr int LDB = B_COLS + 8;
-  static constexpr int A_ELEMS = BM * LDA, OP = A_ELEMS + B_ROWS * LDB;
-  static constexpr int STAGE = NOP * OP;                // pair op at op * OP
+  static constexpr int A_ELEMS = BM * LDA, B_ELEMS = B_ROWS * LDB;
+  // X tile a at a * A_STEP, weight tile op at op * B_STEP + A_ELEMS
+  static constexpr int A_STEP = A_ELEMS + B_ELEMS;
+  static constexpr int B_STEP = NA == NOP ? A_ELEMS + B_ELEMS : B_ELEMS;
+  static constexpr int STAGE = NA * A_ELEMS + NOP * B_ELEMS;
   static constexpr int LDR = BN + 8;                    // f32 partial tile
   static constexpr size_t SMEM_RING = sizeof(bf16) * STAGES * STAGE;
   static constexpr size_t SMEM_RED = sizeof(float) * NOP * BM * LDR;
   static constexpr size_t SMEM = SMEM_RING > SMEM_RED ? SMEM_RING : SMEM_RED;
   static_assert(MI >= 1 && NI % 2 == 0 && BK % 16 == 0, "tile shape");
-  static_assert(FWD || !GLU, "the GLU is a forward product");
+  static_assert(FWD || !G, "the GLU is a forward product");
   static_assert(SMEM <= MAX_SMEM, "shared memory of one CTA");
 };
 
-template <int BM, int BN, int BK, int WM, int WN, int STAGES, bool FWD,
-          bool GLU>
+template <int BM, int BN, int BK, int WM, int WN, int STAGES, bool FWD, Glu G>
 __global__ void __launch_bounds__(WM * WN * 32)
     tc_kernel(const Args a) {
-  using T = Tc<BM, BN, BK, WM, WN, STAGES, FWD, GLU>;
+  using T = Tc<BM, BN, BK, WM, WN, STAGES, FWD, G>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sm = reinterpret_cast<bf16*>(smem_raw);
 
@@ -282,19 +301,22 @@ __global__ void __launch_bounds__(WM * WN * 32)
   auto load_stage = [&](int it, int buf) {
     const int v = vb + it / ksteps, kc = (it % ksteps) * BK;
     const int slot = slot_of<FWD>(a, v);
+    bf16* st = sm + buf * T::STAGE;
 #pragma unroll
     for (int op = 0; op < T::NOP; ++op) {
-      const int col = a_col<FWD>(a, slot, op) + kc;
-      bf16* sA = sm + buf * T::STAGE + op * T::OP;
-      bf16* sB = sA + T::A_ELEMS;
-      constexpr int ACH = BK / 8;
-      for (int e = tid; e < BM * ACH; e += T::NT) {
-        const int r = e / ACH, c = (e % ACH) * 8, row = m0 + r;
-        const bool ok = row < a.M;
-        cp_async16(sA + r * T::LDA + c,
-                   A + static_cast<size_t>(ok ? row : 0) * a.lda + col + c,
-                   ok);
+      if (op < T::NA) {
+        const int col = a_col<FWD>(a, slot, op) + kc;
+        bf16* sA = st + op * T::A_STEP;
+        constexpr int ACH = BK / 8;
+        for (int e = tid; e < BM * ACH; e += T::NT) {
+          const int r = e / ACH, c = (e % ACH) * 8, row = m0 + r;
+          const bool ok = row < a.M;
+          cp_async16(sA + r * T::LDA + c,
+                     A + static_cast<size_t>(ok ? row : 0) * a.lda + col + c,
+                     ok);
+        }
       }
+      bf16* sB = st + op * T::B_STEP + T::A_ELEMS;
       const bf16* W = w_block<bf16>(a, slot, op);
       constexpr int BCH = T::B_COLS / 8;
       for (int e = tid; e < T::B_ROWS * BCH; e += T::NT) {
@@ -328,36 +350,42 @@ __global__ void __launch_bounds__(WM * WN * 32)
     const int nx = it + STAGES - 1;
     if (nx < total) load_stage(nx, nx % STAGES);
     cp_async_commit();
+    const bf16* st = sm + (it % STAGES) * T::STAGE;
 #pragma unroll
-    for (int op = 0; op < T::NOP; ++op) {
-      const bf16* sA = sm + (it % STAGES) * T::STAGE + op * T::OP;
-      const bf16* sB = sA + T::A_ELEMS;
+    for (int xa = 0; xa < T::NA; ++xa) {
+      const bf16* sA = st + xa * T::A_STEP;
 #pragma unroll
       for (int kk = 0; kk < BK; kk += 16) {
-        uint32_t af[T::MI][4], bfr[T::NI][2];
+        uint32_t af[T::MI][4];
 #pragma unroll
         for (int i = 0; i < T::MI; ++i)
           ldmatrix_x4(af[i], sA + (wm * T::WTM + i * 16 + lane % 16) * T::LDA +
                                  kk + (lane / 16) * 8);
+        // the weight tiles this X tile feeds (joint: gate and up)
 #pragma unroll
-        for (int j = 0; j < T::NI; j += 2) {
-          uint32_t r4[4];
-          const int nb = wn * T::WTN + j * 8;
-          if constexpr (FWD) {  // sB[k][n]: transpose to the col fragment
-            ldmatrix_x4_trans(r4, sB + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                           T::LDB + nb + (lane >> 4) * 8);
-          } else {              // sB[n][k]: already the col fragment
-            ldmatrix_x4(r4, sB + (nb + (lane & 7) + (lane >> 4) * 8) * T::LDB +
-                                kk + ((lane >> 3) & 1) * 8);
+        for (int op = xa; op < T::NOP; op += T::NA) {
+          const bf16* sB = st + op * T::B_STEP + T::A_ELEMS;
+          uint32_t bfr[T::NI][2];
+#pragma unroll
+          for (int j = 0; j < T::NI; j += 2) {
+            uint32_t r4[4];
+            const int nb = wn * T::WTN + j * 8;
+            if constexpr (FWD) {  // sB[k][n]: transpose to the col fragment
+              ldmatrix_x4_trans(r4, sB + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                             T::LDB + nb + (lane >> 4) * 8);
+            } else {              // sB[n][k]: already the col fragment
+              ldmatrix_x4(r4, sB + (nb + (lane & 7) + (lane >> 4) * 8) * T::LDB +
+                                  kk + ((lane >> 3) & 1) * 8);
+            }
+            bfr[j][0] = r4[0], bfr[j][1] = r4[1];
+            bfr[j + 1][0] = r4[2], bfr[j + 1][1] = r4[3];
           }
-          bfr[j][0] = r4[0], bfr[j][1] = r4[1];
-          bfr[j + 1][0] = r4[2], bfr[j + 1][1] = r4[3];
+#pragma unroll
+          for (int i = 0; i < T::MI; ++i)
+#pragma unroll
+            for (int j = 0; j < T::NI; ++j)
+              mma_bf16(acc[op][i][j], af[i], bfr[j][0], bfr[j][1]);
         }
-#pragma unroll
-        for (int i = 0; i < T::MI; ++i)
-#pragma unroll
-          for (int j = 0; j < T::NI; ++j)
-            mma_bf16(acc[op][i][j], af[i], bfr[j][0], bfr[j][1]);
       }
     }
   }
@@ -380,8 +408,8 @@ __global__ void __launch_bounds__(WM * WN * 32)
             make_float2(acc[op][i][j][2], acc[op][i][j][3]);
       }
   const int n_t = FWD ? a.b_out : a.b_in;
-  cluster_reduce_store<bf16, 4, GLU>(a, red, T::LDR, BM, BN, list * n_t + n0,
-                                     m0, tid, T::NT);
+  cluster_reduce_store<bf16, 4, G != NO_GLU>(a, red, T::LDR, BM, BN,
+                                             list * n_t + n0, m0, tid, T::NT);
 }
 
 // ------------------------------------------------------------ f32 FMAs
@@ -390,27 +418,30 @@ __global__ void __launch_bounds__(WM * WN * 32)
 // K loop runs in chunks of bk = min(16, K_t) (the last one zero-padded).
 constexpr int F_BM = 64, F_BN = 64, F_BK = 16, F_NT = 256;
 
-template <typename TA, typename TW, bool FWD, bool GLU>
-struct Fma {
-  static constexpr int NOP = GLU ? 2 : 1;               // operand pairs
+template <typename TA, typename TW, bool FWD, Glu G>
+struct Fma {   // the stage layout of Tc, in bytes
+  static constexpr int NOP = G ? 2 : 1;                 // weight tiles
+  static constexpr int NA = G == JOINT_GLU ? 1 : NOP;   // X tiles
   static constexpr int LDA = F_BK + 16 / sizeof(TA);    // A [64][LDA]
   static constexpr int B_ROWS = FWD ? F_BK : F_BN;
   static constexpr int LDB = (FWD ? F_BN : F_BK) + 16 / sizeof(TW);
   static constexpr size_t A_BYTES = sizeof(TA) * F_BM * LDA;
-  static constexpr size_t OP = A_BYTES + sizeof(TW) * B_ROWS * LDB;
-  static constexpr size_t STAGE = NOP * OP;             // pair op at op * OP
+  static constexpr size_t B_BYTES = sizeof(TW) * B_ROWS * LDB;
+  static constexpr size_t A_STEP = A_BYTES + B_BYTES;
+  static constexpr size_t B_STEP = NA == NOP ? A_BYTES + B_BYTES : B_BYTES;
+  static constexpr size_t STAGE = NA * A_BYTES + NOP * B_BYTES;
   static constexpr int STAGES = 3;
   static constexpr int LDR = F_BN + 4;
   static constexpr size_t SMEM_RING = STAGES * STAGE;
   static constexpr size_t SMEM_RED = sizeof(float) * NOP * F_BM * LDR;
   static constexpr size_t SMEM = SMEM_RING > SMEM_RED ? SMEM_RING : SMEM_RED;
-  static_assert(FWD || !GLU, "the GLU is a forward product");
+  static_assert(FWD || !G, "the GLU is a forward product");
   static_assert(SMEM <= MAX_SMEM, "shared memory of one CTA");
 };
 
-template <typename TA, typename TW, bool FWD, bool GLU, bool VEC>
+template <typename TA, typename TW, bool FWD, Glu G, bool VEC>
 __global__ void __launch_bounds__(F_NT) fma_kernel(const Args a) {
-  using F = Fma<TA, TW, FWD, GLU>;
+  using F = Fma<TA, TW, FWD, G>;
   constexpr int STAGES = F::STAGES;
   extern __shared__ __align__(16) unsigned char smem_raw[];
 
@@ -434,17 +465,18 @@ __global__ void __launch_bounds__(F_NT) fma_kernel(const Args a) {
     const int kn = min(bk, k_t - kc);
     const int slot = slot_of<FWD>(a, v);
     const int b_rows = FWD ? bk : bn, b_cols = FWD ? bn : bk;
+    unsigned char* st = smem_raw + buf * F::STAGE;
 #pragma unroll
     for (int op = 0; op < F::NOP; ++op) {
-      const int col = a_col<FWD>(a, slot, op) + kc;
-      unsigned char* base = smem_raw + buf * F::STAGE + op * F::OP;
-      TA* sA = reinterpret_cast<TA*>(base);
-      TW* sB = reinterpret_cast<TW*>(base + F::A_BYTES);
+      const bool has_a = op < F::NA;
+      const int col = has_a ? a_col<FWD>(a, slot, op) + kc : 0;
+      TA* sA = reinterpret_cast<TA*>(st + op * F::A_STEP);
+      TW* sB = reinterpret_cast<TW*>(st + op * F::B_STEP + F::A_BYTES);
       const TW* W = w_block<TW>(a, slot, op);
       if constexpr (VEC) {  // whole chunks, 16-byte aligned rows (host-checked)
         constexpr int EA = 16 / sizeof(TA), EW = 16 / sizeof(TW);
         const int ach = bk / EA;
-        for (int e = tid; e < F_BM * ach; e += F_NT) {
+        for (int e = tid; has_a && e < F_BM * ach; e += F_NT) {
           const int r = e / ach, c = (e % ach) * EA, row = m0 + r;
           const bool ok = row < a.M;
           cp_async16(sA + r * F::LDA + c,
@@ -460,7 +492,7 @@ __global__ void __launch_bounds__(F_NT) fma_kernel(const Args a) {
           cp_async16(sB + r * F::LDB + c, src, true);
         }
       } else {  // element loads; K past the block end is zero
-        for (int e = tid; e < F_BM * bk; e += F_NT) {
+        for (int e = tid; has_a && e < F_BM * bk; e += F_NT) {
           const int r = e / bk, c = e % bk, row = m0 + r;
           sA[r * F::LDA + c] = (row < a.M && c < kn)
               ? A[static_cast<size_t>(row) * a.lda + col + c] : TA(0.f);
@@ -496,27 +528,56 @@ __global__ void __launch_bounds__(F_NT) fma_kernel(const Args a) {
     if (nx < total) load_stage(nx, nx % STAGES);
     cp_async_commit();
     if (!busy) continue;
-#pragma unroll
-    for (int op = 0; op < F::NOP; ++op) {
-      const unsigned char* base =
-          smem_raw + (it % STAGES) * F::STAGE + op * F::OP;
-      const TA* sA = reinterpret_cast<const TA*>(base);
-      const TW* sB = reinterpret_cast<const TW*>(base + F::A_BYTES);
+    const unsigned char* st = smem_raw + (it % STAGES) * F::STAGE;
+    if constexpr (G == JOINT_GLU) {
+      // one read of the X tile per k-step feeds gate and up; unrolled by 4,
+      // which ran faster on the H100 than the compiler's own unrolling
+      // and than one loop per product
+      const TA* sA = reinterpret_cast<const TA*>(st);
+#pragma unroll 4
       for (int kk = 0; kk < bk; ++kk) {
-        float av[4], wv[4];
+        float av[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) av[i] = to_f(sA[(ty * 4 + i) * F::LDA + kk]);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = tx + 16 * j;
-          wv[j] = c < bn ? to_f(FWD ? sB[kk * F::LDB + c] : sB[c * F::LDB + kk])
-                         : 0.f;
+        for (int op = 0; op < F::NOP; ++op) {
+          const TW* sB =
+              reinterpret_cast<const TW*>(st + op * F::B_STEP + F::A_BYTES);
+          float wv[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int c = tx + 16 * j;
+            wv[j] = c < bn ? to_f(sB[kk * F::LDB + c]) : 0.f;
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              acc[op][i][j] = fmaf(av[i], wv[j], acc[op][i][j]);
         }
+      }
+    } else {
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+      for (int op = 0; op < F::NOP; ++op) {
+        const TA* sA = reinterpret_cast<const TA*>(st + op * F::A_STEP);
+        const TW* sB = reinterpret_cast<const TW*>(st + op * F::A_STEP +
+                                                   F::A_BYTES);
+        for (int kk = 0; kk < bk; ++kk) {
+          float av[4], wv[4];
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
-            acc[op][i][j] = fmaf(av[i], wv[j], acc[op][i][j]);
+          for (int i = 0; i < 4; ++i) av[i] = to_f(sA[(ty * 4 + i) * F::LDA + kk]);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int c = tx + 16 * j;
+            wv[j] = c < bn ? to_f(FWD ? sB[kk * F::LDB + c] : sB[c * F::LDB + kk])
+                           : 0.f;
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              acc[op][i][j] = fmaf(av[i], wv[j], acc[op][i][j]);
+        }
       }
     }
   }
@@ -534,8 +595,8 @@ __global__ void __launch_bounds__(F_NT) fma_kernel(const Args a) {
           red[op * F_BM * F::LDR + (ty * 4 + i) * F::LDR + tx + 16 * j] =
               acc[op][i][j];
   const int n_t = FWD ? a.b_out : a.b_in;
-  cluster_reduce_store<TA, 1, GLU>(a, red, F::LDR, F_BM, bn, list * n_t + n0,
-                                   m0, tid, F_NT);
+  cluster_reduce_store<TA, 1, G != NO_GLU>(a, red, F::LDR, F_BM, bn,
+                                           list * n_t + n0, m0, tid, F_NT);
 }
 
 // ------------------------------------------------------------ host side
@@ -566,23 +627,22 @@ int launch_cluster(K kernel, dim3 grid, int nt, size_t smem,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int BM, int BN, int BK, int WM, int WN, int STAGES, bool FWD,
-          bool GLU>
+template <int BM, int BN, int BK, int WM, int WN, int STAGES, bool FWD, Glu G>
 int launch_tc(const Args& a, int n_lists, int n_t, int splits,
               cudaStream_t stream) {
-  using T = Tc<BM, BN, BK, WM, WN, STAGES, FWD, GLU>;
+  using T = Tc<BM, BN, BK, WM, WN, STAGES, FWD, G>;
   const int k_t = FWD ? a.b_in : a.b_out;
   if (n_t % BN != 0 || k_t % BK != 0 || a.n_split != n_t / BN)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(splits, n_lists * a.n_split, (a.M + BM - 1) / BM);
-  return launch_cluster(tc_kernel<BM, BN, BK, WM, WN, STAGES, FWD, GLU>,
+  return launch_cluster(tc_kernel<BM, BN, BK, WM, WN, STAGES, FWD, G>,
                         grid, T::NT, T::SMEM, stream, a);
 }
 
-template <typename TA, typename TW, bool FWD, bool GLU>
+template <typename TA, typename TW, bool FWD, Glu G>
 int launch_fma(const Args& a, int n_lists, int n_t, int splits, bool vec,
                cudaStream_t stream) {
-  using F = Fma<TA, TW, FWD, GLU>;
+  using F = Fma<TA, TW, FWD, G>;
   const int k_t = FWD ? a.b_in : a.b_out;
   if (a.bn < 1 || a.bn > F_BN || n_t % a.bn != 0 ||
       a.n_split != n_t / a.bn || a.bk < 1 || a.bk > F_BK)
@@ -591,8 +651,8 @@ int launch_fma(const Args& a, int n_lists, int n_t, int splits, bool vec,
               (a.bk * sizeof(TW)) % 16 != 0 || (a.bn * sizeof(TW)) % 16 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(splits, n_lists * a.n_split, (a.M + F_BM - 1) / F_BM);
-  auto* k = vec ? fma_kernel<TA, TW, FWD, GLU, true>
-                : fma_kernel<TA, TW, FWD, GLU, false>;
+  auto* k = vec ? fma_kernel<TA, TW, FWD, G, true>
+                : fma_kernel<TA, TW, FWD, G, false>;
   return launch_cluster(k, grid, F_NT, F::SMEM, stream, a);
 }
 
@@ -602,14 +662,15 @@ int launch_fma(const Args& a, int n_lists, int n_t, int splits, bool vec,
 // 128-deep blocks or 64-deep halves per stage measured faster than 32-deep
 // ones on the H100 (fewer barriers per visit); deeper rings did not help.
 // The 128x128x64 tile's 3 stages (110 KB) let two CTAs share an SM (the
-// GLU's doubled stage, 215 KB, one). dtype codes: 0 float32, 1 bfloat16.
-template <bool FWD, bool GLU = false>
+// split GLU's 215 KB and the joint GLU's 160 KB, one). dtype codes:
+// 0 float32, 1 bfloat16.
+template <bool FWD, Glu G = NO_GLU>
 int run(const Args& a, int n_lists, int kernel, int splits, int a_dtype,
         int w_dtype, int device, void* stream_ptr) {
   const int n_t = FWD ? a.b_out : a.b_in;
   if (splits < 1 || splits > MAX_SPLITS || n_lists < 1 || a.M < 1 ||
       a.b_in < 1 || a.b_out < 1 || a.n_split < 1 ||
-      (GLU && (a.w2 == nullptr || a.idx2 == nullptr)))
+      (G && a.w2 == nullptr) || (G == SPLIT_GLU && a.idx2 == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -617,20 +678,20 @@ int run(const Args& a, int n_lists, int kernel, int splits, int a_dtype,
   if (kernel >= 2) {
     if (a_dtype != 1 || w_dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
     switch (kernel) {
-      case 2: return launch_tc<32, 16, 16, 2, 1, 4, FWD, GLU>(a, n_lists, n_t, splits, st);
-      case 3: return launch_tc<16, 64, 128, 1, 4, 4, FWD, GLU>(a, n_lists, n_t, splits, st);
-      case 4: return launch_tc<64, 64, 64, 2, 2, 4, FWD, GLU>(a, n_lists, n_t, splits, st);
-      case 5: return launch_tc<128, 128, 64, 2, 4, 3, FWD, GLU>(a, n_lists, n_t, splits, st);
+      case 2: return launch_tc<32, 16, 16, 2, 1, 4, FWD, G>(a, n_lists, n_t, splits, st);
+      case 3: return launch_tc<16, 64, 128, 1, 4, 4, FWD, G>(a, n_lists, n_t, splits, st);
+      case 4: return launch_tc<64, 64, 64, 2, 2, 4, FWD, G>(a, n_lists, n_t, splits, st);
+      case 5: return launch_tc<128, 128, 64, 2, 4, 3, FWD, G>(a, n_lists, n_t, splits, st);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
   const bool vec = kernel == 1;
   if (a_dtype == 0 && w_dtype == 0)
-    return launch_fma<float, float, FWD, GLU>(a, n_lists, n_t, splits, vec, st);
+    return launch_fma<float, float, FWD, G>(a, n_lists, n_t, splits, vec, st);
   if (a_dtype == 0 && w_dtype == 1)
-    return launch_fma<float, bf16, FWD, GLU>(a, n_lists, n_t, splits, vec, st);
+    return launch_fma<float, bf16, FWD, G>(a, n_lists, n_t, splits, vec, st);
   if (a_dtype == 1 && w_dtype == 1)
-    return launch_fma<bf16, bf16, FWD, GLU>(a, n_lists, n_t, splits, vec, st);
+    return launch_fma<bf16, bf16, FWD, G>(a, n_lists, n_t, splits, vec, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

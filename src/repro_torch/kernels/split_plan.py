@@ -23,11 +23,12 @@ a CTA, raised until no chunk is longer than 2.5 times the mean list
 (global-selection padding makes one list long; a larger bound left the
 served global case 2.6x its balanced twin, a smaller one splits the
 balanced down shape at M = 1024, which is slower), at most 8 and at most
-the longest list. The split fused GLU (``glu=True``) stages two operand
-pairs per visit, so its tiles take twice the shared memory
-(``smem_bytes``); where that leaves one CTA to an SM, the SM-filling part
-of the split is capped at one wave of CTAs. Everything here is numpy and
-ints; the wrappers cache the device copies.
+the longest list. The fused GLU (``glu=True``) stages two weight tiles
+per visit beside two X tiles (split) or one (``joint=True``: gate and up
+share one idx table), and keeps two f32 partial tiles, so its tiles take
+more shared memory (``smem_bytes``); where that leaves one CTA to an SM,
+the SM-filling part of the split is capped at one wave of CTAs.
+Everything here is numpy and ints; the wrappers cache the device copies.
 """
 from __future__ import annotations
 
@@ -95,20 +96,24 @@ def split_bounds(lengths, splits: int) -> np.ndarray:
             + (c[None, :] * lengths[:, None]) // splits).astype(np.int32)
 
 
-def smem_bytes(k: KernelSpec, *, glu: bool, a_size: int,
-               w_size: int) -> int:
+def smem_bytes(k: KernelSpec, *, glu: bool, a_size: int, w_size: int,
+               joint: bool = False) -> int:
     """Dynamic shared memory of one forward CTA of kernel ``k``
     (``bsp::Tc`` / ``bsp::Fma`` with FWD: the ring, or the f32 partial
-    tiles that reuse it, whichever is larger)."""
-    nop = 2 if glu else 1
+    tiles that reuse it, whichever is larger). ``glu``: two weight tiles
+    per stage and two partials; ``joint``: the GLU's one X tile per
+    stage (else two)."""
+    n_w = 2 if glu else 1
+    n_x = 2 if glu and not joint else 1
     if k.kid < 2:      # Fma: [64][16 + pad] A, [16][64 + pad] B, 64 x 68
         a_b = a_size * k.bm * (FMA_BK + 16 // a_size)
-        op = a_b + w_size * FMA_BK * (FMA_BN + 16 // w_size)
-        red = 4 * nop * k.bm * (FMA_BN + 4)
+        w_b = w_size * FMA_BK * (FMA_BN + 16 // w_size)
+        red = 4 * n_w * k.bm * (FMA_BN + 4)
     else:              # Tc (bf16): [bm][bk + 8] A, [bk][bn + 8] B
-        op = 2 * (k.bm * (k.bk + 8) + k.bk * (k.bn + 8))
-        red = 4 * nop * k.bm * (k.bn + 8)
-    return max(k.stages * nop * op, red)
+        a_b = 2 * k.bm * (k.bk + 8)
+        w_b = 2 * k.bk * (k.bn + 8)
+        red = 4 * n_w * k.bm * (k.bn + 8)
+    return max(k.stages * (n_x * a_b + n_w * w_b), red)
 
 
 def ctas_per_sm(smem: int) -> int:
@@ -148,13 +153,15 @@ def fma_vec_ok(k_t: int, n_t: int, a_size: int, w_size: int,
 @functools.cache
 def choose(m: int, k_t: int, n_t: int, n_lists: int, max_len: int,
            total_len: int, *, bf16: bool, a_size: int, w_size: int,
-           aligned: bool, n_sm: int, glu: bool = False) -> Launch:
+           aligned: bool, n_sm: int, glu: bool = False,
+           joint: bool = False) -> Launch:
     """The launch for an (M x K_t) A tile against blocks whose output
     width is N_t, over ``n_lists`` visit lists of at most ``max_len``
     visits and ``total_len`` in all. ``aligned``: every base pointer and
     row stride that a 16-byte copy touches is 16-byte aligned. ``bf16``:
-    both operands bf16. ``glu``: the split fused GLU (two operand pairs
-    per visit). Cached: a served shape is planned once."""
+    both operands bf16. ``glu``: the fused GLU (two weight tiles per
+    visit); ``joint``: its one X tile per visit (one shared idx table).
+    Cached: a served shape is planned once."""
     if m < 1 or k_t < 1 or n_t < 1 or n_lists < 1:
         raise ValueError(f"empty product: M={m}, K_t={k_t}, N_t={n_t}, "
                          f"{n_lists} lists")
@@ -167,7 +174,7 @@ def choose(m: int, k_t: int, n_t: int, n_lists: int, max_len: int,
     fill = math.ceil(n_sm / tiles)
     if glu:    # no second wave: one CTA to an SM at the decode tile
         occ = ctas_per_sm(smem_bytes(k, glu=True, a_size=a_size,
-                                     w_size=w_size))
+                                     w_size=w_size, joint=joint))
         fill = min(fill, max(1, n_sm * occ // tiles))
     splits = max(fill, math.ceil(max_len / (CHUNK_OVER_MEAN * mean)))
     splits = max(1, min(MAX_SPLITS, splits, max_len))

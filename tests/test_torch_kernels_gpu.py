@@ -141,6 +141,26 @@ def test_launchers_reject_what_the_kernels_do_not_take(cuda):
         tbs.bspmm(x[:, :256].contiguous().half(), p)
     with pytest.raises(ValueError, match="K="):
         tbs.bspmm(x, p)
+    # the joint fused GLU takes the same rules
+    pj = PackedBCSC(p.blocks, p.idx, p.kb, joint=True)
+    x2 = x[:, :256].contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        tbs.fused_glu(x[:, ::2], pj, pj)
+    pl = PackedBCSC(p.blocks, p.idx.long(), p.kb, joint=True)
+    with pytest.raises(TypeError, match="int32"):
+        tbs.fused_glu(x2, pl, pl)
+    with pytest.raises(TypeError, match="not supported"):
+        tbs.fused_glu(x2.half(), pj, pj)
+    with pytest.raises(ValueError, match="K="):
+        tbs.fused_glu(x, pj, pj)
+    with pytest.raises(ValueError, match="act"):
+        tbs.fused_glu(x2, pj, pj, act="tanh")
+    wide = PackedBCSC(torch.zeros(1, 1, 128, 96, device=cuda,
+                                  dtype=torch.bfloat16),
+                      torch.zeros(1, 1, device=cuda, dtype=torch.int32), 2,
+                      joint=True)
+    with pytest.raises(ValueError, match="b_out=96"):
+        tbs.fused_glu(x2, wide, wide)
 
 
 def _mask_cases(k, n, bi, bo, gen):
@@ -523,3 +543,163 @@ def test_fused_glu_split_takes_stacked_layer_views_and_unaligned_rows(
     got, want = tbs.fused_glu(xo, pg, pu), tops.fused_glu_plain(xo, pg, pu)
     torch.cuda.synchronize()
     assert float((got.float() - want.float()).abs().max()) <= _ulp_tol(dt, want)
+
+
+# (X dtype, weight dtype) of the joint GLU cases
+GLU_DTYPES = {"bfloat16": (torch.bfloat16, torch.bfloat16),
+              "float32": (torch.float32, torch.float32),
+              "f32_over_bf16": (torch.float32, torch.bfloat16)}
+
+
+def _joint_pair(seed, k, n, bi, bo, wdt, dev, s=0.5):
+    """Gate and up packed on gate's idx table, both marked joint."""
+    pg = _packed(seed, k, n, bi, bo, s, wdt, dev)
+    return (PackedBCSC(pg.blocks, pg.idx, pg.kb, joint=True),
+            _packed(seed + 1, k, n, bi, bo, s, wdt, dev, idx=pg.idx.cpu()))
+
+
+def _joint_launches(run):
+    """``run()``'s launches by kernel: the joint GLU's only."""
+    before = dict(tbs.LAUNCHES)
+    out = run()
+    torch.cuda.synchronize()
+    d = {k: tbs.LAUNCHES[k] - before[k] for k in before}
+    assert d["bspmm"] == d["fused_glu_split"] == 0, d
+    return out, d["fused_glu_joint"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [5, 8, 128, 1024])
+@pytest.mark.parametrize("dtype", list(GLU_DTYPES))
+@pytest.mark.parametrize("block", [(128, 128), (32, 16), (16, 64), (8, 8)])
+@pytest.mark.parametrize("act", ["silu", "gelu", "relu"])
+def test_fused_glu_joint_matches_plain(cuda, m, dtype, block, act):
+    """The joint fused GLU on the shared main loops: bf16 blocks whose
+    sides are multiples of 16 take the tensor cores, f32, f32 X over bf16
+    weights and b = 8 the FMA loop; each case against the plain version
+    within ``ulp_tol``, two runs bitwise equal, one launch each."""
+    xdt, wdt = GLU_DTYPES[dtype]
+    bi, bo = block
+    k, n = 8 * bi, 4 * bo
+    gen = torch.Generator().manual_seed(m + bi + bo)
+    x = torch.randn(m, k, generator=gen).to(cuda, xdt)
+    pg, pu = _joint_pair(m, k, n, bi, bo, wdt, cuda)
+    lp = tbs.launch_plan(x, pg, pu)
+    tc = xdt == wdt == torch.bfloat16 and bi % 16 == 0 and bo % 16 == 0
+    assert (lp.kernel.kid >= 2) == tc, lp
+    (got, again), n_launch = _joint_launches(
+        lambda: (tbs.fused_glu(x, pg, pu, act=act),
+                 tbs.fused_glu(x, pg, pu, act=act)))
+    want = tops.fused_glu_plain(x, pg, pu, act)
+    assert n_launch == 2
+    assert got.dtype == xdt and got.shape == (m, n)
+    assert torch.equal(got, again)
+    assert float((got.float() - want.float()).abs().max()) <= _ulp_tol(
+        xdt, want), lp
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_glu_joint_is_bitwise_repeatable_when_split(cuda, dtype):
+    """The served gate/up shape (2048 -> 8192, 128 x 128 blocks) with up
+    on gate's masks, at the prefill chunk's 128 rows, where the plan
+    splits each column's visits across a cluster in bf16: two runs give
+    the same bits."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(13)
+    k, n, b, m = 2048, 8192, 128, 128
+    pg, pu = _joint_pair(23, k, n, b, b, dt, cuda, s=0.8)
+    x = torch.randn(m, k, generator=gen).to(cuda, dt)
+    if dt == torch.bfloat16:
+        assert tbs.launch_plan(x, pg, pu).splits > 1
+    (y1, y2), n_launch = _joint_launches(
+        lambda: (tbs.fused_glu(x, pg, pu), tbs.fused_glu(x, pg, pu)))
+    want = tops.fused_glu_plain(x, pg, pu)
+    assert n_launch == 2
+    assert torch.equal(y1, y2)
+    assert float((y1.float() - want.float()).abs().max()) <= _ulp_tol(dt, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_glu_joint_takes_stacked_layer_views_and_unaligned_rows(
+        cuda, dtype):
+    """The joint GLU on ``.layer(i)`` views of stacked gate and up packs
+    on one set of masks (a storage offset), and on an X that starts 2
+    bytes off a 16-byte boundary (the element-load FMA loop takes it)."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(18)
+    n_l, k, n, b, m = 3, 512, 1024, 128, 8
+    spec = BlastSpec(b_in=b, b_out=b, s_init=0.75)
+    w = torch.randn(2, n_l, k, n, generator=gen) / k ** 0.5
+    masks = torch.stack([initial_mask(spec, w[0, i]) for i in range(n_l)])
+    stacks = []
+    for g in range(2):
+        wm = torch.stack([topk.apply_block_mask(w[g, i], masks[i], b, b)
+                          for i in range(n_l)])
+        ps = pack_stacked(wm, masks, b, b, nnz=int(masks.sum(-2).max()))
+        stacks.append(PackedBCSC(ps.blocks.to(cuda, dt), ps.idx.to(cuda),
+                                 ps.kb, joint=True))
+    assert torch.equal(stacks[0].idx, stacks[1].idx)
+    x = torch.randn(m, k, generator=gen).to(cuda, dt)
+    for i in range(n_l):
+        pg, pu = stacks[0].layer(i), stacks[1].layer(i)
+        assert pu.blocks.storage_offset() == i * pu.blocks.numel()
+        got, n_launch = _joint_launches(
+            lambda: tbs.fused_glu(x, pg, pu, act="gelu"))
+        want = tops.fused_glu_plain(x, pg, pu, "gelu")
+        assert n_launch == 1
+        assert float((got.float() - want.float()).abs().max()) <= _ulp_tol(
+            dt, want), i
+    buf = torch.empty(m * k + 1, device=cuda, dtype=dt)
+    xo = buf[1:].view(m, k)
+    xo.copy_(x)
+    pg, pu = stacks[0].layer(1), stacks[1].layer(1)
+    assert xo.data_ptr() % 16 and tbs.launch_plan(xo, pg, pu).kernel.kid == 0
+    got, n_launch = _joint_launches(lambda: tbs.fused_glu(xo, pg, pu))
+    want = tops.fused_glu_plain(xo, pg, pu)
+    assert n_launch == 1
+    assert float((got.float() - want.float()).abs().max()) <= _ulp_tol(dt, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [8, 128])
+@pytest.mark.parametrize("dtype", list(GLU_DTYPES))
+def test_fused_glu_joint_takes_b_out_384(cuda, m, dtype):
+    """b_out = 384 (3 x 128, a width that does not divide 256): the
+    tensor cores take it in bf16, the FMA loop in f32."""
+    xdt, wdt = GLU_DTYPES[dtype]
+    gen = torch.Generator().manual_seed(m)
+    k, n, bi, bo = 512, 1536, 128, 384
+    x = torch.randn(m, k, generator=gen).to(cuda, xdt)
+    pg, pu = _joint_pair(7, k, n, bi, bo, wdt, cuda)
+    got, n_launch = _joint_launches(lambda: tbs.fused_glu(x, pg, pu))
+    want = tops.fused_glu_plain(x, pg, pu)
+    assert n_launch == 1 and got.shape == (m, n)
+    assert float((got.float() - want.float()).abs().max()) <= _ulp_tol(
+        xdt, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [5, 8, 128])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_joint_glu_equals_the_split_kernel_bitwise(cuda, m, dtype):
+    """The served gate/up shape (2048 -> 8192, 128 x 128 blocks, s = 0.8)
+    with up on gate's idx table: the joint kernel, and the split kernel
+    on the same weights with the joint mark cleared (idx_up = idx), take
+    one plan here and sum the same products in the same order, so their
+    outputs are bitwise equal."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(31 + m)
+    k, n, b = 2048, 8192, 128
+    jg, ju = _joint_pair(41, k, n, b, b, dt, cuda, s=0.8)
+    sg, su = (PackedBCSC(p.blocks, p.idx, p.kb) for p in (jg, ju))
+    x = torch.randn(m, k, generator=gen).to(cuda, dt)
+    assert tbs.launch_plan(x, jg, ju) == tbs.launch_plan(x, sg, su)
+    before = dict(tbs.LAUNCHES)
+    joint = tbs.fused_glu(x, jg, ju, act="silu")
+    split = tbs.fused_glu(x, sg, su, act="silu")
+    torch.cuda.synchronize()
+    assert tbs.LAUNCHES["fused_glu_joint"] == before["fused_glu_joint"] + 1
+    assert tbs.LAUNCHES["fused_glu_split"] == before["fused_glu_split"] + 1
+    assert torch.equal(joint, split)

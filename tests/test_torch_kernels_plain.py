@@ -79,12 +79,49 @@ def test_fused_glu_plain(act, joint):
         jnp.asarray(x), pg, pu, act=act)), **TOL)
     np.testing.assert_allclose(got, np.asarray(jbs.fused_glu(
         jnp.asarray(x), pg, pu, act=act, blk_m=16, interpret=True)), **TOL)
+    np.testing.assert_allclose(got, np.asarray(jops.fused_glu(
+        jnp.asarray(x), pg, pu, act=act, backend="pallas_interp",
+        blk_m=16)), **TOL)
     pd = _packed(4, 64, 64, 16, 16, 0.5)
     np.testing.assert_allclose(
         tops.sparse_mlp_apply(torch.from_numpy(x), _t(pg), _t(pu), _t(pd),
                               act=act).numpy(),
         np.asarray(jops.sparse_mlp_apply(jnp.asarray(x), pg, pu, pd,
                                          act=act)), **TOL)
+
+
+@pytest.mark.parametrize("act", ["silu", "gelu", "relu"])
+@pytest.mark.parametrize("bi,bo", [(16, 16), (16, 48), (32, 384), (8, 8)])
+@pytest.mark.parametrize("wdtype", [jnp.float32, jnp.bfloat16])
+def test_fused_glu_plain_joint_block_shapes(act, bi, bo, wdtype):
+    """Joint-marked gate/up packs (up on gate's idx table) at block shapes
+    the CUDA joint kernel takes, b_out = 48 and 384 among them (widths
+    that do not divide 256), with f32 X over f32 or bf16 weights: the
+    plain version against the reference's joint Pallas kernel in
+    interpret mode (both entry points) and its XLA route, rtol/atol 1e-5
+    (f32 sums, only their order differs)."""
+    k, n = 4 * bi, 2 * bo
+    x = _x(bo, 16, k)
+    pg = _packed(bi, k, n, bi, bo, 0.5, wdtype)
+    wu = (np.random.default_rng(bo + 1).normal(size=pg.blocks.shape)
+          / np.sqrt(k)).astype(np.float32)
+    pu = jpk.PackedBCSC(blocks=jnp.asarray(wu).astype(wdtype), idx=pg.idx,
+                        kb=pg.kb)
+    pg, pu = jpk.mark_joint(pg, pu)
+    assert pg.joint and pu.joint and _t(pg).joint
+    xt = torch.from_numpy(x)
+    got = tops.fused_glu_plain(xt, _t(pg), _t(pu), act).numpy()
+    assert got.shape == (16, n) and np.isfinite(got).all()
+    xj = jnp.asarray(x)
+    for want in (jbs.fused_glu(xj, pg, pu, act=act, blk_m=16,
+                               interpret=True),
+                 jops.fused_glu(xj, pg, pu, act=act,
+                                backend="pallas_interp", blk_m=16),
+                 jops.fused_glu(xj, pg, pu, act=act)):
+        np.testing.assert_allclose(got, np.asarray(want), **TOL)
+    # the device dispatch of a CPU tensor is the plain version
+    np.testing.assert_array_equal(
+        tops.fused_glu(xt, _t(pg), _t(pu), act=act).numpy(), got)
 
 
 def test_flops_bspmm():

@@ -222,3 +222,114 @@ def test_glu_split_stays_within_one_wave(m):
     plain = split_plan.choose(m, 128, 128, 64, 4, 256, **kw)
     assert plain.kernel == glu.kernel
     assert tiles * plain.splits >= 132 or plain.splits == 4
+
+
+# the GLU modes of bsp::Tc / bsp::Fma: (X tiles, weight tiles) per stage
+GLU_MODES = {"none": (1, 1), "split": (2, 2), "joint": (1, 2)}
+# (X, W) element sizes the main loops take: bf16, f32, f32 X over bf16 W
+SIZES = {"bf16": (2, 2), "f32": (4, 4), "f32_over_bf16": (4, 2)}
+
+
+def _tc_bytes(k, n_x, n_w):
+    """``bsp::Tc<BM, BN, BK, ..., STAGES, FWD = true, G>::SMEM``, its
+    members written out: A [BM][BK + 8], B [BK][BN + 8], f32 partial
+    [BM][BN + 8] per weight tile."""
+    a_elems, b_elems = k.bm * (k.bk + 8), k.bk * (k.bn + 8)
+    ring = 2 * k.stages * (n_x * a_elems + n_w * b_elems)
+    return max(ring, 4 * n_w * k.bm * (k.bn + 8))
+
+
+def _fma_bytes(a_size, w_size, n_x, n_w):
+    """``bsp::Fma<TA, TW, FWD = true, G>::SMEM``: A [64][16 + 16 / TA],
+    B [16][64 + 16 / TW], 3 stages, f32 partial [64][68] per weight
+    tile."""
+    a_bytes = a_size * 64 * (16 + 16 // a_size)
+    b_bytes = w_size * 16 * (64 + 16 // w_size)
+    return max(3 * (n_x * a_bytes + n_w * b_bytes), 4 * n_w * 64 * 68)
+
+
+@pytest.mark.parametrize("mode", list(GLU_MODES))
+@pytest.mark.parametrize("kid,sizes", [
+    (k.kid, s) for k in split_plan.KERNELS
+    for s in (SIZES if k.kid < 2 else ["bf16"])])
+def test_smem_bytes_mirror_the_device_stage_layout(kid, sizes, mode):
+    """``smem_bytes`` against the shared-memory arithmetic of the device
+    structs for every kernel id, element size and GLU mode (the joint
+    GLU stages one X tile beside its two weight tiles), and each within
+    the 227 KB the structs' ``static_assert`` allows."""
+    k = split_plan.KERNELS[kid]
+    a_size, w_size = SIZES[sizes]
+    n_x, n_w = GLU_MODES[mode]
+    want = (_fma_bytes(a_size, w_size, n_x, n_w) if kid < 2
+            else _tc_bytes(k, n_x, n_w))
+    got = split_plan.smem_bytes(k, glu=mode != "none", a_size=a_size,
+                                w_size=w_size, joint=mode == "joint")
+    assert got == want
+    assert 0 < got <= split_plan.MAX_SMEM
+    if mode == "joint":   # one X tile fewer than the split GLU, never more
+        split = split_plan.smem_bytes(k, glu=True, a_size=a_size,
+                                      w_size=w_size)
+        assert got <= split
+
+
+def test_joint_rings_at_the_served_tiles():
+    """The decode tile's 4-stage joint ring is 165 KB (split 182 KB), the
+    prefill tile's 3-stage one 160 KB (split 215 KB): one CTA to an SM
+    either way; the 64 x 64 x 64 tile's joint ring (111 KB) leaves two."""
+    def smem(kid, joint):
+        return split_plan.smem_bytes(split_plan.KERNELS[kid], glu=True,
+                                     a_size=2, w_size=2, joint=joint)
+    assert smem(3, True) == 2 * 4 * (16 * 136 + 2 * 128 * 72) == 164864
+    assert smem(3, False) == 182272
+    assert smem(5, True) == 2 * 3 * (128 * 72 + 2 * 64 * 136) == 159744
+    assert smem(5, False) == 215040
+    assert [split_plan.ctas_per_sm(smem(k, j)) for k in (3, 5)
+            for j in (False, True)] == [1, 1, 1, 1]
+    assert [split_plan.ctas_per_sm(smem(4, j)) for j in (False, True)] \
+        == [1, 2]
+
+
+def _glu_plan(m, dtype, block, joint, lists=64, max_len=4):
+    a_size, w_size = SIZES[dtype]
+    bi, bo = block
+    return split_plan.choose(m, bi, bo, lists, max_len, lists * max_len,
+                             bf16=dtype == "bf16", a_size=a_size,
+                             w_size=w_size, aligned=True, n_sm=132,
+                             glu=True, joint=joint)
+
+
+@pytest.mark.parametrize("m", [5, 8, 32, 128, 1024])
+@pytest.mark.parametrize("dtype", list(SIZES))
+@pytest.mark.parametrize("block", [(128, 128), (64, 64), (32, 16), (8, 8)])
+def test_joint_glu_plan_fits_and_differs_only_by_occupancy(m, dtype, block):
+    """``choose(glu=True, joint=True)`` never plans a tile over 227 KB,
+    keeps within one wave of CTAs at its own footprint, and equals the
+    split GLU's plan wherever the two footprints hold the same number of
+    CTAs to an SM; where they do not, only the split differs."""
+    joint = _glu_plan(m, dtype, block, True)
+    split = _glu_plan(m, dtype, block, False)
+    a_size, w_size = SIZES[dtype]
+    sj, ss = (split_plan.smem_bytes(joint.kernel, glu=True, a_size=a_size,
+                                    w_size=w_size, joint=j)
+              for j in (True, False))
+    assert sj <= split_plan.MAX_SMEM
+    occ_j, occ_s = split_plan.ctas_per_sm(sj), split_plan.ctas_per_sm(ss)
+    tiles = 64 * math.ceil(m / joint.kernel.bm) * joint.n_split
+    assert joint.splits == 1 or tiles * joint.splits <= 132 * occ_j
+    assert joint.kernel == split.kernel and joint.n_split == split.n_split
+    if occ_j == occ_s:
+        assert joint == split
+    else:
+        assert occ_j > occ_s and joint.splits >= split.splits
+
+
+@pytest.mark.parametrize("m", [17, 32, 64])
+def test_joint_glu_split_cap_uses_the_joint_footprint(m):
+    """Llama-3.2-1B's gate/up shape at 17-64 rows takes the 64 x 64 x 64
+    tile: 128 tiles, two a column. The split GLU's ring (147 KB) holds one
+    CTA to an SM, so one wave leaves it unsplit; the joint ring (111 KB)
+    holds two, so the joint GLU splits each column's visits in two."""
+    joint, split = (_glu_plan(m, "bf16", (128, 128), j) for j in (True,
+                                                                  False))
+    assert joint.kernel.kid == split.kernel.kid == 4
+    assert (split.splits, joint.splits) == (1, 2)
