@@ -12,9 +12,20 @@ depth with seeded random weights.
 Serving: packed Llama-3.2-1B through the continuous-batching engine: the
 one-shot 80% block prune of the JAX launcher (gate and up masks differ,
 so the split fused-GLU kernel runs), then a short run whose up weight
-takes gate's mask (the joint kernel). Each serving run resets the kernel
-launch counters just before and reads them just after, and fails unless
-every kernel of its path launched. The packed output is checked against
+takes gate's mask (the joint kernel). The same 12 requests also run
+through the engine's other KV paths, in alternating order beside the
+phased paged run: the contiguous (B, max_len) cache, mixed
+decode+prefill batching (no stalled decode step), and, on 12 requests
+sharing a 100-token system prompt after one warm request, the radix-tree
+prefix cache against the same prompts with the cache off (12 hits, 12
+copy-on-write copies, 1200 prompt tokens skipped); ``serve_loop``, the
+greedy oracle, decodes 4 prompts of 64 tokens. Each serving run resets
+the kernel launch counters just before and reads them just after, and
+fails unless every kernel of its path launched (and, on the contiguous
+cache, paged decode never did). On the model's first two layers in f32
+the phased paged, contiguous, mixed and prefix-cached engines and
+``serve_loop`` must give equal greedy streams (a divergence only at a
+near-tie, see ``phase_parity``). The packed output is checked against
 a pruned-dense run of the same weights (plain torch.matmul MLP): at each
 of the 16 layers on the dense run's hidden states, end to end through
 the engine on the model's first two layers, and in next-token logits at
@@ -43,6 +54,8 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
@@ -51,6 +64,11 @@ DEVICE = "cuda"
 N_REQUESTS, NEW_TOKENS = 12, 64
 ENGINE = dict(max_batch=8, max_len=512, page_size=16, prefill_chunk=16,
               slab_k=8)
+# shared-system-prompt traffic: a 100-token prefix (not page-aligned, so
+# each hit copies its boundary page), suffixes of 16-48 tokens
+PREFIX_LEN, PREFIX_TOKENS = 100, 32
+LOOP_PROMPTS, LOOP_LEN, LOOP_TOKENS = 4, 64, 32
+PARITY_DEPTH, PARITY_TOKENS, NEAR_TIE = 2, 16, 1e-4
 
 # datasheet figures (SXM parts, dense rates): bytes/s of device memory and
 # operations/s by input type (f32 outside the tensor cores, as the kernels
@@ -241,7 +259,8 @@ def phase_model(torch, cfg):
 def phase_kernels(torch, card, packed, joint):
     """Each kernel against its plain version on the card, at the serving
     shapes: layer 0's real packed weights, M in {5, 8, 128} rows
-    (decode lanes and a prefill chunk of 8 lanes x 16) for the MLP
+    (decode lanes and a prefill chunk of 8 lanes x 16) and, in bf16, M in
+    {16, 32, 64} (the mixed step's 8 lanes x W in {2, 4, 8}) for the MLP
     kernels, B=8 lanes and R in {1, 4, 16, 32} pages for decode, in bf16
     and f32; and bspmm at packed fine-tuning's M = 1024 rows on the gate
     shape X (1024, 2048) -> (1024, 8192) and the down shape. Each bspmm
@@ -293,7 +312,11 @@ def phase_kernels(torch, card, packed, joint):
         jgate, jup = cast(jmlp0["w_gate"], dt), cast(jmlp0["w_up"], dt)
         wd, wgu, wgu_j = (dense_down.to(dt), dense_gu.to(dt),
                           dense_gu_j.to(dt))
-        for m in (5, 8, 128):
+        # 16-64 rows: the mixed step's MLP (8 lanes x W in {2, 4, 8})
+        # and short prefill chunks, on the 64x64x64 tile from 17 rows
+        rows_m = ((5, 8, 16, 32, 64, 128) if dt == torch.bfloat16
+                  else (5, 8, 128))
+        for m in rows_m:
             h = torch.randn(m, down.kb * down.b_in, generator=gen,
                             device=DEVICE).to(dt)
             x = torch.randn(m, gate.kb * gate.b_in, generator=gen,
@@ -412,9 +435,17 @@ def _read_counts():
     return {k: v for d in _counters() for k, v in d.items()}
 
 
-def _serve(cfg, params, prompts, new_tokens):
+def _serve(cfg, params, prompts, new_tokens, warm=(), **mode):
+    """One engine run of ``prompts``; ``warm`` requests run to the end
+    first and their stats are dropped (the prefix cache keeps what they
+    inserted)."""
     from repro_torch.serving.engine import Engine
-    eng = Engine(cfg, params, device=DEVICE, **ENGINE)
+    eng = Engine(cfg, params, device=DEVICE, **ENGINE, **mode)
+    for p in warm:
+        eng.submit(p, new_tokens)
+    if warm:
+        eng.run()
+        eng.reset_stats()
     uids = [eng.submit(p, new_tokens) for p in prompts]
     t0 = time.monotonic()
     res = eng.run()
@@ -422,23 +453,46 @@ def _serve(cfg, params, prompts, new_tokens):
     return eng, [res[u] for u in uids], wall
 
 
+def _kv_slab_bytes(cfg, batch, max_len):
+    """Bytes of a contiguous bf16 K+V cache of ``batch`` rows."""
+    from repro_torch.models import attention
+    _, kv = attention.eff_heads(cfg)
+    return 2 * cfg.num_layers * batch * max_len * kv * cfg.head_dim * 2
+
+
 def phase_serve(torch, cfg, name, params, prompts, new_tokens, must_launch,
-                must_not):
+                must_not, warm=(), **mode):
     """One serving run, launch counters reset just before and read just
-    after."""
+    after. Returns (results, counts, stats)."""
     _reset_counts()
-    eng, results, wall = _serve(cfg, params, prompts, new_tokens)
+    eng, results, wall = _serve(cfg, params, prompts, new_tokens, warm,
+                                **mode)
     counts = _read_counts()
     st = eng.stats
     done = sum(r.ok and r.generated.size == new_tokens for r in results)
-    emit(phase="serve", run=name, submitted=len(prompts), completed=done,
-         completed_equals_submitted=done == len(prompts),
+    extra = {}
+    if not eng.paged:
+        extra["kv_slab_bytes"] = _kv_slab_bytes(cfg, ENGINE["max_batch"],
+                                                ENGINE["max_len"])
+        check(st["peak_kv_bytes"] == extra["kv_slab_bytes"],
+              f"{name}: peak KV {st['peak_kv_bytes']} is not the slab's")
+    if eng.pcache is not None:
+        extra.update({k: st[k] for k in (
+            "prefix_hits", "prefix_misses", "prefill_tokens_skipped",
+            "cow_copies", "cache_evicted_pages", "prefix_hit_rate",
+            "peak_kv_bytes_referenced")})
+    emit(phase="serve", run=name, mode=mode, submitted=len(prompts),
+         completed=done, completed_equals_submitted=done == len(prompts),
          tok_per_s=st["tok_per_s"], ttft_p50_s=st["ttft_p50_s"],
          ttft_p95_s=st["ttft_p95_s"], decode_slabs=st["decode_slabs"],
-         prefill_chunks=st["prefill_chunks"],
+         prefill_chunks=st["prefill_chunks"], mixed_steps=st["mixed_steps"],
+         stalled_decode_steps=st["stalled_decode_steps"],
          generated_tokens=st["generated_tokens"],
-         peak_kv_bytes=st["peak_kv_bytes"], wall_s=wall,
-         launches=counts)
+         peak_kv_bytes=st["peak_kv_bytes"],
+         kv_bytes_contiguous_equiv=st["kv_bytes_contiguous_equiv"],
+         pages_read=st["pages_read"],
+         pages_read_dense_equiv=st["pages_read_dense_equiv"],
+         wall_s=wall, launches=counts, **extra)
     check(done == len(prompts), f"{name}: {done}/{len(prompts)} completed")
     for r in results:
         g = r.generated
@@ -448,7 +502,193 @@ def phase_serve(torch, cfg, name, params, prompts, new_tokens, must_launch,
         check(counts[k] > 0, f"{name}: kernel {k} never launched")
     for k in must_not:
         check(counts[k] == 0, f"{name}: kernel {k} launched unexpectedly")
-    return results, counts
+    return results, counts, dict(st)
+
+
+def _brief(st):
+    return {k: st[k] for k in ("tok_per_s", "ttft_p50_s", "ttft_p95_s",
+                               "peak_kv_bytes")}
+
+
+PAGED = ("bspmm", "fused_glu_split", "paged_flash_decode")
+
+
+def phase_serve_modes(torch, cfg, packed, prompts, phased):
+    """The served 12 requests through the contiguous cache and mixed
+    batching, beside the phased paged run: phased (already run),
+    contiguous, mixed, then mixed, contiguous, phased again (decode is
+    host-bound, so the order alternates). Returns the launch counts."""
+    runs = {"packed_split": [phased]}
+    counts = []
+    for name in ("serve_contiguous", "serve_mixed", "serve_mixed",
+                 "serve_contiguous", "packed_split"):
+        mode = {"serve_contiguous": dict(paged=False),
+                "serve_mixed": dict(mixed=True),
+                "packed_split": {}}[name]
+        must = (("bspmm", "fused_glu_split") if name == "serve_contiguous"
+                else PAGED)
+        must_not = (("fused_glu_joint", "paged_flash_decode")
+                    if name == "serve_contiguous" else ("fused_glu_joint",))
+        _, c, st = phase_serve(torch, cfg, name, packed, prompts, NEW_TOKENS,
+                               must, must_not, **mode)
+        if name == "serve_mixed":
+            check(st["stalled_decode_steps"] == 0,
+                  f"mixed: {st['stalled_decode_steps']} stalled steps")
+            check(st["mixed_steps"] > 0, "mixed: no fused call ran")
+        runs.setdefault(name, []).append(_brief(st))
+        counts.append(c)
+    emit(phase="serve_modes", requests=len(prompts), new_tokens=NEW_TOKENS,
+         order=["packed_split", "serve_contiguous", "serve_mixed",
+                "serve_mixed", "serve_contiguous", "packed_split"],
+         runs=runs, kv_slab_bytes=_kv_slab_bytes(cfg, ENGINE["max_batch"],
+                                                 ENGINE["max_len"]))
+    return counts
+
+
+def _prefix_prompts(cfg, rng):
+    """One warm request and 12 sharing its 100-token system prompt, each
+    with a distinct 16-48-token suffix."""
+    system = rng.integers(0, cfg.vocab_size, size=PREFIX_LEN)
+    warm = system.astype(np.int32)
+    reqs = [np.concatenate([system, rng.integers(
+        0, cfg.vocab_size, size=int(n))]).astype(np.int32)
+        for n in rng.integers(16, 49, size=N_REQUESTS)]
+    return warm, reqs
+
+
+def phase_serve_prefix(torch, cfg, packed, warm, reqs):
+    """Shared-system-prompt traffic with the prefix cache off and on, in
+    the order off, on, on, off. With the cache on, every request matches
+    the warm request's 100 tokens: 6 full pages and 4 rows of a seventh,
+    which is copied. Returns the launch counts."""
+    runs, counts = {}, []
+    for on in (False, True, True, False):
+        name = "serve_prefix" if on else "serve_prefix_off"
+        _, c, st = phase_serve(torch, cfg, name, packed, reqs, PREFIX_TOKENS,
+                               PAGED, ("fused_glu_joint",), warm=[warm],
+                               prefix_cache=on)
+        if on:
+            got = (st["prefix_hits"], st["cow_copies"],
+                   st["prefill_tokens_skipped"])
+            want = (N_REQUESTS, N_REQUESTS, N_REQUESTS * PREFIX_LEN)
+            check(got == want, f"prefix cache: hits, copies, skipped "
+                               f"{got}, expected {want}")
+        runs.setdefault(name, []).append(dict(
+            _brief(st), prefill_tokens=st["prefill_tokens"],
+            peak_kv_bytes_referenced=st.get("peak_kv_bytes_referenced")))
+        counts.append(c)
+    emit(phase="serve_prefix_modes", requests=len(reqs),
+         prefix_len=PREFIX_LEN, new_tokens=PREFIX_TOKENS,
+         order=["off", "on", "on", "off"], runs=runs)
+    return counts
+
+
+def phase_serve_loop(torch, cfg, packed, loop_prompts):
+    """``serve_loop.generate`` (token-by-token prefill into the contiguous
+    cache, then one decode step per token) on 4 prompts of 64 tokens,
+    beside the phased paged engine on the same prompts. All four requests
+    get their first token at the end of the prefill, so its TTFT p50 and
+    p95 are the prefill's wall time. Returns the launch counts."""
+    from repro_torch.serving import serve_loop
+    _reset_counts()
+    t0 = time.monotonic()
+    toks, st = serve_loop.generate(cfg, packed, np.stack(loop_prompts),
+                                   max_new_tokens=LOOP_TOKENS, device=DEVICE)
+    wall = time.monotonic() - t0
+    counts = _read_counts()
+    gen = toks[:, LOOP_LEN:]
+    ttft = wall - st["decode_s"]
+    emit(phase="serve", run="serve_loop", submitted=len(loop_prompts),
+         completed=int(gen.shape[0]), tok_per_s=st["tok_per_s"],
+         ttft_p50_s=ttft, ttft_p95_s=ttft,
+         peak_kv_bytes=_kv_slab_bytes(cfg, len(loop_prompts),
+                                      LOOP_LEN + LOOP_TOKENS),
+         wall_s=wall, launches=counts)
+    check(gen.shape == (len(loop_prompts), LOOP_TOKENS),
+          f"serve_loop: {gen.shape} tokens")
+    check(bool(((gen >= 0) & (gen < cfg.vocab_size)).all()),
+          "serve_loop: token outside the vocabulary")
+    check(counts["bspmm"] > 0 and counts["fused_glu_split"] > 0,
+          "serve_loop launched no BSpMM kernel")
+    check(counts["paged_flash_decode"] == 0 and counts["fused_glu_joint"] == 0,
+          "serve_loop launched a paged or joint kernel")
+    _, c, _ = phase_serve(torch, cfg, "serve_loop_phased", packed,
+                          loop_prompts, LOOP_TOKENS, PAGED,
+                          ("fused_glu_joint",))
+    return [counts, c]
+
+
+def _first_divergence(got, want):
+    n = min(len(got), len(want))
+    diff = np.nonzero(np.asarray(got[:n]) != np.asarray(want[:n]))[0]
+    return int(diff[0]) if diff.size else None
+
+
+def phase_parity(torch, cfg, packed, prompts):
+    """The engine's KV paths against each other on the model's first two
+    layers at full width in f32 (the kernels' FMA loops and f32 paged
+    decode): phased paged, contiguous, mixed and prefix-cached phased on
+    the same prompts, and ``serve_loop`` on the equal-length ones. Greedy
+    streams must be equal; a first divergence is accepted only where the
+    phased run's top-2 margin at that step (``_last_logits``) is below
+    1e-4. Returns the launch counts."""
+    from repro_torch.serving import serve_loop
+    cfg2 = dataclasses.replace(cfg, num_layers=PARITY_DEPTH,
+                               compute_dtype="float32")
+    p2 = _first_layers(packed, PARITY_DEPTH)
+    modes = {"phased": ({}, PAGED, ()),
+             "contiguous": (dict(paged=False), ("bspmm", "fused_glu_split"),
+                            ("paged_flash_decode",)),
+             "mixed": (dict(mixed=True), PAGED, ()),
+             "prefix": (dict(prefix_cache=True), PAGED, ())}
+    streams, counts, stats = {}, [], {}
+    for name, (mode, must, must_not) in modes.items():
+        _reset_counts()
+        eng, res, _ = _serve(cfg2, p2, prompts, PARITY_TOKENS, **mode)
+        c = _read_counts()
+        for k in must:
+            check(c[k] > 0, f"parity {name}: kernel {k} never launched")
+        for k in must_not:
+            check(c[k] == 0, f"parity {name}: kernel {k} launched")
+        check(all(r.ok and r.generated.size == PARITY_TOKENS for r in res),
+              f"parity {name}: a request did not complete")
+        streams[name] = [r.generated for r in res]
+        stats[name] = {k: eng.stats[k] for k in (
+            "stalled_decode_steps", "prefix_hits", "cow_copies",
+            "prefill_tokens_skipped")}
+        counts.append(c)
+    equal = [i for i, p in enumerate(prompts) if p.size == LOOP_LEN]
+    _reset_counts()
+    toks, _ = serve_loop.generate(cfg2, p2,
+                                  np.stack([prompts[i] for i in equal]),
+                                  max_new_tokens=PARITY_TOKENS, device=DEVICE)
+    counts.append(_read_counts())
+    loop = {i: toks[j, LOOP_LEN:] for j, i in enumerate(equal)}
+    accepted, margins = 0, []
+    others = [(n, dict(enumerate(streams[n]))) for n in modes if n != "phased"]
+    for name, got in others + [("serve_loop", loop)]:
+        for i, g in got.items():
+            want = streams["phased"][i]
+            t = _first_divergence(g, want)
+            if t is None:
+                continue
+            seq = np.concatenate([prompts[i], want[:t]]).astype(np.int32)
+            top2 = torch.topk(_last_logits(torch, cfg2, p2, seq), 2).values
+            m = float(top2[0] - top2[1])
+            margins.append({"run": name, "request": i, "step": t,
+                            "margin": m})
+            check(m < NEAR_TIE, f"parity {name} request {i} diverged at "
+                                f"step {t}, phased margin {m} >= {NEAR_TIE}")
+            accepted += 1
+    check(stats["mixed"]["stalled_decode_steps"] == 0,
+          "parity mixed: decode stalled")
+    check(stats["prefix"]["prefix_hits"] > 0, "parity prefix: no hit")
+    emit(phase="parity", depth=PARITY_DEPTH, dtype="float32",
+         requests=len(prompts), serve_loop_requests=len(equal),
+         new_tokens=PARITY_TOKENS, runs=list(modes) + ["serve_loop"],
+         accepted_divergences=accepted, divergences=margins,
+         near_tie=NEAR_TIE, stats=stats, launches=counts)
+    return counts
 
 
 def _last_logits(torch, cfg, params, prompt):
@@ -970,7 +1210,6 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.configs.paper_models import LLAMA32_1B
-    import numpy as np
 
     card = phase_env(torch)
     phase_build()
@@ -982,15 +1221,25 @@ def main():
     prompts = [rng.integers(0, cfg.vocab_size, size=(int(n),))
                .astype(np.int32) for n in rng.integers(32, 129,
                                                        size=N_REQUESTS)]
-    _, counts = phase_serve(
+    warm, prefix_reqs = _prefix_prompts(cfg, rng)
+    loop_prompts = [rng.integers(0, cfg.vocab_size, size=LOOP_LEN)
+                    .astype(np.int32) for _ in range(LOOP_PROMPTS)]
+    _, counts, st = phase_serve(
         torch, cfg, "packed_split", packed, prompts, NEW_TOKENS,
-        must_launch=("bspmm", "fused_glu_split", "paged_flash_decode"),
-        must_not=("fused_glu_joint",))
-    _, jcounts = phase_serve(
+        must_launch=PAGED, must_not=("fused_glu_joint",))
+    served = [counts]
+    served += phase_serve_modes(torch, cfg, packed, prompts, _brief(st))
+    served += phase_serve_prefix(torch, cfg, packed, warm, prefix_reqs)
+    served += phase_serve_loop(torch, cfg, packed, loop_prompts)
+    _, jcounts, _ = phase_serve(
         torch, cfg, "packed_joint", joint, prompts[:4], 16,
         must_launch=("bspmm", "fused_glu_joint", "paged_flash_decode"),
         must_not=("fused_glu_split",))
+    served.append(jcounts)
     phase_e2e(torch, cfg, packed, dense, prompts)
+    served += phase_parity(
+        torch, cfg, packed,
+        [prefix_reqs[0]] + prompts + loop_prompts + prefix_reqs[1:4])
     phase_profile(torch, cfg, packed, prompts)
     summary["bspmm_t"] = phase_kernels_t(torch, card, packed)
     del packed, joint, dense
@@ -1005,7 +1254,7 @@ def main():
         s = summary[name]
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=repl,
-            launches=sum(c[name] for c in (counts, jcounts, *ft.values())),
+            launches=sum(c[name] for c in (*served, *ft.values())),
             max_abs_err=s["max_abs_err"], ms=s["ms"],
             plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
             bound_by=s["bound_by"], library_ms=s["library_ms"],

@@ -1,18 +1,22 @@
 """GQA attention (port of ``repro/models/attention.py``): the
 full-sequence causal or windowed attention of training, and attention
-over the paged KV pool for serving.
+over the serving caches: the contiguous ``(B, Smax, KV, hd)`` slab and
+the paged KV pool.
 
 The pool ``(n_pages, page_size, KV, hd)`` is shared by every lane; lane
 b's logical cache slot ``s`` lives at pool page ``block_tables[b, s //
 page_size]``, row ``s % page_size``. Slot numbering, rope positions and
-masking (``_cache_positions``) are the reference's. Decode attention
-goes through the hand-written flash-decode kernel
-(``kernels/paged_attention.py``); prefill attention stays plain torch
-(gather + softmax), as the reference leaves it to XLA.
+masking (``_cache_positions``) are the reference's and the same for both
+layouts. Paged decode attention goes through the hand-written
+flash-decode kernel (``kernels/paged_attention.py``); the contiguous
+path and every prefill or mixed chunk stay plain torch (softmax over
+the scores), as the reference leaves them to XLA.
 
-Unlike the reference, ``paged_write`` updates the pool IN PLACE, which
-saves one pool copy per layer per step; the functions that call it
-return the same tensors they were given.
+Unlike the reference, the cache writes update the slab or pool IN
+PLACE, which saves one cache copy per layer per step; the functions that
+write return the same tensors they were given. A write the reference
+drops (a parked lane, a masked lane or pad token) leaves the cache
+bitwise unchanged, with no host sync.
 """
 from __future__ import annotations
 
@@ -145,6 +149,86 @@ def _cache_positions(smax: int, offsets: torch.Tensor) -> torch.Tensor:
     return torch.where(slots >= off, slots - off, _PAD_POS)
 
 
+def decode_attention(cfg, p, x, cache_k, cache_v, pos, *, window=0,
+                     offsets=None):
+    """One-token decode over the contiguous cache. x (B,1,D); cache_k/v
+    (B,Smax,KV,hd); ``pos`` the new token's cache slot: an int (every
+    lane writes the same slot, ``serve_loop``) or a (B,) tensor (per-lane
+    frontiers; a slot >= Smax, where the engine parks finished lanes,
+    drops the write). With ``offsets`` (B,) lane b's logical position is
+    ``pos[b] - offsets[b]``. Returns (out, cache_k, cache_v), the caches
+    updated in place."""
+    b = x.shape[0]
+    smax = cache_k.shape[1]
+    per_lane = torch.is_tensor(pos) and pos.dim() > 0
+    posv = (pos.to(torch.int32) if per_lane else
+            torch.full((b,), int(pos), dtype=torch.int32, device=x.device))
+    posb = (posv if offsets is None
+            else posv - offsets.to(torch.int32))[:, None]
+    q, k, v = _project_qkv(cfg, p, x)
+    if cfg.rope_theta > 0:
+        q = apply_rope(q, posb, cfg.rope_theta)
+        k = apply_rope(k, posb, cfg.rope_theta)
+    if per_lane:
+        # each lane owns its row: clamp the slot and write the row's own
+        # value back where the reference drops the write
+        lanes = torch.arange(b, device=x.device)
+        ok = (posv >= 0) & (posv < smax)
+        slot = posv.clamp(0, smax - 1).long()
+        for cache, new in ((cache_k, k), (cache_v, v)):
+            cur = cache[lanes, slot]
+            cache[lanes, slot] = torch.where(ok[:, None, None],
+                                             new[:, 0].to(cache.dtype), cur)
+    else:
+        # the reference's dynamic_update_slice clamps the start slot
+        s0 = min(max(int(pos), 0), smax - 1)
+        cache_k[:, s0] = k[:, 0].to(cache_k.dtype)
+        cache_v[:, s0] = v[:, 0].to(cache_v.dtype)
+    if offsets is None:
+        kpos = torch.arange(smax, dtype=torch.int32,
+                            device=x.device)[None].expand(b, smax)
+    else:
+        kpos = _cache_positions(smax, offsets)
+    # the causal mask at the query's position also hides the garbage
+    # cache tail
+    out = _scores_to_out(cfg, q, cache_k.to(q.dtype), cache_v.to(q.dtype),
+                         posb, kpos, causal=True, window=window)
+    return _out_proj(p, out), cache_k, cache_v
+
+
+def chunk_attention(cfg, p, x, cache_k, cache_v, slot, offsets, *,
+                    window=0, lane_mask=None):
+    """Batched chunked-prefill attention over the contiguous cache: C
+    prompt tokens written at cache slots [slot, slot+C) (``slot`` an
+    int); lane b's token at slot s has logical position ``s -
+    offsets[b]``. Lanes outside ``lane_mask`` (B,) keep their cache rows
+    bitwise unchanged (they are decoding while new lanes prefill behind
+    their frontier). Returns (out (B,C,D), cache_k, cache_v), the caches
+    updated in place."""
+    b, c, _ = x.shape
+    steps = torch.arange(c, dtype=torch.int32, device=x.device)
+    qpos = (int(slot) + steps)[None, :] - offsets.to(torch.int32)[:, None]
+    q, k, v = _project_qkv(cfg, p, x)
+    if cfg.rope_theta > 0:
+        # pad queries have negative logical positions; clamp for rope
+        # (their K/V and outputs are masked / discarded anyway)
+        rp = qpos.clamp_min(0)
+        q = apply_rope(q, rp, cfg.rope_theta)
+        k = apply_rope(k, rp, cfg.rope_theta)
+    # the reference's dynamic slice clamps the start so the chunk fits
+    s0 = min(max(int(slot), 0), cache_k.shape[1] - c)
+    for cache, new in ((cache_k, k), (cache_v, v)):
+        new = new.to(cache.dtype)
+        if lane_mask is not None:
+            new = torch.where(lane_mask[:, None, None, None], new,
+                              cache[:, s0:s0 + c])
+        cache[:, s0:s0 + c] = new
+    kpos = _cache_positions(cache_k.shape[1], offsets)
+    out = _scores_to_out(cfg, q, cache_k.to(q.dtype), cache_v.to(q.dtype),
+                         qpos, kpos, causal=True, window=window)
+    return _out_proj(p, out), cache_k, cache_v
+
+
 def gather_pages(pool: torch.Tensor, block_tables: torch.Tensor,
                  read_pages: int) -> torch.Tensor:
     """(n_pages, ps, KV, hd) pool + (B, max_pages) tables ->
@@ -233,16 +317,25 @@ def paged_decode_attention(cfg, p, x, pool_k, pool_v, block_tables, pos, *,
 
 def paged_chunk_attention(cfg, p, x, pool_k, pool_v, block_tables, slot,
                           offsets, *, read_pages: int, window=0,
-                          lane_mask=None):
-    """Batched chunked-prefill attention over the paged pool: C prompt
-    tokens written at logical slots [slot, slot+C) (``slot`` a scalar)
-    through each lane's block table; ``lane_mask`` (B,) drops the writes
-    of lanes not being prefilled. Returns (out (B,C,D), pool_k, pool_v),
-    the pools updated in place."""
+                          lane_mask=None, q_lens=None):
+    """Batched chunked-prefill attention over the paged pool: C tokens
+    per lane written through each lane's block table from ``slot``, an
+    int (every lane from the same slot: group prefill) or a (B,) tensor
+    of per-lane start slots. ``lane_mask`` (B,) drops the writes of lanes
+    not being prefilled; with ``q_lens`` (B,) lane b's tokens [0,
+    q_lens[b]) are real and the rest of its row is padding whose writes
+    drop and whose outputs the caller discards. That is the mixed
+    decode+prefill step: decode lanes at q_len 1 from their frontier,
+    admitting lanes at a chunk from their prompt position, idle lanes at
+    0. Returns (out (B,C,D), pool_k, pool_v), the pools updated in
+    place."""
     b, c, _ = x.shape
     ps = pool_k.shape[1]
     steps = torch.arange(c, dtype=torch.int32, device=x.device)
-    slots_b = (int(slot) + steps)[None, :].expand(b, c)
+    if torch.is_tensor(slot) and slot.dim() > 0:
+        slots_b = slot.to(torch.int32)[:, None] + steps[None, :]
+    else:
+        slots_b = (int(slot) + steps)[None, :].expand(b, c)
     qpos = slots_b - offsets.to(torch.int32)[:, None]
     q, k, v = _project_qkv(cfg, p, x)
     if cfg.rope_theta > 0:
@@ -251,8 +344,15 @@ def paged_chunk_attention(cfg, p, x, pool_k, pool_v, block_tables, slot,
         rp = qpos.clamp_min(0)
         q = apply_rope(q, rp, cfg.rope_theta)
         k = apply_rope(k, rp, cfg.rope_theta)
-    paged_write(pool_k, block_tables, slots_b, k, lane_mask)
-    paged_write(pool_v, block_tables, slots_b, v, lane_mask)
+    wmask = lane_mask
+    if q_lens is not None:
+        valid = steps[None, :] < q_lens.to(torch.int32)[:, None]
+        if wmask is None:
+            wmask = valid
+        else:
+            wmask = (wmask[:, None] if wmask.dim() == 1 else wmask) & valid
+    paged_write(pool_k, block_tables, slots_b, k, wmask)
+    paged_write(pool_v, block_tables, slots_b, v, wmask)
     kpos = _cache_positions(read_pages * ps, offsets)
     gk = gather_pages(pool_k, block_tables, read_pages)
     gv = gather_pages(pool_v, block_tables, read_pages)

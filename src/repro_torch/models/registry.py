@@ -51,9 +51,42 @@ def init_masks(cfg, params):
     return sm.init_masks(cfg.blast, params, sparse_paths(cfg))
 
 
+def init_cache(cfg, batch, max_len, **kw):
+    """Contiguous KV cache (layers, batch, max_len, KV, hd)."""
+    return module_for(cfg).init_cache(cfg, batch, max_len, **kw)
+
+
+def decode_step(cfg, params, cache, tokens, pos, **kw):
+    """One decode step over the contiguous cache; ``pos`` an int
+    (synchronized batch) or a (B,) tensor (per-lane frontiers)."""
+    return module_for(cfg).decode_step(cfg, params, cache, tokens, pos,
+                                       **kw)
+
+
+def supports_prefill_chunk(cfg) -> bool:
+    return hasattr(module_for(cfg), "prefill_chunk")
+
+
+def prefill_chunk(cfg, params, cache, tokens, slot, offsets, **kw):
+    """Batched chunked prefill over the contiguous cache."""
+    mod = module_for(cfg)
+    if not hasattr(mod, "prefill_chunk"):
+        raise NotImplementedError(
+            f"family {cfg.family!r} has no chunked prefill; use "
+            "serve_loop.prefill_with_decode")
+    return mod.prefill_chunk(cfg, params, cache, tokens, slot, offsets,
+                             **kw)
+
+
 def supports_paged(cfg) -> bool:
     """Paged KV pool + block-table attention."""
-    return cfg.family == "dense"
+    return hasattr(module_for(cfg), "paged_decode_step")
+
+
+def supports_mixed(cfg) -> bool:
+    """Mixed decode+prefill batches (per-lane starts and ``q_lens`` on
+    the paged chunk path, so paged support implies it)."""
+    return supports_paged(cfg)
 
 
 def init_paged_cache(cfg, n_pages, page_size, **kw):

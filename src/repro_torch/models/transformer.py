@@ -1,6 +1,6 @@
 """Decoder-only transformer LM, dense family (port of the dense part of
-``repro/models/transformer.py``): the training forward and the paged
-serving steps.
+``repro/models/transformer.py``): the training forward and the serving
+steps over the contiguous cache and the paged pool.
 
 Params are nested dicts whose layer leaves are stacked on a leading
 layer axis, exactly as in the reference; the reference's ``lax.scan``
@@ -9,8 +9,8 @@ masks ride along as per-layer views of the stacked mask tree.
 gemma2-style ``local_global`` stacks run as (local, global) pairs. With
 ``cfg.remat`` each layer of the training forward is recomputed in the
 backward (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``
-with nothing saved): this changes memory, not numbers. The KV pool is
-updated in place (models/attention.py).
+with nothing saved): this changes memory, not numbers. The KV
+caches are updated in place (models/attention.py).
 """
 from __future__ import annotations
 
@@ -137,7 +137,9 @@ def _unbind(tree, n: int | None = None) -> list:
     layer. A None tree gives ``n`` Nones."""
     if tree is None:
         return [None] * n
-    cols = {k: _unbind(v) if isinstance(v, dict) else v.unbind(0)
+    cols = {k: _unbind(v) if isinstance(v, dict) else
+            [v.layer(i) for i in range(v.idx.shape[0])]
+            if isinstance(v, PackedBCSC) else v.unbind(0)
             for k, v in tree.items()}
     n = len(next(iter(cols.values())))
     return [{k: v[i] for k, v in cols.items()} for i in range(n)]
@@ -217,6 +219,17 @@ def logits_from_hidden(cfg, params, x):
     return softcap(logits.float(), cfg.final_logit_softcap)
 
 
+def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
+               device="cuda"):
+    """Contiguous KV cache (layers, batch, max_len, KV, hd): one dense
+    slab row per lane."""
+    ns, per = n_stacks(cfg)
+    _, kv = attn.eff_heads(cfg)
+    shape = (ns * per, batch, max_len, kv, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
 def init_paged_cache(cfg, n_pages: int, page_size: int,
                      dtype=torch.bfloat16, device="cuda"):
     """Paged KV pool (layers, n_pages, page_size, KV, hd), SHARED by every
@@ -254,6 +267,38 @@ def _run_stack(cfg, params, cache, x, attn_fn):
     return x
 
 
+def decode_step(cfg, params, cache, tokens, pos, *, offsets=None):
+    """One decode step over the contiguous cache. tokens (B,1); ``pos``
+    the cache slot, an int (synchronized batch) or a (B,) tensor
+    (per-lane frontiers; slots >= max_len drop the write); ``offsets``
+    (B,) makes the batch ragged. Returns (logits (B,1,V) f32, cache),
+    the cache updated in place."""
+    x = embed_inputs(cfg, params, tokens)
+
+    def attn_fn(p_a, h, ck, cv, window):
+        return attn.decode_attention(cfg, p_a, h, ck, cv, pos,
+                                     window=window, offsets=offsets)[0]
+
+    x = _run_stack(cfg, params, cache, x, attn_fn)
+    return logits_from_hidden(cfg, params, x), cache
+
+
+def prefill_chunk(cfg, params, cache, tokens, slot, offsets, *,
+                  lane_mask=None):
+    """Batched chunked prefill over the contiguous cache: the (B, C)
+    chunk of right-aligned prompt tokens writes K/V at slots [slot,
+    slot+C); lanes outside ``lane_mask`` keep their rows. Returns (logits
+    (B,C,V) f32, cache), the cache updated in place."""
+    x = embed_inputs(cfg, params, tokens)
+
+    def attn_fn(p_a, h, ck, cv, window):
+        return attn.chunk_attention(cfg, p_a, h, ck, cv, slot, offsets,
+                                    window=window, lane_mask=lane_mask)[0]
+
+    x = _run_stack(cfg, params, cache, x, attn_fn)
+    return logits_from_hidden(cfg, params, x), cache
+
+
 def paged_decode_step(cfg, params, cache, tokens, pos, block_tables, *,
                       read_pages: int, offsets=None):
     """One decode step over the paged pool. tokens (B,1); pos (B,) logical
@@ -273,17 +318,21 @@ def paged_decode_step(cfg, params, cache, tokens, pos, block_tables, *,
 
 
 def paged_prefill_chunk(cfg, params, cache, tokens, slot, offsets,
-                        block_tables, *, read_pages: int, lane_mask=None):
+                        block_tables, *, read_pages: int, lane_mask=None,
+                        q_lens=None):
     """Chunked prefill over the paged pool: the (B, C) chunk's K/V lands
-    at logical slots [slot, slot+C) through each lane's block table;
-    attention reads each lane's first ``read_pages`` pages (must cover
-    slot+C). Returns (logits (B,C,V) f32, cache), updated in place."""
+    at logical slots from ``slot`` (an int, or a (B,) tensor of per-lane
+    starts) through each lane's block table; ``q_lens`` (B,) makes the
+    query runs ragged (the mixed decode+prefill batch). Attention reads
+    each lane's first ``read_pages`` pages (must cover every start +
+    C). Returns (logits (B,C,V) f32, cache), updated in place."""
     x = embed_inputs(cfg, params, tokens)
 
     def attn_fn(p_a, h, ck, cv, window):
         return attn.paged_chunk_attention(
             cfg, p_a, h, ck, cv, block_tables, slot, offsets,
-            read_pages=read_pages, window=window, lane_mask=lane_mask)[0]
+            read_pages=read_pages, window=window, lane_mask=lane_mask,
+            q_lens=q_lens)[0]
 
     x = _run_stack(cfg, params, cache, x, attn_fn)
     return logits_from_hidden(cfg, params, x), cache

@@ -1,0 +1,66 @@
+"""Batched serving loop, the greedy oracle (port of
+``repro/serving/serve_loop.py``): prefill a batch of equal-length prompts
+token by token into the contiguous cache (the decode step's own numerics),
+then decode one token per step. Dense family only.
+"""
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.models import registry
+from repro_torch.serving.step import make_decode_step
+
+
+def _no_frames(cfg, frames) -> None:
+    if frames is not None or cfg.family == "audio":
+        raise NotImplementedError(
+            "whisper serving (encoder frames) is not ported yet")
+
+
+@torch.inference_mode()
+def prefill_with_decode(cfg, params, prompts, max_len: int, frames=None,
+                        device="cuda"):
+    """Seed a contiguous cache by running the decode step over the prompt
+    tokens. ``prompts`` (B, plen) ints. Returns (last logits (B, V) f32,
+    cache)."""
+    _no_frames(cfg, frames)
+    prompts = torch.as_tensor(np.asarray(prompts, np.int32), device=device)
+    b, plen = prompts.shape
+    cache = registry.init_cache(cfg, b, max_len, device=device)
+    logits = None
+    for i in range(plen):
+        logits, cache = registry.decode_step(cfg, params, cache,
+                                             prompts[:, i:i + 1], i)
+    return logits[:, -1], cache
+
+
+@torch.inference_mode()
+def generate(cfg, params, prompts, *, max_new_tokens: int = 32,
+             max_len: int | None = None, temperature: float = 0.0,
+             generator: torch.Generator | None = None, frames=None,
+             device="cuda"):
+    """Greedy (or, with ``temperature`` > 0 and a ``torch.Generator``,
+    sampled) generation for a batch of equal-length prompts on
+    ``device``, where ``params`` must lie. Returns (tokens (B, plen+new)
+    int32 numpy, stats)."""
+    prompts = np.asarray(prompts, np.int32)
+    b, plen = prompts.shape
+    max_len = max_len or (plen + max_new_tokens)
+    last, cache = prefill_with_decode(cfg, params, prompts, max_len,
+                                      frames=frames, device=device)
+    decode = make_decode_step(cfg, temperature=temperature)
+    nxt = torch.argmax(last, dim=-1)[:, None].to(torch.int32)
+    out = [nxt]
+    t0 = time.monotonic()
+    for i in range(max_new_tokens - 1):
+        nxt, cache, _, generator = decode(params, cache, nxt, plen + i,
+                                          generator)
+        out.append(nxt)
+    gen = torch.cat(out, dim=1).cpu().numpy()             # host sync
+    dt = time.monotonic() - t0
+    stats = {"decode_s": dt,
+             "tok_per_s": b * (max_new_tokens - 1) / max(dt, 1e-9)}
+    return np.concatenate([prompts, gen], axis=1), stats

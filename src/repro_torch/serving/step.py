@@ -1,9 +1,12 @@
-"""Serving steps over the paged pool (port of the paged part of
-``repro/serving/step.py``): chunked prefill and the decode slab.
+"""Serving steps (port of ``repro/serving/step.py``): prefill, chunked
+prefill and the decode slab over the contiguous cache and the paged
+pool, the mixed decode+prefill step, the copy-on-write page copy and the
+one-token decode step of ``serve_loop``.
 
 The reference's ``lax.scan`` slab becomes a loop of ``k_steps`` decode
 steps whose whole state stays on the device: nothing in the loop reads a
-value back to the host, so the engine syncs once per slab.
+value back to the host, so the engine syncs once per slab. Caches are
+updated in place.
 """
 from __future__ import annotations
 
@@ -12,15 +15,38 @@ import torch
 from repro_torch.models import registry
 
 
+def make_prefill_step(cfg):
+    """prefill(params, tokens (B,S)) -> last-token logits (B, V) f32,
+    through the training forward (no cache)."""
+    def prefill_step(params, tokens):
+        logits, _ = registry.forward(cfg, params, tokens, masks=None)
+        return logits[:, -1]
+    return prefill_step
+
+
+def make_prefill_chunk_step(cfg):
+    """prefill(params, cache, tokens, slot, offsets, lane_mask) ->
+    (last_logits (B, V) f32, cache): one (B, C) chunk of right-aligned
+    prompt tokens through the model into the contiguous cache at slots
+    [slot, slot+C), lanes outside ``lane_mask`` untouched."""
+    def prefill_step(params, cache, tokens, slot, offsets, lane_mask):
+        logits, cache = registry.prefill_chunk(
+            cfg, params, cache, tokens, slot, offsets, lane_mask=lane_mask)
+        return logits[:, -1], cache
+    return prefill_step
+
+
 def _run_slab(k_steps, max_len, eos_id, cache, state, park, step_fn):
-    """``k_steps`` greedy decode steps over per-lane state.
+    """``k_steps`` greedy decode steps over per-lane state, shared by the
+    contiguous and paged slabs (they differ only in ``park``, a slot the
+    cache write drops, and in ``step_fn``).
 
     A lane dies mid-slab when it emits ``eos_id``, exhausts its budget,
     runs out of cache (``frontier`` reaching ``max_len``) or produces
-    non-finite logits; a dead lane writes at ``park`` (a slot the cache
-    write drops) and its frontier and budget freeze, so its tokens after
-    the stop point are garbage the host discards. A lane whose logits go
-    non-finite is marked ``faulted`` and dies without advancing.
+    non-finite logits; a dead lane writes at ``park`` and its frontier
+    and budget freeze, so its tokens after the stop point are garbage the
+    host discards. A lane whose logits go non-finite is marked
+    ``faulted`` and dies without advancing.
     ``step_fn(cache, tokens (B,1), write_pos (B,)) -> (logits, cache)``.
     Returns (tokens (B, k_steps) int32, new state, cache)."""
     pending, frontier = state["pending"], state["frontier"]
@@ -46,6 +72,25 @@ def _run_slab(k_steps, max_len, eos_id, cache, state, park, step_fn):
     state = dict(state, pending=pending, frontier=frontier,
                  remaining=remaining, live=live, faulted=faulted)
     return torch.stack(toks, dim=1), state, cache
+
+
+def make_decode_slab_step(cfg, k_steps: int, max_len: int,
+                          eos_id: int | None = None):
+    """slab(params, cache, state) -> (tokens (B, k_steps), new state,
+    cache) over the contiguous cache. ``state`` holds the (B,) device
+    vectors pending, frontier, offsets, remaining, live and faulted. A
+    dead lane parks at slot ``max_len``, past the slab, so its write
+    drops."""
+    def slab(params, cache, state):
+        offsets = state["offsets"]
+
+        def step_fn(cache, tokens, write_pos):
+            return registry.decode_step(cfg, params, cache, tokens,
+                                        write_pos, offsets=offsets)
+
+        return _run_slab(k_steps, max_len, eos_id, cache, state, max_len,
+                         step_fn)
+    return slab
 
 
 def make_paged_prefill_chunk_step(cfg):
@@ -83,3 +128,62 @@ def make_paged_decode_slab_step(cfg, k_steps: int, max_len: int,
         return _run_slab(k_steps, max_len, eos_id, cache, state,
                          bt.shape[1] * page_size, step_fn)
     return slab
+
+
+def make_mixed_step(cfg):
+    """mixed(params, cache, tokens (B,W), starts (B,), q_lens (B,),
+    offsets (B,), block_tables, read_pages) -> (next_tokens (B,) int32,
+    faulted (B,) bool, cache): one pass of the stack over per-lane query
+    runs. Decode lanes give one token (q_len 1 at their frontier),
+    admitting lanes a prompt chunk (q_len c at their prompt position),
+    idle lanes ride along at q_len 0. Each lane's next token is the
+    argmax of its last valid row (garbage for a mid-prompt or idle lane,
+    which the host ignores); ``faulted`` is each lane's finite check on
+    that row. ``read_pages`` must cover every lane's start + q_len."""
+    def mixed_step(params, cache, tokens, starts, q_lens, offsets,
+                   block_tables, read_pages):
+        logits, cache = registry.paged_prefill_chunk(
+            cfg, params, cache, tokens, starts, offsets, block_tables,
+            read_pages=read_pages, q_lens=q_lens)
+        row = (q_lens.to(torch.int64) - 1).clamp_min(0)
+        last = torch.gather(
+            logits, 1, row[:, None, None].expand(-1, 1, logits.shape[-1]))
+        last = last[:, 0]
+        faulted = ~torch.isfinite(last).all(dim=-1)
+        return torch.argmax(last, dim=-1).to(torch.int32), faulted, cache
+    return mixed_step
+
+
+def make_copy_pages_step():
+    """copy(cache, src (n,), dst (n,)) -> cache: duplicate pool pages
+    ``src`` into ``dst`` across every layer, K and V, in place (the
+    copy-on-write of a shared boundary page). The whole page is copied;
+    rows past the shared part are stale, hidden by the causal mask until
+    the lane writes them."""
+    def copy_pages(cache, src, dst):
+        src, dst = src.long(), dst.long()
+        for name in ("k", "v"):
+            c = cache[name]
+            c.index_copy_(1, dst, c.index_select(1, src))
+        return cache
+    return copy_pages
+
+
+def make_decode_step(cfg, temperature: float = 0.0):
+    """decode(params, cache, tokens (B,1), pos, generator) -> (next (B,1)
+    int32, cache, last logits (B, V), generator) over the contiguous
+    cache. Greedy at ``temperature`` 0; above it, a draw from
+    softmax(logits / temperature) with ``generator`` (a
+    ``torch.Generator`` on the logits' device), so parity with the
+    reference holds for greedy decoding only."""
+    def decode_step(params, cache, tokens, pos, generator=None):
+        logits, cache = registry.decode_step(cfg, params, cache, tokens,
+                                             pos)
+        last = logits[:, -1]
+        if temperature > 0.0:
+            probs = torch.softmax(last / temperature, dim=-1)
+            nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
+        else:
+            nxt = torch.argmax(last, dim=-1)
+        return nxt[:, None].to(torch.int32), cache, last, generator
+    return decode_step

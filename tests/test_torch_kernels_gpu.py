@@ -703,3 +703,41 @@ def test_joint_glu_equals_the_split_kernel_bitwise(cuda, m, dtype):
     assert tbs.LAUNCHES["fused_glu_joint"] == before["fused_glu_joint"] + 1
     assert tbs.LAUNCHES["fused_glu_split"] == before["fused_glu_split"] + 1
     assert torch.equal(joint, split)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [16, 32, 64])
+@pytest.mark.parametrize("kernel", ["bspmm", "fused_glu_split",
+                                    "fused_glu_joint"])
+def test_mixed_step_rows_at_the_served_block_match_plain(cuda, m, kernel):
+    """bf16 at 128 x 128 blocks on the served shapes (gate/up 2048 ->
+    8192, down 8192 -> 2048, s = 0.8) at the rows the mixed step gives the
+    MLP (8 lanes x W in {2, 4, 8}) and a short prefill chunk: the 16-row
+    tile at M = 16, the 64 x 64 x 64 tile at 32 and 64; against the plain
+    version within ``ulp_tol``, one launch each."""
+    dt = torch.bfloat16
+    gen = torch.Generator().manual_seed(50 + m)
+    k, n, b = 2048, 8192, 128
+    if kernel == "bspmm":
+        args = (_packed(61, n, k, b, b, 0.8, dt, cuda),)
+        x = torch.randn(m, n, generator=gen).to(cuda, dt)
+        run, plain = tbs.bspmm, tops.bspmm_plain
+    else:
+        pair = (_joint_pair(62, k, n, b, b, dt, cuda, s=0.8)
+                if kernel == "fused_glu_joint"
+                else _glu_pair(62, k, n, b, b, dt, cuda))
+        args = pair
+        x = torch.randn(m, k, generator=gen).to(cuda, dt)
+        run, plain = tbs.fused_glu, tops.fused_glu_plain
+    lp = tbs.launch_plan(x, *args)
+    assert lp.kernel.name == ("mma_16x64x128" if m <= 16
+                              else "mma_64x64x64"), lp
+    before = dict(tbs.LAUNCHES)
+    got = run(x, *args)
+    want = plain(x, *args)
+    torch.cuda.synchronize()
+    d = {k_: tbs.LAUNCHES[k_] - before[k_] for k_ in before}
+    assert d == {name: int(name == kernel) for name in d}, d
+    assert got.dtype == dt and got.shape == want.shape
+    assert float((got.float() - want.float()).abs().max()) <= _ulp_tol(
+        dt, want), lp
