@@ -32,6 +32,20 @@ the engine on the model's first two layers, and in next-token logits at
 full depth (see ``phase_e2e``). A profiled window of decode slabs shows
 where a step's time goes.
 
+Serving behind traffic, through the asyncio front door
+(``serving/frontend.py``): the launcher's ``--frontdoor --sla --preempt``
+trace at full depth, 8 batch requests filling every lane and 6
+interactive arrivals that preempt batch lanes (their KV goes to host
+memory and comes back at the saved frontier, no token prefilled twice),
+against the same trace FIFO without preemption (``serve_frontdoor``:
+TTFT and e2e per class). Then the chaos plans on the first two layers
+in f32 (``serve_chaos``): a NaN lane, a host-side crash under the
+watchdog, device loss, a corrupted offload record and a stalled step;
+each must cost only its own request, or nothing after recovery, with
+the other streams equal to the fault-free run's (a divergence only at a
+near-tie); and the host crash once more at full depth in bf16, with the
+recovery latency and the bytes salvaged.
+
 Training: 12 steps of the BLaST trainer (``train_loop.train``: masked
 dense with in-step prune-and-grow, f32 params, bf16 compute) on 8 x 128
 synthetic tokens, checked for a falling finite loss, exact per-column
@@ -69,6 +83,15 @@ ENGINE = dict(max_batch=8, max_len=512, page_size=16, prefill_chunk=16,
 PREFIX_LEN, PREFIX_TOKENS = 100, 32
 LOOP_PROMPTS, LOOP_LEN, LOOP_TOKENS = 4, 64, 32
 PARITY_DEPTH, PARITY_TOKENS, NEAR_TIE = 2, 16, 1e-4
+# the front-door SLA trace (launch/serve.py --frontdoor --sla --preempt),
+# sized so that every lane is busy when the interactive tier arrives
+FD_BATCH_PROMPT, FD_BATCH_TOKENS = 128, 256
+FD_INTER, FD_INTER_PROMPT, FD_INTER_TOKENS = 6, 64, 16
+FD_FIRST_S, FD_GAP_S, FD_DEADLINE_S = 0.5, 0.25, 0.5
+# chaos: the watchdog's hung-step deadline, many times the slowest step
+# it guards (2 layers: tens of ms; full depth: a 1024-token prefill)
+CHAOS_REQUESTS, CHAOS_TOKENS = 12, 32
+CHAOS_WATCHDOG_S, CHAOS_WATCHDOG_FULL_S = 5.0, 30.0
 
 # datasheet figures (SXM parts, dense rates): bytes/s of device memory and
 # operations/s by input type (f32 outside the tensor cores, as the kernels
@@ -691,6 +714,283 @@ def phase_parity(torch, cfg, packed, prompts):
     return counts
 
 
+# ----------------------------------------------- serving behind traffic
+def _pctl(xs, q):
+    return float(np.percentile(np.asarray(xs, np.float64), q)) if xs else 0.0
+
+
+def _frontdoor_run(torch, cfg, params, batch, inter, sla):
+    """The launcher's ``--frontdoor --sla --preempt`` trace through
+    ``AsyncEngine``: the batch tier at t = 0, the interactive tier from
+    ``FD_FIRST_S`` every ``FD_GAP_S``. ``sla=False`` runs it FIFO, without
+    preemption. Returns (per-class results, stats, wall seconds)."""
+    import asyncio
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.frontend import AsyncEngine
+    from repro_torch.serving.scheduler import (BATCH, INTERACTIVE,
+                                               SLAScheduler)
+    mb, ml = ENGINE["max_batch"], ENGINE["max_len"]
+    eng = Engine(cfg, params, device=DEVICE, **ENGINE, preempt=sla,
+                 scheduler=SLAScheduler(mb, ml, aging_s=30) if sla else None)
+
+    async def finish(stream, t_sub):
+        res = await stream.result()
+        return res, time.monotonic() - t_sub
+
+    async def drive():
+        tasks = []
+        async with AsyncEngine(eng) as front:
+            t0 = time.monotonic()
+            # submitted together, so one admission fills every lane
+            for s in await asyncio.gather(*(
+                    front.submit_async(p, FD_BATCH_TOKENS, priority=BATCH)
+                    for p in batch)):
+                tasks.append(("batch", asyncio.ensure_future(
+                    finish(s, t0))))
+            for j, p in enumerate(inter):
+                await asyncio.sleep(max(
+                    0.0, t0 + FD_FIRST_S + j * FD_GAP_S - time.monotonic()))
+                s = await front.submit_async(
+                    p, FD_INTER_TOKENS, priority=INTERACTIVE,
+                    deadline_s=FD_DEADLINE_S)
+                tasks.append(("interactive", asyncio.ensure_future(
+                    finish(s, time.monotonic()))))
+            out = [(cls, *(await t)) for cls, t in tasks]
+        return out, time.monotonic() - t0
+
+    out, wall = asyncio.run(asyncio.wait_for(drive(), 600))
+    return out, dict(eng.stats), wall
+
+
+def phase_serve_frontdoor(torch, cfg, packed, rng):
+    """SLA traffic through the asyncio front door at full depth, bf16: 8
+    batch requests (128-token prompts, 256 new tokens) fill every lane at
+    t = 0; 6 interactive ones (64 tokens, 16 new, deadline 0.5 s) arrive
+    every 0.25 s from t = 0.5 s. With the SLA scheduler and ``preempt``
+    each interactive arrival preempts a batch lane, whose KV goes to host
+    memory and comes back at its frontier; the same trace runs FIFO
+    without preemption. Returns the launch counts."""
+    batch = [rng.integers(0, cfg.vocab_size, size=FD_BATCH_PROMPT)
+             .astype(np.int32) for _ in range(ENGINE["max_batch"])]
+    inter = [rng.integers(0, cfg.vocab_size, size=FD_INTER_PROMPT)
+             .astype(np.int32) for _ in range(FD_INTER)]
+    counts = []
+    for name, sla in (("sla_preempt", True), ("fifo", False)):
+        _reset_counts()
+        out, st, wall = _frontdoor_run(torch, cfg, packed, batch, inter, sla)
+        c = _read_counts()
+        counts.append(c)
+        classes = {}
+        for cls, want in (("batch", FD_BATCH_TOKENS),
+                          ("interactive", FD_INTER_TOKENS)):
+            rs = [(r, e2e) for k, r, e2e in out if k == cls]
+            check(all(r.ok and r.generated.size == want for r, _ in rs),
+                  f"frontdoor {name}: a {cls} request did not complete")
+            ttft = [r.ttft_s for r, _ in rs]
+            classes[cls] = {"requests": len(rs),
+                            "ttft_p50_s": _pctl(ttft, 50),
+                            "ttft_p95_s": _pctl(ttft, 95),
+                            "e2e_p95_s": _pctl([e for _, e in rs], 95)}
+        keys = ("preemptions", "restores", "offloaded_pages",
+                "restored_pages", "offload_bytes_peak",
+                "re_prefilled_tokens", "queue_depth_peak", "queued_s_max",
+                "generated_tokens", "stalled_decode_steps")
+        emit(phase="serve_frontdoor", run=name, sla=sla, preempt=sla,
+             classes=classes, tok_per_s=st["tok_per_s"], wall_s=wall,
+             **{k: st[k] for k in keys}, launches=c)
+        for k in PAGED:
+            check(c[k] > 0, f"frontdoor {name}: kernel {k} never launched")
+        check(st["re_prefilled_tokens"] == 0,
+              f"frontdoor {name}: {st['re_prefilled_tokens']} tokens "
+              "prefilled twice")
+        if sla:
+            check(st["preemptions"] >= 1, "frontdoor: no preemption")
+            check(st["restores"] == st["preemptions"],
+                  f"frontdoor: {st['restores']} restores of "
+                  f"{st['preemptions']} preemptions")
+            check(st["restored_pages"] == st["offloaded_pages"] > 0,
+                  f"frontdoor: {st['restored_pages']} pages restored of "
+                  f"{st['offloaded_pages']} offloaded")
+        else:
+            check(st["preemptions"] == 0, "fifo run preempted")
+    return counts
+
+
+def _near_tie_equal(torch, cfg, params, prompts, got, want, name):
+    """Each stream of ``got`` equals ``want``'s, or first diverges where
+    the fault-free run's top-2 margin is below ``NEAR_TIE``. Returns the
+    accepted divergences."""
+    accepted = []
+    for u, w in want.items():
+        t = _first_divergence(got[u], w)
+        if t is None:
+            continue
+        seq = np.concatenate([prompts[u], w[:t]]).astype(np.int32)
+        top2 = torch.topk(_last_logits(torch, cfg, params, seq), 2).values
+        m = float(top2[0] - top2[1])
+        check(m < NEAR_TIE, f"chaos {name}: request {u} diverged at step "
+                            f"{t}, margin {m} >= {NEAR_TIE}")
+        accepted.append({"request": u, "step": t, "margin": m})
+    return accepted
+
+
+def _chaos_async(cfg, params, prompts, plan, watchdog_s):
+    """``prompts`` through ``AsyncEngine(watchdog_s, max_recoveries=2)``
+    over an engine running ``plan``. Returns ({uid: result or error},
+    engine stats, recovery log)."""
+    import asyncio
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.frontend import AsyncEngine
+    eng = Engine(cfg, params, device=DEVICE, faults=plan, **ENGINE)
+
+    async def drive():
+        async with AsyncEngine(eng, watchdog_s=watchdog_s,
+                               max_recoveries=2) as front:
+            streams = await asyncio.gather(*(
+                front.submit_async(p, CHAOS_TOKENS) for p in prompts))
+            out = {}
+            for s in streams:
+                try:
+                    out[s.uid] = await s.result()
+                except Exception as e:          # a request's own failure
+                    out[s.uid] = e
+            return out, front.recovery_log
+
+    out, log = asyncio.run(asyncio.wait_for(drive(), 600))
+    return out, dict(eng.stats), log
+
+
+def _chaos_sync(cfg, params, prompts, plan, preempt_uid=None):
+    """``prompts`` through the engine's own loop; with ``preempt_uid``
+    that request's lane is preempted after step 1."""
+    from repro_torch.serving.engine import Engine
+    eng = Engine(cfg, params, device=DEVICE, faults=plan, **ENGINE)
+    uids = [eng.submit(p, CHAOS_TOKENS) for p in prompts]
+    out = {}
+    if preempt_uid is not None:
+        for _ in range(2):
+            out.update((r.uid, r) for r in eng.step())
+        [i] = [i for i in eng.active_lanes
+               if eng.lanes[i].req.uid == preempt_uid]
+        eng.preempt(i)
+    out.update(eng.run())
+    return {u: out[u] for u in uids}, dict(eng.stats), []
+
+
+def phase_serve_chaos(torch, cfg, packed, prompts):
+    """Per-request fault containment and crash recovery: 12 requests x 32
+    tokens on 8 lanes, on the model's first two layers in f32 (as
+    ``phase_parity``), once without faults and once under each seeded
+    plan (each fires at step 2, when all 8 lanes decode): (a) NaN logits
+    on lane 3, (b) a host-side crash under the watchdog, (c) device loss,
+    (d) a corrupted offload record of request 0 preempted by hand, (e) a
+    step stalled past the watchdog. Then (b) at full depth in bf16.
+    Returns the launch counts."""
+    from repro_torch.serving.faults import FaultPlan, LaneFaultError
+    cfg2 = dataclasses.replace(cfg, num_layers=PARITY_DEPTH,
+                               compute_dtype="float32")
+    p2 = _first_layers(packed, PARITY_DEPTH)
+    reqs = prompts[:CHAOS_REQUESTS]
+    plans = {
+        "none": (lambda: _chaos_sync(cfg2, p2, reqs, None)),
+        "a_poison": (lambda: _chaos_sync(
+            cfg2, p2, reqs, FaultPlan().poison_logits(2, 3))),
+        "b_host_crash": (lambda: _chaos_async(
+            cfg2, p2, reqs, FaultPlan().crash(2), CHAOS_WATCHDOG_S)),
+        "c_device_lost": (lambda: _chaos_async(
+            cfg2, p2, reqs, FaultPlan().crash(2, device_lost=True),
+            CHAOS_WATCHDOG_S)),
+        "d_corrupt_offload": (lambda: _chaos_sync(
+            cfg2, p2, reqs, FaultPlan().corrupt_offload(0), preempt_uid=0)),
+        "e_stall": (lambda: _chaos_async(
+            cfg2, p2, reqs, FaultPlan().stall(2, 10 * CHAOS_WATCHDOG_S),
+            CHAOS_WATCHDOG_S)),
+    }
+    failed_uid = {"a_poison": 3, "d_corrupt_offload": 0}
+    counts, base = [], None
+    for name, run in plans.items():
+        _reset_counts()
+        t0 = time.monotonic()
+        out, st, log = run()
+        wall = time.monotonic() - t0
+        c = _read_counts()
+        counts.append(c)
+        for k in PAGED:
+            check(c[k] > 0, f"chaos {name}: kernel {k} never launched")
+        ok = {u: r.generated for u, r in out.items()
+              if not isinstance(r, Exception) and r.ok}
+        failed = {u: (r if isinstance(r, Exception) else r.error)
+                  for u, r in out.items() if u not in ok}
+        if base is None:
+            check(not failed and all(g.size == CHAOS_TOKENS
+                                     for g in ok.values()),
+                  "chaos: the fault-free run did not complete")
+            base = ok
+        want_failed = ([failed_uid[name]] if name in failed_uid else [])
+        check(sorted(failed) == want_failed,
+              f"chaos {name}: failed {sorted(failed)}, expected "
+              f"{want_failed}: {failed}")
+        for u in want_failed:
+            check(isinstance(failed[u], LaneFaultError),
+                  f"chaos {name}: {failed[u]!r} is not a LaneFaultError")
+        if name == "d_corrupt_offload":
+            check("checksum" in failed[0].reason,
+                  f"chaos {name}: {failed[0].reason}")
+        accepted = _near_tie_equal(torch, cfg2, p2, reqs, ok,
+                                   {u: base[u] for u in ok}, name)
+        check(st["faults_injected"] == (0 if name == "none" else 1),
+              f"chaos {name}: {st['faults_injected']} faults fired")
+        if name in ("b_host_crash", "e_stall"):
+            check(st["recovered_zero_reprefill"] >= 1
+                  and st["re_prefilled_tokens"] == 0,
+                  f"chaos {name}: salvage {st['recovered_zero_reprefill']}"
+                  f", re-prefilled {st['re_prefilled_tokens']}")
+        if name == "c_device_lost":
+            check(st["re_prefilled_tokens"] > 0,
+                  "chaos c_device_lost: nothing re-prefilled")
+        if name == "e_stall":
+            check(st["watchdog_hangs"] == 1,
+                  f"chaos e_stall: {st['watchdog_hangs']} hangs")
+        emit(phase="serve_chaos", run=name, depth=PARITY_DEPTH,
+             dtype="float32", requests=len(reqs), new_tokens=CHAOS_TOKENS,
+             failed={str(u): repr(e) for u, e in failed.items()},
+             accepted_divergences=accepted, wall_s=wall,
+             recovery_log=log, launches=c,
+             **{k: st[k] for k in (
+                 "faults_injected", "lanes_quarantined", "recoveries",
+                 "recovered_zero_reprefill", "re_prefilled_tokens",
+                 "watchdog_hangs", "engine_crashes", "preemptions",
+                 "offloaded_pages", "restored_pages")})
+    # (b) at full depth in bf16: recovery latency and salvaged bytes
+    _reset_counts()
+    full, _, _ = _chaos_sync(cfg, packed, reqs, None)
+    t0 = time.monotonic()
+    out, st, log = _chaos_async(cfg, packed, reqs, FaultPlan().crash(2),
+                                CHAOS_WATCHDOG_FULL_S)
+    wall = time.monotonic() - t0
+    c = _read_counts()
+    counts.append(c)
+    check(all(not isinstance(r, Exception) and r.ok
+              for r in out.values()), "chaos full depth: a request failed")
+    accepted = _near_tie_equal(torch, cfg, packed, reqs,
+                               {u: r.generated for u, r in out.items()},
+                               {u: r.generated for u, r in full.items()},
+                               "b_host_crash full depth")
+    check(len(log) == 1 and st["re_prefilled_tokens"] == 0
+          and st["recovered_zero_reprefill"] >= 1,
+          f"chaos full depth: log {log}, stats {st}")
+    emit(phase="serve_chaos", run="b_host_crash", depth=cfg.num_layers,
+         dtype="bfloat16", requests=len(reqs), new_tokens=CHAOS_TOKENS,
+         recovery_latency_s=log[0]["latency_s"],
+         salvaged_lanes=log[0]["salvaged_lanes"],
+         salvaged_bytes=log[0]["salvaged_bytes"],
+         accepted_divergences=accepted, wall_s=wall, launches=c,
+         **{k: st[k] for k in ("recoveries", "recovered_zero_reprefill",
+                               "re_prefilled_tokens", "engine_crashes",
+                               "offloaded_pages", "restored_pages")})
+    return counts
+
+
 def _last_logits(torch, cfg, params, prompt):
     """Next-token logits after ``prompt``: one single-lane prefill chunk
     through the same model functions the engine calls."""
@@ -1240,6 +1540,8 @@ def main():
     served += phase_parity(
         torch, cfg, packed,
         [prefix_reqs[0]] + prompts + loop_prompts + prefix_reqs[1:4])
+    served += phase_serve_frontdoor(torch, cfg, packed, rng)
+    served += phase_serve_chaos(torch, cfg, packed, prompts)
     phase_profile(torch, cfg, packed, prompts)
     summary["bspmm_t"] = phase_kernels_t(torch, card, packed)
     del packed, joint, dense

@@ -39,43 +39,74 @@
     the mixed step (phased) or inside the decode steps (mixed).
 
 Greedy decode only (temperature sampling is ``serve_loop``'s).
-Preemption and host offload, fault injection, weight hot-swap,
-cancellation and the tracer are not ported yet. Everything runs on
-``device`` (default the GPU); the CPU serves only when the caller asks
-for it, as the tests do.
+
+Serving behind real traffic (``frontend.py`` steps this engine on its
+own thread):
+
+  * **SLA admission** — ``scheduler=SLAScheduler(...)`` orders the queue
+    by priority class, deadline and aging; ``submit(priority=,
+    deadline_s=)`` carries both. ``admission_queue_limit`` sheds a submit
+    past the bound with ``BackpressureError`` and a retry-after hint;
+    ``enforce_deadlines=True`` cancels a request whose deadline passed
+    at the next host sync;
+  * **preemption with host offload** (paged) — ``preempt(i)`` downloads
+    a live lane's exclusively owned pages to a ``HostKVStore``, keeps
+    prefix-shared pages pinned, and frees the rest; a restore scatters
+    the KV back into fresh pages and decode resumes at the saved
+    frontier with no token prefilled twice. ``preempt=True`` lets
+    admission preempt strictly lower-priority lanes, least urgent first,
+    for a lane- or page-blocked head;
+  * **fault containment** — ``install_faults(FaultPlan)`` arms seeded
+    faults (serving/faults.py); a lane whose logits go non-finite, or
+    whose offloaded KV fails its checksum, fails only its own request
+    with ``LaneFaultError``; ``cancel(uid)`` reaches a queued, live or
+    preempted request. Every failure comes out as a ``GenResult`` whose
+    ``error`` is set. An exception from ``step`` leaves the host state
+    ``Supervisor.recover`` (serving/recovery.py) rebuilds from.
+
+Not ported: the reference's ``tracer=`` (stats stay a plain dict),
+``dist=``, ``attn_backend=`` (the paged decode kernel is the one
+backend), and weight hot-swap (``swap_weights`` and the weight
+generations). Everything runs on ``device`` (default the GPU); the CPU
+serves only when the caller asks for it, as the tests do.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
+from collections import deque
 
 import numpy as np
 import torch
 
 from repro_torch.models import registry
+from repro_torch.serving.faults import (BackpressureError,
+                                        DeadlineExceededError,
+                                        LaneFaultError,
+                                        OffloadCapacityError,
+                                        OffloadCorruptionError,
+                                        RequestCancelledError)
+from repro_torch.serving.offload import HostKVStore
 from repro_torch.serving.pages import PagePool
 from repro_torch.serving.prefix_cache import Match, PrefixCache
 from repro_torch.serving.scheduler import FIFOScheduler, Request
 from repro_torch.serving.step import (make_copy_pages_step,
                                       make_decode_slab_step,
+                                      make_gather_pages_step,
                                       make_mixed_step,
                                       make_paged_decode_slab_step,
                                       make_paged_prefill_chunk_step,
-                                      make_prefill_chunk_step)
-
-
-class LaneFaultError(RuntimeError):
-    """A lane's logits went non-finite; only its own request fails."""
-
-    def __init__(self, uid: int, lane: int):
-        super().__init__(f"request {uid}: non-finite logits in lane {lane}")
-        self.uid, self.lane = uid, lane
+                                      make_prefill_chunk_step,
+                                      make_scatter_pages_step)
 
 
 @dataclasses.dataclass
 class GenResult:
     """Finished request: prompt + generated tokens (greedy). A failed
-    request carries its exception in ``error``."""
+    request (quarantined, cancelled, expired, corrupted offload) comes
+    out the same way, with its exception in ``error`` and the tokens it
+    emitted before failing in ``generated``."""
     uid: int
     prompt: np.ndarray
     generated: np.ndarray
@@ -101,6 +132,26 @@ class _Lane:
     token_times: list[float] = dataclasses.field(default_factory=list)
 
 
+@dataclasses.dataclass
+class _Preempted:
+    """A lane frozen off the device, with what decode needs to resume at
+    the saved frontier: its exclusively owned pages are in the host store
+    (keyed by ``req.uid``), its prefix-shared pages stay pinned on the
+    device (``pinned``: block-table index -> pool page, reference held)."""
+    req: Request
+    offset: int
+    generated: list[int]
+    token_times: list[float]
+    pending: int               # next token to feed (KV not yet written)
+    frontier: int              # cache slot decode resumes at
+    remaining: int             # decode budget left
+    n_pages: int               # logical pages the block table covered
+    pinned: dict[int, int]
+    # salvaged by crash recovery rather than preempted: its restore counts
+    # toward recovered_zero_reprefill
+    recovered: bool = False
+
+
 def _pow2_bucket(n: int, cap: int) -> int:
     """Smallest power of two >= n, clipped to [1, cap]: the paged
     attention read width and the mixed step's query width."""
@@ -120,7 +171,19 @@ _COUNTERS = (
     # prompt tokens shared pages covered, boundary-page copies, and
     # cached-idle pages reclaimed under pressure
     "prompt_tokens", "prefix_hits", "prefix_misses",
-    "prefill_tokens_skipped", "cow_copies", "cache_evicted_pages")
+    "prefill_tokens_skipped", "cow_copies", "cache_evicted_pages",
+    # admission: queue depth high-water and seconds queued
+    "queue_depth_peak", "queued_s_total", "queued_s_max",
+    # preemption: lanes frozen and resumed, pages round-tripped through
+    # the host (and shared pages that stayed pinned), host bytes peak
+    "preemptions", "restores", "offloaded_pages", "restored_pages",
+    "preempt_pinned_pages", "offload_bytes_peak",
+    # faults: injected faults that fired, recoveries, salvaged lanes
+    # restored with no re-prefill, tokens relaunches prefilled again,
+    # shed and cancelled requests, condemned hangs and crashes
+    "faults_injected", "recoveries", "recovered_zero_reprefill",
+    "re_prefilled_tokens", "shed_requests", "cancelled",
+    "deadline_cancelled", "watchdog_hangs", "engine_crashes")
 
 
 class Engine:
@@ -133,14 +196,26 @@ class Engine:
     ``params`` must already lie on ``device``. ``slab_k`` decode steps
     run per host sync; ``n_pages`` defaults to ``max_batch`` lanes of
     ``max_len`` slots. ``paged``, ``mixed`` and ``prefix_cache`` pick
-    the cache layout and admission policy (module docstring)."""
+    the cache layout and admission policy; ``scheduler`` (default FIFO;
+    an empty one is kept, not replaced), ``preempt``,
+    ``offload_capacity_bytes`` (the host store's budget; None for
+    unbounded), ``admission_queue_limit``,
+    ``enforce_deadlines`` and ``faults`` the serving behaviour (module
+    docstring)."""
 
     def __init__(self, cfg, params, *, max_batch: int, max_len: int,
                  prefill_chunk: int = 16, slab_k: int = 8,
-                 eos_id: int | None = None, paged: bool = True,
-                 page_size: int = 16, n_pages: int | None = None,
-                 prefix_cache: bool = False, mixed: bool = False,
-                 prefill_token_budget: int | None = None, device="cuda"):
+                 eos_id: int | None = None,
+                 scheduler: FIFOScheduler | None = None,
+                 paged: bool = True, page_size: int = 16,
+                 n_pages: int | None = None, prefix_cache: bool = False,
+                 mixed: bool = False,
+                 prefill_token_budget: int | None = None,
+                 preempt: bool = False,
+                 offload_capacity_bytes: int | None = None,
+                 admission_queue_limit: int | None = None,
+                 enforce_deadlines: bool = False, faults=None,
+                 device="cuda"):
         if not registry.supports_prefill_chunk(cfg):
             raise NotImplementedError(
                 f"family {cfg.family!r} is not servable by the engine; "
@@ -159,6 +234,9 @@ class Engine:
         if mixed and not registry.supports_mixed(cfg):
             raise NotImplementedError(
                 f"family {cfg.family!r} has no mixed decode+prefill step")
+        if preempt and not paged:
+            raise ValueError("preempt=True requires paged=True (pages "
+                             "are the unit of offload)")
         if slab_k < 1:
             raise ValueError(f"slab_k={slab_k} must be >= 1")
         self.cfg = cfg
@@ -171,27 +249,52 @@ class Engine:
         self.eos_id = eos_id
         self.paged = paged
         self.mixed = mixed
-        self.scheduler = FIFOScheduler(
-            max_batch, max_len,
-            prefill_token_budget=(max_batch + self.chunk
-                                  if prefill_token_budget is None
-                                  else prefill_token_budget))
+        # not ``scheduler or ...``: a scheduler has __len__, so an empty
+        # one is falsy and ``or`` would swap it for a new FIFO
+        self.scheduler = (scheduler if scheduler is not None
+                          else FIFOScheduler(max_batch, max_len))
+        if prefill_token_budget is not None:
+            self.scheduler.prefill_token_budget = prefill_token_budget
+        elif self.scheduler.prefill_token_budget is None:
+            # one full decode batch + one full prefill chunk per step
+            self.scheduler.prefill_token_budget = max_batch + self.chunk
         # lanes whose prompt is still being prefilled across calls:
         # lane -> next prompt position, in admission order
         self._prefilling: dict[int, int] = {}
         self.lanes: list[_Lane | None] = [None] * max_batch
         # host mirror of the per-lane device state; uploaded only after
-        # admission or eviction edits it (self._dirty)
+        # admission or eviction edits it (self._dirty). ``poison`` is the
+        # fault-injection port of the slab and the mixed step, ``faulted``
+        # their per-lane finite-check verdict
         self._mirror = {
             "pending": np.zeros(max_batch, np.int32),
             "frontier": np.zeros(max_batch, np.int32),
             "offsets": np.zeros(max_batch, np.int32),
             "remaining": np.zeros(max_batch, np.int32),
             "live": np.zeros(max_batch, bool),
+            "poison": np.zeros(max_batch, np.float32),
             "faulted": np.zeros(max_batch, bool),
         }
+        self.admission_queue_limit = admission_queue_limit
+        self.enforce_deadlines = enforce_deadlines
+        self._finish_times: deque[float] = deque(maxlen=32)
+        # uid -> (original prompt, tokens emitted before a crash
+        # relaunch): a relaunched request decodes over prompt + emitted,
+        # its result reports the original split
+        self._recovered_prefix: dict[int, tuple[np.ndarray, list[int]]] = {}
+        # failure results made outside step() (cancel, a corrupted
+        # restore, recovery), handed out by the next step
+        self._pending_results: list[GenResult] = []
+        self._step_idx = 0
+        # set by the watchdog to abort a wedged step (the injected stall
+        # polls it)
+        self._condemned = threading.Event()
+        self._faults = None
+        self.preempt_enabled = preempt
+        self._preempted: list[_Preempted] = []
         self.pcache: PrefixCache | None = None
         self.pool: PagePool | None = None
+        self._offload: HostKVStore | None = None
         if paged:
             self.page_size = page_size
             per_lane = -(-max_len // page_size)
@@ -206,6 +309,9 @@ class Engine:
                 self._copy_pages = make_copy_pages_step()
             self._mirror["bt"] = np.zeros((max_batch, self.max_pages),
                                           np.int32)
+            self._offload = HostKVStore(offload_capacity_bytes)
+            self._gather = make_gather_pages_step()
+            self._scatter = make_scatter_pages_step()
             self.scheduler.feasibility = self._check_feasible
             self._prefill = make_paged_prefill_chunk_step(cfg)
             # one fused decode+prefill call (mixed steps, and the phased
@@ -225,13 +331,27 @@ class Engine:
         self._dirty = True
         self._uid = 0
         self.reset_stats()
+        if faults is not None:
+            self.install_faults(faults)
+
+    def install_faults(self, plan) -> None:
+        """Wire a ``FaultPlan`` into every injection point: the step
+        hooks, the page allocator and the offload store."""
+        self._faults = plan
+        plan._engine = self
+        if self.paged:
+            self.pool.fault_hook = plan.on_alloc
+            self._offload.fault_hook = plan.on_offload_save
 
     def reset_stats(self) -> None:
         self.stats: dict = {k: 0 for k in _COUNTERS}
         self._ttft: list[float] = []
+        self._itl: list[float] = []
         self.scheduler.reset_stats()
         if self.pool is not None:
             self.pool.reset_peaks()
+        if self._offload is not None:
+            self._offload.reset_peaks()
 
     # ------------------------------------------------------------ memory
     @property
@@ -258,13 +378,38 @@ class Engine:
 
     # ------------------------------------------------------------ submit
     def submit(self, prompt, max_new_tokens: int = 32,
-               uid: int | None = None) -> int:
-        """Queue one request; infeasible ones raise ValueError here."""
+               uid: int | None = None, *, priority: int = 0,
+               deadline_s: float | None = None) -> int:
+        """Queue one request. ``priority`` is the SLA class (smaller is
+        more urgent; only an ``SLAScheduler`` orders by it), ``deadline_s``
+        an optional target latency. Infeasible requests raise ValueError
+        here; past ``admission_queue_limit`` a submit is shed with
+        ``BackpressureError`` carrying a retry-after hint from the recent
+        completion rate."""
+        if (self.admission_queue_limit is not None
+                and len(self.scheduler) >= self.admission_queue_limit):
+            self.stats["shed_requests"] += 1
+            raise BackpressureError(len(self.scheduler),
+                                    self.admission_queue_limit,
+                                    self._retry_after_hint())
         uid = self._uid if uid is None else uid
         self._uid = max(self._uid, uid) + 1
         self.scheduler.submit(Request(uid, np.asarray(prompt),
-                                      max_new_tokens))
+                                      max_new_tokens, priority=priority,
+                                      deadline_s=deadline_s))
+        self.stats["queue_depth_peak"] = max(self.stats["queue_depth_peak"],
+                                             len(self.scheduler))
         return uid
+
+    def _retry_after_hint(self) -> float:
+        """Seconds until a queue slot plausibly frees: the mean gap of the
+        last completions, clamped to [0.05, 60]; 1 s on a cold engine."""
+        ft = self._finish_times
+        if len(ft) >= 2 and ft[-1] > ft[0]:
+            est = (ft[-1] - ft[0]) / (len(ft) - 1)
+        else:
+            est = 1.0
+        return float(min(60.0, max(0.05, est)))
 
     def _check_feasible(self, req: Request) -> None:
         need = self._page_cost([req])
@@ -377,34 +522,311 @@ class Engine:
         tt = lane.token_times
         ttft = max(0.0, tt[0] - lane.req.queued_at) if tt else 0.0
         self._ttft.append(ttft)
-        return GenResult(lane.req.uid, lane.req.prompt,
-                         np.asarray(lane.generated, np.int32), truncated,
-                         ttft_s=ttft)
+        self._itl.extend(b - a for a, b in zip(tt, tt[1:]))
+        self._finish_times.append(time.monotonic())
+        # a crash-relaunched request decoded over prompt + emitted: report
+        # the original split
+        prompt, gen = lane.req.prompt, lane.generated
+        pre = self._recovered_prefix.pop(lane.req.uid, None)
+        if pre is not None:
+            prompt, gen = pre[0], list(pre[1]) + gen
+        return GenResult(lane.req.uid, prompt, np.asarray(gen, np.int32),
+                         truncated, ttft_s=ttft)
+
+    # ------------------------------------------------ quarantine / cancel
+    def _failed_result(self, req: Request, generated: list[int],
+                       exc: Exception) -> GenResult:
+        """The failure result of ``req``, re-split at its original prompt
+        after a relaunch. No latency samples: failures must not skew the
+        percentiles."""
+        prompt, gen = req.prompt, list(generated)
+        pre = self._recovered_prefix.pop(req.uid, None)
+        if pre is not None:
+            prompt, gen = pre[0], list(pre[1]) + gen
+        return GenResult(req.uid, prompt, np.asarray(gen, np.int32),
+                         error=exc)
+
+    def _fail_lane(self, i: int, exc: Exception) -> GenResult:
+        """Tear lane ``i`` down with a structured error: its pages free
+        (never donated to the prefix cache: its KV is not trusted; shared
+        pages just unpin) and its device state clears. The other lanes'
+        state is untouched, so their streams are too."""
+        lane = self.lanes[i]
+        self.lanes[i] = None
+        m = self._mirror
+        m["live"][i] = False
+        m["faulted"][i] = False
+        m["poison"][i] = 0.0
+        if self.paged and lane.pages:
+            self.pool.release(lane.pages)
+            m["bt"][i] = 0
+        self._prefilling.pop(i, None)
+        self._dirty = True
+        self.stats["evicted"] += 1
+        self._finish_times.append(time.monotonic())
+        return self._failed_result(lane.req, lane.generated, exc)
 
     def _harvest_faults(self, finished: list[GenResult]) -> None:
-        """Fail every lane the device-side finite check flagged (never
-        donating its pages to the prefix cache); the other lanes' streams
-        are untouched."""
+        """Fail every lane the device-side finite check flagged this step
+        with ``LaneFaultError``; only its own request fails."""
         m = self._mirror
+        if not m["faulted"].any():
+            return
         for i in self.active_lanes:
             if m["faulted"][i]:
-                lane = self.lanes[i]
-                self.lanes[i] = None
-                m["live"][i] = False
-                m["faulted"][i] = False
-                if self.paged:
-                    self.pool.release(lane.pages)
-                    m["bt"][i] = 0
-                self._prefilling.pop(i, None)
-                self._dirty = True
-                self.stats["evicted"] += 1
+                uid = self.lanes[i].req.uid
                 self.stats["lanes_quarantined"] += 1
-                finished.append(GenResult(
-                    lane.req.uid, lane.req.prompt,
-                    np.asarray(lane.generated, np.int32),
-                    error=LaneFaultError(lane.req.uid, i)))
+                finished.append(self._fail_lane(i, LaneFaultError(uid, i)))
+        m["faulted"][:] = False
+        self._dirty = True
+
+    def _cancel_expired(self, finished: list[GenResult]) -> None:
+        """Cancel, at this host sync, every lane whose absolute deadline
+        (on the scheduler's clock) has passed."""
+        now = self.scheduler.clock()
+        for i in self.active_lanes:
+            req = self.lanes[i].req
+            if req.deadline_at is not None and now > req.deadline_at:
+                self.stats["deadline_cancelled"] += 1
+                self.stats["cancelled"] += 1
+                finished.append(
+                    self._fail_lane(i, DeadlineExceededError(req.uid)))
+
+    def cancel(self, uid: int) -> bool:
+        """Cancel a request wherever it is (queued, on a lane, preempted),
+        releasing its lane, pages and offload record; its
+        ``RequestCancelledError`` result comes out of the next step. False
+        when the uid is not in flight."""
+        req = self.scheduler.remove(uid)
+        if req is not None:
+            self.stats["cancelled"] += 1
+            self._pending_results.append(
+                self._failed_result(req, [], RequestCancelledError(uid)))
+            return True
+        for j, pre in enumerate(self._preempted):
+            if pre.req.uid == uid:
+                self._preempted.pop(j)
+                self._offload.drop(uid)
+                if pre.pinned:
+                    self.pool.release(list(pre.pinned.values()))
+                self.stats["cancelled"] += 1
+                self._pending_results.append(self._failed_result(
+                    pre.req, pre.generated, RequestCancelledError(uid)))
+                return True
+        for i in self.active_lanes:
+            if self.lanes[i].req.uid == uid:
+                self.stats["cancelled"] += 1
+                self._pending_results.append(
+                    self._fail_lane(i, RequestCancelledError(uid)))
+                return True
+        return False
+
+    # ---------------------------------------------------------- preemption
+    def _download_pages(self, pages: list[int]):
+        """Copy pool pages ``pages`` (physical) to host tensors. On the
+        GPU into pinned buffers, and the stream is synchronized before
+        returning: the caller releases the pages next, and the next
+        admission's prefill may write them."""
+        k, v = self._gather(self.cache,
+                            self._tensor(np.asarray(pages, np.int64)))
+        if self.device.type != "cuda":
+            return k, v
+        hk = torch.empty(k.shape, dtype=k.dtype, pin_memory=True)
+        hv = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+        hk.copy_(k, non_blocking=True)
+        hv.copy_(v, non_blocking=True)
+        torch.cuda.current_stream(self.device).synchronize()
+        return hk, hv
+
+    def _upload_pages(self, dst: list[int], k: torch.Tensor,
+                      v: torch.Tensor) -> None:
+        """Scatter host page data into pool pages ``dst``. The copies are
+        asynchronous from pinned buffers; PyTorch's pinned-memory
+        allocator keeps a buffer from reuse until the copy that reads it
+        has completed, so the record may be dropped at once."""
+        self.cache = self._scatter(
+            self.cache, self._tensor(np.asarray(dst, np.int64)),
+            k.to(self.device, non_blocking=True),
+            v.to(self.device, non_blocking=True))
+
+    @torch.inference_mode()
+    def preempt(self, i: int) -> None:
+        """Freeze live decode lane ``i`` off the device: download its
+        exclusively owned pages covering slots ``[0, frontier)`` to the
+        host store, keep prefix-shared or cached pages pinned (another
+        reader needs them), release the rest, and save the decode state,
+        so a restore resumes with no re-prefilled token. Raises
+        ``OffloadCapacityError``, with nothing changed, when the store is
+        full."""
+        if not self.paged:
+            raise ValueError("preemption requires the paged engine")
+        lane = self.lanes[i]
+        m = self._mirror
+        if lane is None or i in self._prefilling or not m["live"][i]:
+            raise ValueError(f"lane {i} is not a live decode lane")
+        n_live = self.pool.slots_for(int(m["frontier"][i]))
+        dl_logical: list[int] = []
+        dl_pages: list[int] = []
+        pinned: dict[int, int] = {}
+        for j in range(n_live):
+            p = lane.pages[j]
+            if self.pool.exclusive(p):
+                dl_logical.append(j)
+                dl_pages.append(p)
+            else:
+                pinned[j] = p            # reference held through preempt
+        if dl_pages:
+            k, v = self._download_pages(dl_pages)
+            self._offload.save(lane.req.uid, dl_logical, k, v)
+            self.stats["offloaded_pages"] += len(dl_pages)
+            self.stats["offload_bytes_peak"] = max(
+                self.stats["offload_bytes_peak"], self._offload.bytes_peak)
+        self.stats["preempt_pinned_pages"] += len(pinned)
+        # extent pages past the frontier free without a download: never
+        # shared (sharing covers at most the prompt, and a live lane's
+        # frontier is at least its prompt)
+        self.pool.release(dl_pages + lane.pages[n_live:])
+        self._preempted.append(_Preempted(
+            req=lane.req, offset=lane.offset, generated=lane.generated,
+            token_times=lane.token_times, pending=int(m["pending"][i]),
+            frontier=int(m["frontier"][i]),
+            remaining=int(m["remaining"][i]), n_pages=len(lane.pages),
+            pinned=pinned))
+        self.lanes[i] = None
+        m["live"][i] = False
+        m["bt"][i] = 0
+        self._dirty = True
+        self.stats["preemptions"] += 1
+
+    def _restore_one(self, pre: _Preempted) -> bool:
+        """Re-admit one preempted lane: fresh pages for every logical page
+        not pinned, the pinned ones at their logical positions, the host
+        KV scattered back, the lane rebuilt at its saved frontier. False
+        when no lane is free or the pool cannot cover it yet."""
+        free = [i for i, l in enumerate(self.lanes) if l is None]
+        if not free:
+            return False
+        own_need = pre.n_pages - len(pre.pinned)
+        if self.pcache is not None:
+            short = own_need - self.pool.free_pages
+            if short > 0:
+                self.stats["cache_evicted_pages"] += \
+                    self.pcache.evict(short)
+        if own_need > self.pool.free_pages:
+            return False
+        i = free[0]
+        own = iter(self.pool.alloc(own_need))
+        pages = [pre.pinned[j] if j in pre.pinned else next(own)
+                 for j in range(pre.n_pages)]
+        try:
+            rec = self._offload.pop(pre.req.uid)
+        except OffloadCorruptionError as e:
+            # the parked KV rotted in host RAM: this request fails, the
+            # others are untouched (own pages free, pinned ones unpin)
+            self.pool.release(pages)
+            self.stats["lanes_quarantined"] += 1
+            self._pending_results.append(self._failed_result(
+                pre.req, pre.generated,
+                LaneFaultError(pre.req.uid, -1, reason=str(e))))
+            return True          # the entry is resolved
+        if rec is not None:      # None: every live page was pinned shared
+            dst = [pages[j] for j in rec.logical]
+            self._upload_pages(dst, rec.k, rec.v)
+            self.stats["restored_pages"] += len(dst)
+            if pre.recovered:
+                self.stats["recovered_zero_reprefill"] += 1
+        self.lanes[i] = _Lane(pre.req, pre.offset, pre.generated,
+                              pages=pages, token_times=pre.token_times)
+        m = self._mirror
+        m["bt"][i] = 0
+        m["bt"][i, :len(pages)] = pages
+        m["offsets"][i] = pre.offset
+        m["frontier"][i] = pre.frontier
+        m["remaining"][i] = pre.remaining
+        m["pending"][i] = pre.pending
+        m["live"][i] = True
+        self._dirty = True
+        self.stats["restores"] += 1
+        return True
+
+    def _try_restore(self) -> None:
+        """Re-admit preempted lanes, most urgent first, unless the queue
+        head outranks them (restoring a lane only to preempt it again
+        would thrash); one that does not fit yet blocks those behind it."""
+        self._preempted.sort(key=lambda p: (p.req.priority, p.req._seq))
+        while self._preempted:
+            head = self.scheduler.head()
+            if (head is not None
+                    and head.priority < self._preempted[0].req.priority):
+                return
+            if not self._restore_one(self._preempted[0]):
+                return
+            self._preempted.pop(0)
+
+    def _releasable(self, i: int) -> int:
+        """Pages preempting lane ``i`` would return to the pool."""
+        return sum(1 for p in self.lanes[i].pages if self.pool.exclusive(p))
+
+    def _shortfall(self, head: Request) -> int:
+        """Pages the queue head needs beyond what the pool can give now
+        (with the prefix cache: effective cost against free +
+        reclaimable)."""
+        if self.pcache is not None:
+            return (self._page_cost_shared()([head])
+                    - self.pool.free_pages - self.pcache.reclaimable())
+        return self._page_cost([head]) - self.pool.free_pages
+
+    def _preempt_for_head(self) -> bool:
+        """Make room for a lane- or page-blocked queue head by preempting
+        strictly lower-priority live lanes, least urgent (then latest
+        arrived) first, until the head fits, no candidate is left, or a
+        victim would free no page the head is short of. True when a lane
+        was preempted (the caller admits again)."""
+        head = self.scheduler.head()
+        if head is None:
+            return False
+        did = False
+        while True:
+            free_lane = any(l is None for l in self.lanes)
+            short = self._shortfall(head)
+            if free_lane and short <= 0:
+                return did
+            cands = [i for i in self.active_lanes
+                     if self._mirror["live"][i]
+                     and i not in self._prefilling
+                     and self.lanes[i].req.priority > head.priority]
+            if not cands:
+                return did
+            victim = max(cands, key=lambda i: (self.lanes[i].req.priority,
+                                               self.lanes[i].req._seq))
+            if free_lane and short > 0 and self._releasable(victim) == 0:
+                return did
+            try:
+                self.preempt(victim)
+            except OffloadCapacityError:
+                # host store full: the victim runs on (preempt changed
+                # nothing) and the head waits the normal way
+                return did
+            did = True
 
     # --------------------------------------------------------- admission
+    def _note_admitted(self, reqs: list[Request]) -> None:
+        now = self.scheduler.clock()
+        for r in reqs:
+            q = max(0.0, now - r.queued_at)
+            self.stats["queued_s_total"] += q
+            self.stats["queued_s_max"] = max(self.stats["queued_s_max"], q)
+        self.stats["admitted"] += len(reqs)
+
+    def _admit(self) -> None:
+        """Admission, then, when a head is left behind and
+        ``preempt=True``, preemption of lower-priority lanes and admission
+        again."""
+        self._admit_once()
+        if (self.paged and self.preempt_enabled and len(self.scheduler)
+                and self._preempt_for_head()):
+            self._admit_once()
+
     def _admit_once(self) -> None:
         free = [i for i, l in enumerate(self.lanes) if l is None]
         if self.pcache is not None:
@@ -425,25 +847,34 @@ class Engine:
         # mid-traffic restarts at slot 0
         width = max(r.prompt_len for r in reqs)
         new_lanes = []
-        for r in reqs:
-            i = free.pop(0)
-            off = width - r.prompt_len
-            self.lanes[i] = _Lane(r, off, [])
-            if self.paged:
-                need = self.pool.slots_for(
-                    min(max(width + r.max_new_tokens - 1, width),
-                        self.max_len))
-                self.lanes[i].pages = self.pool.alloc(need)
-                m["bt"][i] = 0
-                m["bt"][i, :need] = self.lanes[i].pages
-            m["offsets"][i] = off
-            m["frontier"][i] = width
-            m["remaining"][i] = r.max_new_tokens - 1
-            m["pending"][i] = 0
-            m["live"][i] = True
-            new_lanes.append(i)
+        try:
+            for r in reqs:
+                i = free.pop(0)
+                off = width - r.prompt_len
+                self.lanes[i] = _Lane(r, off, [])
+                if self.paged:
+                    need = self.pool.slots_for(
+                        min(max(width + r.max_new_tokens - 1, width),
+                            self.max_len))
+                    self.lanes[i].pages = self.pool.alloc(need)
+                    m["bt"][i] = 0
+                    m["bt"][i, :need] = self.lanes[i].pages
+                m["offsets"][i] = off
+                m["frontier"][i] = width
+                m["remaining"][i] = r.max_new_tokens - 1
+                m["pending"][i] = 0
+                m["live"][i] = True
+                new_lanes.append(i)
+        except BaseException:
+            # crash-safe admission: after an allocation failure mid-group,
+            # requests that never reached a lane go back to the queue head
+            # (one stranded on a half-built lane relaunches in recovery)
+            placed = {l.req.uid for l in self.lanes if l is not None}
+            self.scheduler.push_front(
+                [r for r in reqs if r.uid not in placed])
+            raise
         self._dirty = True
-        self.stats["admitted"] += len(reqs)
+        self._note_admitted(reqs)
         tokens = np.zeros((self.max_batch, width), np.int32)
         for i in new_lanes:
             p = self.lanes[i].req.prompt
@@ -508,12 +939,17 @@ class Engine:
             len(free), self.pool.free_pages,
             lambda group: sum(self._page_cost([r]) for r in group))
         m = self._mirror
-        for r in reqs:
+        for j, r in enumerate(reqs):
             i = free.pop(0)
             need = self._page_cost([r])
-            self.lanes[i] = _Lane(r, 0, [], pages=self.pool.alloc(need))
+            try:
+                pages = self.pool.alloc(need)
+            except BaseException:
+                self.scheduler.push_front(reqs[j:])
+                raise
+            self.lanes[i] = _Lane(r, 0, [], pages=pages)
             m["bt"][i] = 0
-            m["bt"][i, :need] = self.lanes[i].pages
+            m["bt"][i, :need] = pages
             m["offsets"][i] = 0
             m["frontier"][i] = r.prompt_len
             m["remaining"][i] = r.max_new_tokens - 1
@@ -523,7 +959,7 @@ class Engine:
             self.stats["prompt_tokens"] += r.prompt_len
         if reqs:
             self._dirty = True
-            self.stats["admitted"] += len(reqs)
+            self._note_admitted(reqs)
 
     def _admit_shared(self, free: list[int]) -> None:
         """Prefix-cached admission: the gate sees the effective page cost
@@ -537,11 +973,16 @@ class Engine:
                                     self._page_cost_shared())
         tails: list[int] = []
         for j, r in enumerate(reqs):
-            if not self._admit_one(free[0], r):
+            try:
+                ok = self._admit_one(free[0], r)
+            except BaseException:
+                self.scheduler.push_front(reqs[j:])
+                raise
+            if not ok:
                 self.scheduler.push_front(reqs[j:])
                 break
             tails.append(free.pop(0))
-            self.stats["admitted"] += 1
+            self._note_admitted([r])
         if not self.mixed and tails:
             self._prefill_tails(tails)
 
@@ -563,7 +1004,11 @@ class Engine:
         if own_need > self.pool.free_pages:
             self.pool.release(m.pages + pin_tail)
             return False
-        own = self.pool.alloc(own_need)
+        try:
+            own = self.pool.alloc(own_need)
+        except BaseException:
+            self.pool.release(m.pages + pin_tail)   # no pin leaks
+            raise
         if m.tail_page is not None:
             # copy-on-write: the lane goes on writing this page, so it
             # gets a private copy; the shared original stays read-only
@@ -617,14 +1062,31 @@ class Engine:
     # --------------------------------------------------------------- step
     @torch.inference_mode()
     def step(self) -> list[GenResult]:
-        """One engine iteration. Phased: evict, admit (blocking on the new
-        prompts' whole prefill), then one decode slab. Mixed: evict, admit
-        (non-blocking), then one fused decode+prefill call when the token
-        budget planned prompt chunks, else a decode slab. Returns the
-        requests finished during this step."""
-        finished: list[GenResult] = []
+        """One engine iteration. Phased: evict, restore preempted lanes,
+        admit (blocking on the new prompts' whole prefill, preempting for
+        an urgent head when enabled), then one decode slab. Mixed: the
+        same up to admission (non-blocking), then one fused decode+prefill
+        call when the token budget planned prompt chunks, else a decode
+        slab. Returns the requests finished during this step, failures
+        included, and those parked by ``cancel`` or recovery since the
+        last step (or swept by a step that then died).
+
+        An installed ``FaultPlan`` fires host-side faults at the top,
+        before any mutation, and device-side faults at the slab or mixed
+        call."""
+        idx = self._step_idx
+        self._step_idx += 1
+        if self._faults is not None:
+            self._faults.on_step(idx, self)
+        # results stay parked in ``_pending_results`` until the step
+        # returns: a step that dies after its sweep loses none of them
+        finished: list[GenResult] = self._pending_results
         self._sweep_finished(finished)
-        self._admit_once()
+        if self.enforce_deadlines:
+            self._cancel_expired(finished)
+        if self._preempted:
+            self._try_restore()    # older work first, unless outranked
+        self._admit()
         self._sweep_finished(finished)   # e.g. max_new_tokens == 1
         if self.mixed:
             decode_lanes = [i for i in self.active_lanes
@@ -640,6 +1102,7 @@ class Engine:
         elif self.active_lanes:
             self._decode_slab()
         self._harvest_faults(finished)
+        self._pending_results = []
         return finished
 
     def _decode_slab(self) -> None:
@@ -647,6 +1110,8 @@ class Engine:
         sync; paged, it reads ``read_pages`` = the power-of-two bucket
         covering every lane's frontier + slab_k."""
         self._sync_dstate()
+        if self._faults is not None:
+            self._faults.on_device_step(self._step_idx - 1, self)
         lanes = self.active_lanes
         t0 = time.monotonic()
         if self.paged:
@@ -678,9 +1143,10 @@ class Engine:
         stop logic, prefill lanes advance their prompt position and go
         live when the tail lands (their token is the request's first).
         The host reads the result only when some lane emits a token, so
-        calls that carry only mid-prompt chunks queue without a sync.
-        With no decode lane (the phased tail prefill) the call time is
-        prefill time."""
+        calls that carry only mid-prompt chunks queue without a sync (a
+        fault in such a chunk poisons the KV it wrote, so the lane's next
+        emitting call still catches it). With no decode lane (the phased
+        tail prefill) the call time is prefill time."""
         m = self._mirror
         w = _pow2_bucket(max(plan.values(), default=1), self._wcap)
         tokens = np.zeros((self.max_batch, w), np.int32)
@@ -703,12 +1169,15 @@ class Engine:
                         if j not in covered):
             self.stats["stalled_decode_steps"] += 1
         r = _pow2_bucket(self.pool.slots_for(need), self.max_pages)
+        if self._faults is not None:
+            self._faults.on_device_step(self._step_idx - 1, self)
         t0 = time.monotonic()
         nxt, faulted, self.cache = self._mixed_fn(
             self.params, self.cache, self._tensor(tokens),
             self._tensor(starts), self._tensor(q_lens),
             self._tensor(m["offsets"]), self._tensor(m["bt"]),
-            read_pages=r)
+            read_pages=r, poison=self._tensor(m["poison"]))
+        m["poison"][:] = 0.0     # one-shot, like the slab's
         fa = None
         if decode_lanes or any(self._prefilling[i] + c
                                >= self.lanes[i].req.prompt_len
@@ -780,9 +1249,11 @@ class Engine:
 
     # ---------------------------------------------------------------- run
     def run(self) -> dict[int, GenResult]:
-        """Drain the queue and all active lanes; {uid: GenResult}."""
+        """Drain the queue, the lanes and the preempted lanes;
+        {uid: GenResult}."""
         out: dict[int, GenResult] = {}
-        while len(self.scheduler) or self.active_lanes:
+        while (len(self.scheduler) or self.active_lanes or self._preempted
+               or self._pending_results):
             for r in self.step():
                 out[r.uid] = r
         self.finalize_stats()
@@ -790,20 +1261,25 @@ class Engine:
 
     def finalize_stats(self) -> dict:
         """Fold the counters into derived stats: decode throughput (decode
-        tokens over decode time, fused mixed calls included), TTFT
-        percentiles, KV peaks and the prefix-cache hit rate."""
+        tokens over decode time, fused mixed calls included), TTFT and
+        inter-token percentiles, KV peaks, the host store's peak and
+        budget, and the prefix-cache hit rate."""
         st = self.stats
         dec_s = st["decode_s"] + st["mixed_s"]
         st["tok_per_s"] = st["decode_tokens"] / dec_s if dec_s > 0 else 0.0
-        arr = np.asarray(self._ttft, np.float64)
-        for q in (50, 95):
-            st[f"ttft_p{q}_s"] = (float(np.percentile(arr, q))
-                                  if arr.size else 0.0)
+        for name, vals in (("ttft", self._ttft), ("itl", self._itl)):
+            arr = np.asarray(vals, np.float64)
+            for q in (50, 95):
+                st[f"{name}_p{q}_s"] = (float(np.percentile(arr, q))
+                                        if arr.size else 0.0)
         if self.paged:
             st["peak_kv_pages"] = self.pool.peak_in_use
             # pages live lanes pin at once, shared pages counted once
             st["peak_kv_bytes_referenced"] = (self.pool.peak_referenced
                                               * self.page_bytes)
+            st["offload_bytes_peak"] = max(st["offload_bytes_peak"],
+                                           self._offload.bytes_peak)
+            st["offload_capacity_bytes"] = self._offload.capacity_bytes or 0
         st["peak_kv_bytes"] = self.kv_bytes_peak
         st["kv_bytes_contiguous_equiv"] = self.kv_bytes_contiguous_equiv
         st["admission_rejections"] = self.scheduler.rejections

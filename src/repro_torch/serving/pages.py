@@ -41,6 +41,9 @@ class PagePool:
         self._n_ref = 0                   # pages with rc > 0
         self._n_cached_idle = 0           # cached pages with rc == 0
         self.peak_in_use = 0
+        # fault-injection port (serving/faults.py): called with the
+        # request size at the top of alloc; True fails that allocation
+        self.fault_hook = None
         # high-water of pages that lanes pin at once (shared pages count
         # once): what a pool sized for this traffic must provide
         self.peak_referenced = 0
@@ -72,7 +75,8 @@ class PagePool:
         return self._rc[page]
 
     def exclusive(self, page: int) -> bool:
-        """One lane holds the page and the prefix cache does not."""
+        """One lane holds the page and the prefix cache does not: its KV
+        may go to the host and the page to another lane (preemption)."""
         return self._rc[page] == 1 and not self._cached[page]
 
     def is_cached(self, page: int) -> bool:
@@ -96,6 +100,9 @@ class PagePool:
         """Pop ``n`` free pages at refcount 1; raises RuntimeError when
         the free list cannot supply them (the admission gate makes that a
         bug)."""
+        if self.fault_hook is not None and self.fault_hook(n):
+            raise RuntimeError(
+                f"injected page allocation failure ({n} pages)")
         if n > len(self._free):
             raise RuntimeError(
                 f"page pool exhausted: requested {n} pages, "

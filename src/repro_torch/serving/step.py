@@ -1,7 +1,8 @@
 """Serving steps (port of ``repro/serving/step.py``): prefill, chunked
 prefill and the decode slab over the contiguous cache and the paged
-pool, the mixed decode+prefill step, the copy-on-write page copy and the
-one-token decode step of ``serve_loop``.
+pool, the mixed decode+prefill step, the copy-on-write page copy, the
+page movers of preemption and the one-token decode step of
+``serve_loop``.
 
 The reference's ``lax.scan`` slab becomes a loop of ``k_steps`` decode
 steps whose whole state stays on the device: nothing in the loop reads a
@@ -47,16 +48,22 @@ def _run_slab(k_steps, max_len, eos_id, cache, state, park, step_fn):
     and budget freeze, so its tokens after the stop point are garbage the
     host discards. A lane whose logits go non-finite is marked
     ``faulted`` and dies without advancing.
+
+    ``state["poison"]`` (f32 (B,), normally zeros) is the fault-injection
+    port: added to the first step's logits, then zeroed in the returned
+    state. Adding +0.0 leaves a healthy lane's logits bitwise unchanged.
     ``step_fn(cache, tokens (B,1), write_pos (B,)) -> (logits, cache)``.
     Returns (tokens (B, k_steps) int32, new state, cache)."""
     pending, frontier = state["pending"], state["frontier"]
     remaining, live = state["remaining"], state["live"]
     faulted = state["faulted"]
     toks = []
-    for _ in range(k_steps):
+    for t in range(k_steps):
         write_pos = torch.where(live, frontier, park)
         logits, cache = step_fn(cache, pending[:, None], write_pos)
         last = logits[:, -1]
+        if t == 0:
+            last = last + state["poison"][:, None]
         nxt = torch.argmax(last, dim=-1).to(torch.int32)
         bad = live & ~torch.isfinite(last).all(dim=-1)
         faulted = faulted | bad
@@ -70,7 +77,8 @@ def _run_slab(k_steps, max_len, eos_id, cache, state, park, step_fn):
         pending = torch.where(live, nxt, pending)
         toks.append(nxt)
     state = dict(state, pending=pending, frontier=frontier,
-                 remaining=remaining, live=live, faulted=faulted)
+                 remaining=remaining, live=live, faulted=faulted,
+                 poison=torch.zeros_like(state["poison"]))
     return torch.stack(toks, dim=1), state, cache
 
 
@@ -78,7 +86,8 @@ def make_decode_slab_step(cfg, k_steps: int, max_len: int,
                           eos_id: int | None = None):
     """slab(params, cache, state) -> (tokens (B, k_steps), new state,
     cache) over the contiguous cache. ``state`` holds the (B,) device
-    vectors pending, frontier, offsets, remaining, live and faulted. A
+    vectors pending, frontier, offsets, remaining, live, poison and
+    faulted. A
     dead lane parks at slot ``max_len``, past the slab, so its write
     drops."""
     def slab(params, cache, state):
@@ -112,7 +121,8 @@ def make_paged_decode_slab_step(cfg, k_steps: int, max_len: int,
                                 page_size: int, eos_id: int | None = None):
     """slab(params, cache, state, read_pages) -> (tokens (B, k_steps),
     new state, cache). ``state`` holds the (B,) device vectors pending,
-    frontier, offsets, remaining, live, faulted and ``bt``, each lane's
+    frontier, offsets, remaining, live, poison, faulted and ``bt``, each
+    lane's
     (max_pages,) block table, constant through a slab. A dead lane parks
     at logical slot ``max_pages * page_size``, past the table end, so
     its write drops. The engine guarantees ``read_pages * page_size >=
@@ -132,23 +142,25 @@ def make_paged_decode_slab_step(cfg, k_steps: int, max_len: int,
 
 def make_mixed_step(cfg):
     """mixed(params, cache, tokens (B,W), starts (B,), q_lens (B,),
-    offsets (B,), block_tables, read_pages) -> (next_tokens (B,) int32,
-    faulted (B,) bool, cache): one pass of the stack over per-lane query
-    runs. Decode lanes give one token (q_len 1 at their frontier),
-    admitting lanes a prompt chunk (q_len c at their prompt position),
-    idle lanes ride along at q_len 0. Each lane's next token is the
-    argmax of its last valid row (garbage for a mid-prompt or idle lane,
-    which the host ignores); ``faulted`` is each lane's finite check on
-    that row. ``read_pages`` must cover every lane's start + q_len."""
+    offsets (B,), block_tables, read_pages, poison (B,)) ->
+    (next_tokens (B,) int32, faulted (B,) bool, cache): one pass of the
+    stack over per-lane query runs. Decode lanes give one token (q_len 1
+    at their frontier), admitting lanes a prompt chunk (q_len c at their
+    prompt position), idle lanes ride along at q_len 0. Each lane's next
+    token is the argmax of its last valid row (garbage for a mid-prompt
+    or idle lane, which the host ignores); ``poison`` (f32, normally
+    zeros: the slab's injection port) is added to that row, and
+    ``faulted`` is each lane's finite check on it. ``read_pages`` must
+    cover every lane's start + q_len."""
     def mixed_step(params, cache, tokens, starts, q_lens, offsets,
-                   block_tables, read_pages):
+                   block_tables, read_pages, poison):
         logits, cache = registry.paged_prefill_chunk(
             cfg, params, cache, tokens, starts, offsets, block_tables,
             read_pages=read_pages, q_lens=q_lens)
         row = (q_lens.to(torch.int64) - 1).clamp_min(0)
         last = torch.gather(
             logits, 1, row[:, None, None].expand(-1, 1, logits.shape[-1]))
-        last = last[:, 0]
+        last = last[:, 0] + poison[:, None]
         faulted = ~torch.isfinite(last).all(dim=-1)
         return torch.argmax(last, dim=-1).to(torch.int32), faulted, cache
     return mixed_step
@@ -167,6 +179,29 @@ def make_copy_pages_step():
             c.index_copy_(1, dst, c.index_select(1, src))
         return cache
     return copy_pages
+
+
+def make_gather_pages_step():
+    """gather(cache, pages (n,)) -> (k, v): pool pages ``pages`` across
+    every layer, (layers, n, page_size, KV, hd) each, new tensors on the
+    cache's device (the download half of preemption)."""
+    def gather_pages(cache, pages):
+        pages = pages.long()
+        return (cache["k"].index_select(1, pages),
+                cache["v"].index_select(1, pages))
+    return gather_pages
+
+
+def make_scatter_pages_step():
+    """scatter(cache, dst (n,), k, v) -> cache: write page data ``k``,
+    ``v`` (layers, n, page_size, KV, hd) into pool pages ``dst``, in
+    place (the restore half of preemption)."""
+    def scatter_pages(cache, dst, k, v):
+        dst = dst.long()
+        cache["k"].index_copy_(1, dst, k)
+        cache["v"].index_copy_(1, dst, v)
+        return cache
+    return scatter_pages
 
 
 def make_decode_step(cfg, temperature: float = 0.0):

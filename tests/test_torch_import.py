@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: importing every module of
 ``src/repro_torch`` loads neither JAX nor any module of the JAX package,
-no file of it names them in an import, and its entry points default to
-the GPU."""
+no file of it (nor ``chip_smoke.py``, which drives it on the card) names
+them in an import, and its entry points default to the GPU."""
 import ast
 import inspect
 import os
@@ -40,7 +40,7 @@ def test_importing_every_module_loads_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
-@pytest.mark.parametrize("rel", FILES)
+@pytest.mark.parametrize("rel", FILES + ["../chip_smoke.py"])
 def test_no_file_imports_jax_or_repro(rel):
     tree = ast.parse((SRC / rel).read_text())
     names = []

@@ -164,7 +164,8 @@ def test_mixed_step_next_tokens(model):
                                               device="cpu"),
                      torch.from_numpy(toks), torch.from_numpy(starts),
                      torch.from_numpy(q_lens), torch.from_numpy(offsets),
-                     torch.from_numpy(bt), read_pages=2)
+                     torch.from_numpy(bt), read_pages=2,
+                     poison=torch.zeros(b, dtype=torch.float32))
     assert tn.dtype == torch.int32 and tn.shape == (b,)
     np.testing.assert_array_equal(tf.numpy()[:3], np.asarray(jf)[:3])
     for i in range(3):
@@ -215,7 +216,8 @@ def test_decode_slab_step_tokens_and_state(model):
                   poison=jnp.zeros(b, jnp.float32))
     jt, jst, _ = jstep.make_decode_slab_step(jcfg, k, smax)(jp, jc, jstate)
     tt, tst, _ = tstep.make_decode_slab_step(tcfg, k, smax)(
-        tp, tc, {k_: torch.from_numpy(v) for k_, v in state.items()})
+        tp, tc, dict({k_: torch.from_numpy(v) for k_, v in state.items()},
+                     poison=torch.zeros(b, dtype=torch.float32)))
     for key in ("frontier", "remaining", "live", "faulted"):
         np.testing.assert_array_equal(tst[key].numpy(), np.asarray(jst[key]))
     kept = np.asarray(jst["frontier"]) - 4
