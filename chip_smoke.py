@@ -46,6 +46,21 @@ the other streams equal to the fault-free run's (a divergence only at a
 near-tie); and the host crash once more at full depth in bf16, with the
 recovery latency and the bytes salvaged.
 
+Artifacts and hot-swap (``serving/artifact.py``, ``serving/hotswap.py``):
+the packed split and joint models are sealed at full depth and loaded
+twice with their canaries replayed under the exact gates (a seal and a
+replay on one card agree bitwise); each of the ten artifact corruptions
+on a two-layer full-width artifact is offered to a serving engine's
+``swap_weights`` and must raise its typed error without a flip
+(``artifact``, ``artifact_faults``). Then ``serve_swap``: the split
+model serves the 12 prompts and swaps to the sealed joint model after
+step 2 while 4 more requests arrive; streams admitted before the flip
+equal a run without the swap bitwise, the later ones a fresh engine on
+the new weights; the split GLU runs only for old lanes and the joint GLU
+only for new ones; the old weights' memory is freed when their last lane
+retires; the same swap behind the asyncio front door; a NaN in a new
+lane inside the window rolls the swap back.
+
 Training: 12 steps of the BLaST trainer (``train_loop.train``: masked
 dense with in-step prune-and-grow, f32 params, bf16 compute) on 8 x 128
 synthetic tokens, checked for a falling finite loss, exact per-column
@@ -54,6 +69,11 @@ params and both Adam moments; no kernel launches there. Then the trained
 masks are packed layer by layer and the fine-tuning gradient through
 ``make_bspmm_trainable`` (forward ``bspmm``, dX ``bspmm_t``) is held
 against the trainer's own masked-dense STE gradient at all 16 layers.
+The trained state is checkpointed at full depth (``train_ckpt``: a
+blocking and an async save, verify, a bitwise restore), and the chaos
+child (``training/faults.py``) at two layers is SIGKILLed, resumed, and
+resumed again past a corrupted newest checkpoint; each must end where
+an uninterrupted child ends (``train_chaos``).
 
 Prints JSON lines; the line before the last is a ``kernels`` summary and
 the last is ``{"ok": true, "device": {...}}``. Any failed phase raises
@@ -63,6 +83,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -92,6 +113,14 @@ FD_FIRST_S, FD_GAP_S, FD_DEADLINE_S = 0.5, 0.25, 0.5
 # it guards (2 layers: tens of ms; full depth: a 1024-token prefill)
 CHAOS_REQUESTS, CHAOS_TOKENS = 12, 32
 CHAOS_WATCHDOG_S, CHAOS_WATCHDOG_FULL_S = 5.0, 30.0
+# sealed artifacts (under the gitignored build/, deleted after use), the
+# tokens of the stream that runs while every artifact fault is offered to
+# the engine, and the hot-swap: the swap after step 2, 4 requests after
+# it; the training chaos child's depth and steps (checkpoints every 4,
+# the kill at 11, refreshes every 5)
+ART_DIR = os.path.join(ROOT, "build", "chip_artifacts")
+FAULT_TOKENS, SWAP_AFTER_STEP, SWAP_POST = 32, 2, 4
+CHAOS_LAYERS, CHAOS_STEPS, CHAOS_KILL = 2, 12, 11
 
 # datasheet figures (SXM parts, dense rates): bytes/s of device memory and
 # operations/s by input type (f32 outside the tensor cores, as the kernels
@@ -1504,6 +1533,553 @@ def phase_finetune_packed(torch, cfg, state, batch):
     return out
 
 
+# ------------------------------------ artifacts, hot-swap, checkpoints
+def _dir_bytes(d):
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(d) for f in fs)
+
+
+def _leaves_equal(torch, a, b):
+    from repro_torch.checkpointing.checkpoint import flatten_tree
+    from repro_torch.core.packing import PackedBCSC
+    fa, fb = flatten_tree(a), flatten_tree(b)
+    if set(fa) != set(fb):
+        return False
+    for k, x in fa.items():
+        y = fb[k]
+        pairs = ([(x.blocks, y.blocks), (x.idx, y.idx)]
+                 if isinstance(x, PackedBCSC) else [(x, y)])
+        if isinstance(x, PackedBCSC) and (x.kb, x.joint) != (y.kb, y.joint):
+            return False
+        for u, v in pairs:
+            if u.dtype != v.dtype or not torch.equal(u, v):
+                return False
+    return True
+
+
+def phase_artifact(torch, cfg, packed, joint):
+    """Seal the packed split and joint models at full depth (bf16), then
+    load each twice with the canaries replayed under the exact gates (0
+    token mismatches, 0.0 logit drift: a seal and a replay on one card
+    agree bitwise), the loaded leaves bitwise the sealed ones. Then each
+    of the ten ``ARTIFACT_FAULTS`` on a fresh copy of a two-layer,
+    full-width bf16 artifact, offered to a serving engine's
+    ``swap_weights`` mid-stream: each must raise exactly its typed error,
+    the generation must not flip, and the stream must finish as without
+    the attempt. Returns (artifact dirs, launch counts)."""
+    from repro_torch.serving import artifact
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.faults import ARTIFACT_FAULTS, FaultPlan
+    os.makedirs(ART_DIR, exist_ok=True)
+    emit(phase="disk", path=os.path.relpath(ART_DIR, ROOT),
+         free_bytes=shutil.disk_usage(ART_DIR).free)
+    dirs, counts = {}, []
+    for name, params in (("split", packed), ("joint", joint)):
+        d = dirs[name] = os.path.join(ART_DIR, name)
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        manifest = artifact.seal(cfg, params, d)
+        seal_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        artifact.validate(d, cfg)
+        validate_s = time.monotonic() - t0
+        loads = []
+        for _ in range(2):
+            t0 = time.monotonic()
+            loaded, _ = artifact.load(d, cfg, run_canaries=True,
+                                      device=DEVICE)
+            torch.cuda.synchronize()
+            loads.append(time.monotonic() - t0)
+            check(_leaves_equal(torch, loaded, params),
+                  f"artifact {name}: loaded leaves differ from the sealed")
+            del loaded
+        c = _read_counts()
+        counts.append(c)
+        glu = "fused_glu_joint" if name == "joint" else "fused_glu_split"
+        check(c["bspmm"] > 0 and c[glu] > 0,
+              f"artifact {name}: canaries did not run the kernels: {c}")
+        emit(phase="artifact", run=name, depth=cfg.num_layers,
+             dtype="bfloat16", bytes_on_disk=_dir_bytes(d), seal_s=seal_s,
+             validate_s=validate_s, load_canary_s=loads, canaries=len(manifest["canaries"]),
+             canary_tokens=[len(x["tokens"]) for x in manifest["canaries"]],
+             gates={"max_token_mismatches": 0, "max_logit_drift": 0.0},
+             launches=c)
+    cfg2 = dataclasses.replace(cfg, num_layers=PARITY_DEPTH)
+    p2 = _first_layers(packed, PARITY_DEPTH)
+    base_dir = os.path.join(ART_DIR, "two_layers")
+    artifact.seal(cfg2, p2, base_dir)
+    prompt = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, 48).astype(np.int32)
+    want = _serve(cfg2, p2, [prompt], FAULT_TOKENS)[1][0].generated
+    _reset_counts()
+    eng = Engine(cfg2, p2, device=DEVICE, **ENGINE)
+    eng.submit(prompt, FAULT_TOKENS)
+    out = {r.uid: r for r in eng.step()}
+    caught = {}
+    for kind in ARTIFACT_FAULTS:
+        cp = os.path.join(ART_DIR, "fault_" + kind)
+        shutil.copytree(base_dir, cp)
+        expected = FaultPlan().on_artifact(cp, kind)
+        t0 = time.monotonic()
+        try:
+            eng.swap_weights(cp)
+            raise SmokeFailure(f"artifact fault {kind}: the swap flipped")
+        except artifact.ArtifactError as e:
+            check(type(e) is expected, f"artifact fault {kind}: raised "
+                  f"{type(e).__name__}, expected {expected.__name__}")
+            caught[kind] = {"error": type(e).__name__,
+                            "seconds": time.monotonic() - t0}
+        shutil.rmtree(cp)
+        check(eng._gen == 0 and eng.params is p2 and eng.stats[
+            "weight_swaps"] == 0, f"artifact fault {kind}: weights moved")
+        out.update((r.uid, r) for r in eng.step())
+    out.update(eng.run())
+    c = _read_counts()
+    counts.append(c)
+    check(np.array_equal(out[0].generated, want),
+          "artifact faults: the stream in flight changed")
+    check(caught["canary_weights_signed"]["error"] == "ArtifactCanaryError"
+          and eng.stats["swap_canary_failures"] == 1,
+          "artifact faults: the canary replay did not catch the weights")
+    shutil.rmtree(base_dir)
+    emit(phase="artifact_faults", depth=PARITY_DEPTH, dtype="bfloat16",
+         caught=caught, all_caught=len(caught) == len(ARTIFACT_FAULTS),
+         swaps_flipped=eng.stats["weight_swaps"],
+         canary_failures=eng.stats["swap_canary_failures"], launches=c)
+    return dirs, counts
+
+
+def _swap_traffic(torch, cfg, params, reqs, post, swap=None, poison=False,
+                  monitor_steps=8):
+    """The serving configuration on ``params`` (generation 0): ``reqs``
+    ((prompt, budget) pairs) at the start, ``post`` after step
+    ``SWAP_AFTER_STEP``; with ``swap`` (an artifact dir) the engine swaps
+    to it just before those arrive. With ``poison`` a NaN goes into a
+    generation-1 lane one step after one decodes. Records every step's
+    end time, tokens, generations held and device memory, and the
+    launches of every slab and prefill call by weight generation.
+    Returns a dict; ``pre`` are the uids on lanes at the flip."""
+    from repro_torch.serving.engine import Engine
+    eng = Engine(cfg, params, device=DEVICE, **ENGINE)
+    del params
+    launches, slab_gens = {}, set()
+
+    def by_gen(fn, pos):
+        def call(*a, **kw):
+            g = next(g for g, p in eng._gen_params.items() if p is a[pos])
+            if pos == 0:
+                slab_gens.add(g)
+            before = _read_counts()
+            fn(*a, **kw)
+            tally = launches.setdefault(g, dict.fromkeys(before, 0))
+            for k, v in _read_counts().items():
+                tally[k] += v - before[k]
+        return call
+
+    eng._slab_call = by_gen(eng._slab_call, 0)
+    eng._run_prefill = by_gen(eng._run_prefill, 3)
+    uids = [eng.submit(p, n) for p, n in reqs]
+    steps, out, rep, pre, poisoned = [], {}, None, None, None
+    torch.cuda.synchronize()
+    t_prev = time.monotonic()
+    while (len(eng.scheduler) or eng.active_lanes or eng._pending_results
+           or len(steps) <= SWAP_AFTER_STEP):
+        n = len(steps)
+        if n == SWAP_AFTER_STEP:
+            pre = sorted(eng.lanes[i].req.uid for i in eng.active_lanes)
+            if swap is not None:
+                c0 = _read_counts()
+                rep = eng.swap_weights(swap, monitor_steps=monitor_steps)
+                launches["canary"] = {k: v - c0[k]
+                                      for k, v in _read_counts().items()}
+            uids += [eng.submit(p, b) for p, b in post]
+        if poison and poisoned is None and n > SWAP_AFTER_STEP:
+            g1 = [i for i in eng.active_lanes if eng.lanes[i].gen == 1
+                  and eng._mirror["live"][i]]
+            if g1:
+                eng._mirror["poison"][g1[0]] = np.nan
+                eng._dirty = True
+                poisoned = eng.lanes[g1[0]].req.uid
+        slab_gens.clear()
+        out.update((r.uid, r) for r in eng.step())
+        t = time.monotonic()
+        steps.append({"t": t, "gap": t - t_prev,
+                      "tokens": eng.stats["generated_tokens"],
+                      "held": len(eng._gen_params),
+                      "monitor": eng._swap_monitor is not None,
+                      "slab_gens": sorted(slab_gens),
+                      "mem": torch.cuda.memory_allocated()})
+        t_prev = t
+        check(len(steps) < 2000, "swap traffic did not drain")
+    eng.finalize_stats()
+    return {"steps": steps, "out": out, "uids": uids, "pre": pre,
+            "gen": {u: out[u].generated for u in uids if out[u].ok},
+            "report": rep, "launches": launches, "stats": dict(eng.stats),
+            "poisoned": poisoned}
+
+
+def _held_sequence(steps):
+    held = [s["held"] for s in steps]
+    return [h for i, h in enumerate(held) if i == 0 or h != held[i - 1]]
+
+
+def phase_serve_swap(torch, cfg, dirs, prompts, rng):
+    """Zero-downtime hot-swap at full depth in bf16: generation 0 is the
+    split-mask model loaded from its artifact, generation 1 the sealed
+    joint-mask model. The 12 serving prompts (budgets of 16 to 64 tokens,
+    so lanes free at different steps), ``swap_weights`` after step 2, 4
+    more requests after it. Held: the streams of lanes admitted before
+    the flip equal a run without the swap bitwise; the later ones equal
+    a fresh engine on generation 1's weights under the same traffic (a
+    divergence only at a near-tie, as ``phase_parity``); the split GLU
+    launches only in generation-0 calls and the joint GLU only in
+    generation-1 calls, both inside the window, where some step decodes
+    both; generations held go 1, 2, 1 and generation 0's device memory
+    is released when its last lane retires. Then the same swap behind
+    ``AsyncEngine`` while traffic flows, and a run whose generation-1
+    lane turns NaN inside the window, which must roll back with the
+    generation-0 streams untouched. Returns the launch counts."""
+    import asyncio
+    import gc
+    from repro_torch.serving import artifact, hotswap
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.frontend import AsyncEngine
+    # budgets of 16, 32, 48, 64 in turn: lanes free at different steps,
+    # so new-generation lanes admit while old ones still decode
+    reqs = [(p, NEW_TOKENS * (1 + i % 4) // 4)
+            for i, p in enumerate(prompts)]
+    post = [(rng.integers(0, cfg.vocab_size, size=(int(n),))
+             .astype(np.int32), NEW_TOKENS)
+            for n in rng.integers(32, 129, size=SWAP_POST)]
+    everything = [p for p, _ in reqs + post]
+    counts = []
+
+    def gen0():
+        return artifact.load(dirs["split"], cfg, device=DEVICE)[0]
+
+    _reset_counts()
+    base = _swap_traffic(torch, cfg, gen0(), reqs, post)
+    gen1 = artifact.load(dirs["joint"], cfg, device=DEVICE)[0]
+    fresh = _swap_traffic(torch, cfg, gen1, reqs, post)
+    counts.append(_read_counts())
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    run = _swap_traffic(torch, cfg, gen0(), reqs, post, swap=dirs["joint"])
+    peak = torch.cuda.max_memory_allocated()
+    counts.append(_read_counts())
+    rep, steps, pre = run["report"], run["steps"], run["pre"]
+    later = [u for u in run["uids"] if u not in pre]
+    check(rep.state == hotswap.COMMITTED, f"swap ended {rep.state}")
+    check(sorted(run["gen"]) == sorted(run["uids"]),
+          "swap: a request did not complete")
+    check(all(np.array_equal(run["gen"][u], base["gen"][u]) for u in pre),
+          "swap: a stream admitted before the flip changed")
+    accepted = _near_tie_equal(torch, cfg, gen1, everything,
+                               {u: run["gen"][u] for u in later},
+                               {u: fresh["gen"][u] for u in later},
+                               "serve_swap")
+    l0, l1 = run["launches"][0], run["launches"][1]
+    check(l0["fused_glu_split"] > 0 and l0["fused_glu_joint"] == 0,
+          f"swap: generation-0 calls launched {l0}")
+    check(l1["fused_glu_joint"] > 0 and l1["fused_glu_split"] == 0,
+          f"swap: generation-1 calls launched {l1}")
+    seq = _held_sequence(steps)
+    check(seq == [1, 2, 1], f"swap: generations held went {seq}")
+    window = [i for i, s in enumerate(steps) if s["held"] == 2]
+    both = [i for i in window if steps[i]["slab_gens"] == [0, 1]]
+    check(both, "swap: no step decoded both generations")
+    w0, w1 = window[0], window[-1]
+    mem_before = steps[w0 - 1]["mem"]
+    # generation 0's params go when its last lane retired and the monitor
+    # (which keeps them for a rollback) committed
+    freed = [i for i in range(w1 + 1, len(steps))
+             if not steps[i]["monitor"]]
+    check(freed, "swap: the monitor window outlived the traffic")
+    mem_after = steps[freed[0]]["mem"]
+    gen_bytes = _dir_bytes(dirs["split"])
+    check(mem_after < peak - 0.5 * gen_bytes,
+          f"swap: device memory {mem_after} did not drop from the peak "
+          f"{peak} after generation 0 retired")
+    # decode rate inside the window, after the step that carried the swap
+    t_win = steps[w1]["t"] - steps[w0]["t"]
+    tok_win = steps[w1]["tokens"] - steps[w0]["tokens"]
+    bs = base["steps"]
+    b_win = bs[w1]["t"] - bs[w0]["t"]
+    b_tok = bs[w1]["tokens"] - bs[w0]["tokens"]
+    gaps = [s["gap"] for s in steps[1:]]
+    emit(phase="serve_swap", run="sync", depth=cfg.num_layers,
+         dtype="bfloat16", requests=len(reqs), post_flip_submitted=len(post),
+         swap_after_step=SWAP_AFTER_STEP, state=rep.state,
+         stage_s=rep.stage_s, canary_s=rep.canary_s, flip_s=rep.flip_s,
+         canary_tokens=run["stats"]["swap_canary_tokens"],
+         pause_s=steps[SWAP_AFTER_STEP]["gap"], max_gap_s=max(gaps),
+         median_gap_s=statistics.median(gaps),
+         window_steps=len(window), steps_decoding_both=len(both),
+         window_tok_per_s=tok_win / t_win,
+         no_swap_tok_per_s_same_steps=b_tok / b_win,
+         tok_per_s=run["stats"]["tok_per_s"],
+         no_swap_tok_per_s=base["stats"]["tok_per_s"],
+         generations_held=seq, pre_flip_bitwise=len(pre),
+         post_flip_requests=len(later),
+         post_flip_accepted_divergences=accepted,
+         generation_bytes_on_disk=gen_bytes,
+         mem_before_swap_bytes=mem_before,
+         peak_mem_both_generations_bytes=peak,
+         mem_after_retire_bytes=mem_after,
+         launches_by_generation={str(k): v for k, v in
+                                 run["launches"].items()})
+    del gen1
+
+    # behind the asyncio front door, swapping while traffic flows
+    _reset_counts()
+    eng = Engine(cfg, gen0(), device=DEVICE, **ENGINE)
+
+    async def drive():
+        async with AsyncEngine(eng) as front:
+            streams = [await front.submit_async(p, n) for p, n in reqs]
+            await streams[0].__anext__()
+            t0 = time.monotonic()
+            r = await front.swap_weights_async(dirs["joint"],
+                                               monitor_steps=8)
+            swap_wall = time.monotonic() - t0
+            streams += [await front.submit_async(p, n) for p, n in post]
+            return r, swap_wall, [await s.result() for s in streams]
+
+    arep, swap_wall, res = asyncio.run(asyncio.wait_for(drive(), 600))
+    c = _read_counts()
+    counts.append(c)
+    check(all(r.ok for r in res), "async swap: a request failed")
+    check(arep.state in (hotswap.FLIPPED, hotswap.COMMITTED)
+          and eng.stats["weight_swaps"] == 1 and len(eng._gen_params) == 1,
+          f"async swap: {arep.state}, held {len(eng._gen_params)}")
+    check(c["fused_glu_split"] > 0 and c["fused_glu_joint"] > 0,
+          f"async swap: launches {c}")
+    emit(phase="serve_swap", run="async", state=arep.state,
+         stage_s=arep.stage_s, canary_s=arep.canary_s, flip_s=arep.flip_s,
+         swap_wall_s=swap_wall, completed=len(res),
+         tok_per_s=eng.stats["tok_per_s"], launches=c)
+    del eng
+
+    # a NaN in a generation-1 lane inside the window rolls back
+    _reset_counts()
+    rb = _swap_traffic(torch, cfg, gen0(), reqs, post, swap=dirs["joint"],
+                       poison=True, monitor_steps=1000)
+    counts.append(_read_counts())
+    rrep = rb["report"]
+    check(rrep.state == hotswap.ROLLED_BACK
+          and rrep.rollback_reason == "quarantine_spike",
+          f"rollback run ended {rrep.state}")
+    bad = rb["out"][rb["poisoned"]]
+    check(type(bad.error).__name__ == "LaneFaultError",
+          f"rollback: the poisoned request ended {bad.error!r}")
+    check(rb["pre"] == pre and all(
+        np.array_equal(rb["gen"][u], base["gen"][u]) for u in pre),
+        "rollback: a generation-0 stream changed")
+    check(sorted(rb["gen"]) == sorted(u for u in rb["uids"]
+                                      if u != rb["poisoned"]),
+          "rollback: another request failed")
+    emit(phase="serve_swap", run="rollback", state=rrep.state,
+         rollback_reason=rrep.rollback_reason,
+         rollback_gen=rrep.rollback_gen, quarantines=rrep.quarantines,
+         poisoned_uid=rb["poisoned"], pre_flip_bitwise=len(pre),
+         generations_held=_held_sequence(rb["steps"]),
+         swap_rollbacks=rb["stats"]["swap_rollbacks"],
+         launches_by_generation={str(k): v for k, v in
+                                 rb["launches"].items()})
+    return counts
+
+
+def _pinned_bytes(torch) -> dict:
+    """Pinned host memory that PyTorch's host allocator holds (in use or
+    cached for reuse, in its power-of-two blocks), now and at its peak.
+    Its ``active_bytes`` count is not read: on torch 2.11 it grows with
+    every reuse of a cached block and exceeds the bytes held."""
+    st = torch.cuda.host_memory_stats()
+    return {"held": st["allocated_bytes.current"],
+            "held_peak": st["allocated_bytes.peak"]}
+
+
+def phase_train_ckpt(torch, cfg, state):
+    """The 12-step trainer state at full depth and width (f32 params,
+    both Adam moments, masks, the generator). First the gather alone, as
+    a run's first save meets it (the pinned host pool still cold); then
+    one blocking save and ``restore_state`` (which verifies first;
+    bitwise against the live state), then one async save (the stall
+    training sees is the gather, into the now warm pool; the write runs
+    behind) and its verify. The pinned host bytes the process holds are
+    read after each. Written under the gitignored build/ and deleted."""
+    from repro_torch.checkpointing.checkpoint import (Checkpointer,
+                                                      flatten_tree,
+                                                      host_arrays)
+    from repro_torch.optim import adamw
+    d = os.path.join(ROOT, "build", "chip_ckpt")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    free = shutil.disk_usage(d).free
+    leaves = adamw.tree_leaves({"p": state.params, "o": state.opt_state,
+                                "m": state.masks})
+    state_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    pinned = {"before": _pinned_bytes(torch)}
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    host, _ = host_arrays(flatten_tree(
+        {"step": state.step, "params": state.params,
+         "opt_state": state.opt_state, "masks": state.masks,
+         "rng": state.generator}))
+    cold_gather_s = time.monotonic() - t0
+    pinned["after_cold_gather"] = _pinned_bytes(torch)
+    del host
+    ck = Checkpointer(d, keep=1)
+    t0 = time.monotonic()
+    ck.save(state.step, state, blocking=True)
+    blocking_s = time.monotonic() - t0
+    nbytes = _dir_bytes(d)
+    t0 = time.monotonic()
+    back = ck.restore_state(state)          # verifies, then loads
+    torch.cuda.synchronize()
+    restore_s = time.monotonic() - t0
+    same = (back.step == state.step and all(
+        a.dtype == b.dtype and torch.equal(a, b)
+        for a, b in zip(adamw.tree_leaves(
+            {"p": back.params, "o": back.opt_state, "m": back.masks}),
+            leaves)) and torch.equal(back.generator.get_state(),
+                                     state.generator.get_state()))
+    del back
+    check(same, "train_ckpt: the restored state differs")
+    shutil.rmtree(os.path.join(d, f"step_{state.step:08d}"))
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    ck.save(state.step + 1, state)
+    stall_s = time.monotonic() - t0
+    pinned["during_async_write"] = _pinned_bytes(torch)
+    ck.wait()
+    write_s = time.monotonic() - t0 - stall_s
+    pinned["after"] = _pinned_bytes(torch)
+    t0 = time.monotonic()
+    ok = ck.verify(state.step + 1)
+    verify_s = time.monotonic() - t0
+    check(ok, "train_ckpt: the async save does not verify")
+    shutil.rmtree(d)
+    emit(phase="train_ckpt", depth=cfg.num_layers, dtype="float32",
+         state_bytes=state_bytes, bytes_on_disk=nbytes,
+         free_disk_bytes_before=free, cold_gather_s=cold_gather_s,
+         blocking_save_s=blocking_s, warm_gather_stall_s=stall_s,
+         async_write_s=write_s, verify_s=verify_s,
+         restore_with_verify_s=restore_s, restored_bitwise=same,
+         pinned_host_bytes=pinned)
+
+
+def phase_train_chaos(torch, cfg):
+    """The SIGKILL chaos at two layers and full width in f32, through the
+    chaos child (``training/faults.py``; deterministic algorithms, each
+    child a process of its own): child B runs 12 steps uninterrupted;
+    child A is killed at step 11 (newest intact checkpoint 8, or 4 when
+    the kill lands while step 8's async write runs; a refresh at 10 in
+    the replay either way) and child A2 resumes from it; then A2's newest
+    checkpoint (12) is corrupted and child A3 must fall back to 8 and
+    end where B ends. Masks, step and generator must be bitwise equal;
+    params and moments too, or the nondeterministic op is named and the
+    largest difference printed."""
+    import signal
+    from repro_torch.checkpointing.checkpoint import Checkpointer
+    from repro_torch.training import faults as tf
+    wd = os.path.join(ROOT, "build", "chip_chaos")
+    shutil.rmtree(wd, ignore_errors=True)
+    os.makedirs(wd)
+    ck = os.path.join(wd, "ck")
+    model = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+             if f.name != "blast"}
+    model.update(num_layers=CHAOS_LAYERS, compute_dtype="float32",
+                 name=cfg.name + "-chaos")
+    blast = dataclasses.asdict(cfg.blast)
+    blast.update(total_steps=20, step_size=5, dense_last=1)
+    common = dict(model=model, blast=blast, steps=CHAOS_STEPS,
+                  seq_len=TRAIN_SEQ,
+                  batch=TRAIN_BATCH, data_seed=SEED, device=DEVICE)
+
+    def child(name, **kw):
+        spec = tf.default_chaos_spec(
+            wd, **common, out=os.path.join(wd, f"{name}.npz"),
+            meta_out=os.path.join(wd, f"{name}.json"), **kw)
+        t0 = time.monotonic()
+        r = tf.run_child(spec, os.path.join(wd, f"{name}_spec.json"),
+                         timeout=600)
+        wall = time.monotonic() - t0
+        meta = None
+        if r.returncode == 0:
+            with open(spec["meta_out"]) as f:
+                meta = json.load(f)
+        return r, meta, wall, spec["out"]
+
+    rb, mb, wb, out_b = child("b")
+    check(rb.returncode == 0, f"chaos child B failed: {rb.stderr[-2000:]}")
+    ra, _, wa, _ = child("a", ckpt_dir=ck, kill_at=CHAOS_KILL)
+    check(ra.returncode == -signal.SIGKILL,
+          f"chaos child A was not killed: {ra.returncode} "
+          f"{ra.stderr[-2000:]}")
+    # the async write of step 8 may still be running at the kill: then
+    # only its .tmp is on disk and the newest intact checkpoint is 4
+    torn = sorted(n for n in os.listdir(ck) if n.endswith(".tmp"))
+    newest = Checkpointer(ck).latest_intact_step()
+    check(newest in (4, 8), f"chaos: newest intact checkpoint {newest}")
+    ra2, m2, w2, out_a2 = child("a2", ckpt_dir=ck)
+    check(ra2.returncode == 0, f"chaos child A2: {ra2.stderr[-2000:]}")
+    check(m2["resumed_from"] == newest, f"chaos A2 resumed from "
+          f"{m2['resumed_from']}, not {newest}")
+    f = os.path.join(ck, f"step_{CHAOS_STEPS:08d}", "arrays.npz")
+    with open(f, "r+b") as fh:
+        fh.seek(0, os.SEEK_END)
+        off = fh.tell() // 2
+        fh.seek(off)
+        b = fh.read(1)
+        fh.seek(off)
+        fh.write(bytes([b[0] ^ 1]))
+    ra3, m3, w3, out_a3 = child("a3", ckpt_dir=ck)
+    check(ra3.returncode == 0, f"chaos child A3: {ra3.stderr[-2000:]}")
+    check(m3["resumed_from"] == CHAOS_STEPS - 4
+          and m3["counters"]["ckpt_fallbacks"] == 1,
+          f"chaos A3: resumed from {m3['resumed_from']}, counters "
+          f"{m3['counters']}")
+    nondet = sorted(set(mb["nondeterministic_ops"] + m2[
+        "nondeterministic_ops"] + m3["nondeterministic_ops"]))
+    diffs = {}
+    with np.load(out_b) as zb:
+        for name, path in (("a2", out_a2), ("a3", out_a3)):
+            with np.load(path) as z:
+                check(set(z.files) == set(zb.files), f"chaos {name}: keys")
+                worst, unequal = 0.0, []
+                for k in zb.files:
+                    if np.array_equal(z[k], zb[k]):
+                        continue
+                    unequal.append(k)
+                    exact = (k.startswith("masks/") or k in ("step", "rng"))
+                    check(not exact, f"chaos {name}: {k} not bitwise")
+                    worst = max(worst, float(np.max(np.abs(
+                        z[k].astype(np.float64) - zb[k]))))
+                diffs[name] = {"unequal_leaves": len(unequal),
+                               "max_abs_diff": worst}
+                check(not unequal or nondet,
+                      f"chaos {name}: {len(unequal)} leaves differ by up "
+                      f"to {worst} with no nondeterministic op named")
+    shutil.rmtree(wd)
+    emit(phase="train_chaos", layers=CHAOS_LAYERS, dtype="float32",
+         steps=CHAOS_STEPS, kill_at=CHAOS_KILL, torn_at_kill=torn,
+         resumed_from=m2["resumed_from"],
+         fallback_resumed_from=m3["resumed_from"],
+         ckpt_fallbacks=m3["counters"]["ckpt_fallbacks"],
+         bitwise=all(d["unequal_leaves"] == 0 for d in diffs.values()),
+         diffs=diffs, nondeterministic_ops=nondet,
+         child_wall_s={"b": wb, "a_killed": wa, "a2": w2, "a3": w3},
+         child_train_s={"b": mb["wall_s"], "a2": m2["wall_s"],
+                        "a3": m3["wall_s"]},
+         resume_verify_s={"a2": m2["verify_latency_s"],
+                          "a3": m3["verify_latency_s"]})
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1542,6 +2118,10 @@ def main():
         [prefix_reqs[0]] + prompts + loop_prompts + prefix_reqs[1:4])
     served += phase_serve_frontdoor(torch, cfg, packed, rng)
     served += phase_serve_chaos(torch, cfg, packed, prompts)
+    dirs, counts = phase_artifact(torch, cfg, packed, joint)
+    served += counts
+    served += phase_serve_swap(torch, cfg, dirs, prompts, rng)
+    shutil.rmtree(ART_DIR)
     phase_profile(torch, cfg, packed, prompts)
     summary["bspmm_t"] = phase_kernels_t(torch, card, packed)
     del packed, joint, dense
@@ -1550,6 +2130,10 @@ def main():
     tcfg, opt, src, state = phase_train(torch, cfg)
     ft = phase_finetune_packed(torch, tcfg, state, src.batch(TRAIN_STEPS))
     phase_train_profile(torch, tcfg, opt, src, state)
+    phase_train_ckpt(torch, tcfg, state)
+    del state
+    torch.cuda.empty_cache()
+    phase_train_chaos(torch, cfg)
 
     kernels = []
     for name, (src, repl) in REPLACES.items():

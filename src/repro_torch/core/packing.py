@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 
@@ -41,6 +42,9 @@ class PackedBCSC:
     @property
     def b_out(self) -> int:
         return self.blocks.shape[-1]
+
+    def dense_shape(self) -> tuple[int, int]:
+        return (self.kb * self.b_in, self.nb * self.b_out)
 
     def layer(self, i: int) -> "PackedBCSC":
         """Views of one entry of the leading (layer) axis."""
@@ -136,6 +140,67 @@ def pad_fraction(block_mask: torch.Tensor, nnz: int | None = None) -> float:
         nnz = int(counts.max())
     total = nnz * counts.size
     return float((total - counts.sum()) / total) if total else 0.0
+
+
+def _host_values(x) -> np.ndarray:
+    """A tensor (bfloat16 as float32 values) or numpy array -> numpy."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+    return np.asarray(x)
+
+
+def structure_violations(p: PackedBCSC, b_in: int | None = None,
+                         b_out: int | None = None,
+                         dense_shape: tuple | None = None) -> list[str]:
+    """Static structural invariants of a PackedBCSC, checked on host
+    arrays (``blocks`` and ``idx`` may be tensors or numpy arrays);
+    returns the reference's violation strings (empty = sound):
+
+      * ``blocks`` and ``idx`` shapes agree (and, when given, with the
+        configured block dims and the dense leaf shape);
+      * every ``idx`` entry lies in ``[0, kb)``: an out-of-range entry
+        makes the kernels gather garbage blocks silently;
+      * duplicate ``idx`` entries within a column carry only zero blocks
+        (the padding convention): a duplicate with data would count that
+        block-row twice.
+    """
+    out: list[str] = []
+    blocks = _host_values(p.blocks)
+    idx = _host_values(p.idx)
+    if idx.dtype != np.int32:
+        out.append(f"idx dtype {idx.dtype}, expected int32")
+    if blocks.ndim != idx.ndim + 2 or blocks.shape[:-2] != idx.shape:
+        return out + [f"blocks shape {blocks.shape} inconsistent with "
+                      f"idx shape {idx.shape}"]
+    if b_in is not None and (p.b_in, p.b_out) != (b_in, b_out):
+        out.append(f"block dims ({p.b_in}, {p.b_out}) != configured "
+                   f"({b_in}, {b_out})")
+    if dense_shape is not None:
+        got = blocks.shape[:-4] + p.dense_shape()
+        if tuple(got) != tuple(dense_shape):
+            out.append(f"dense extent {got} != expected "
+                       f"{tuple(dense_shape)}")
+    if idx.size and (idx.min() < 0 or idx.max() >= p.kb):
+        out.append(f"idx out of range [0, {p.kb}): "
+                   f"min {int(idx.min())}, max {int(idx.max())}")
+        return out       # duplicates mean nothing past this
+    nnz = idx.shape[-1]
+    cols_i = idx.reshape(-1, nnz)
+    cols_b = blocks.reshape(-1, nnz, p.b_in * p.b_out)
+    nz = np.any(cols_b != 0, axis=-1)                    # (C, nnz)
+    order = np.argsort(cols_i, axis=1, kind="stable")
+    si = np.take_along_axis(cols_i, order, axis=1)
+    sz = np.take_along_axis(nz, order, axis=1)
+    dup = si[:, 1:] == si[:, :-1]
+    bad = dup & sz[:, 1:] & sz[:, :-1]
+    if bad.any():
+        c = int(np.argwhere(bad.any(axis=1))[0, 0])
+        out.append(f"duplicate idx entries with nonzero blocks in "
+                   f"{int(bad.any(axis=1).sum())} column(s) "
+                   f"(first: flat column {c}) — block-rows would be "
+                   "double-counted")
+    return out
 
 
 def storage_bytes(p: PackedBCSC) -> int:

@@ -84,3 +84,22 @@ def init_params(specs: dict, seed: int = 0, device="cuda") -> dict:
             node = node.setdefault(k, {})
         node[leaf] = _init_leaf(gen, spec, device)
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractParam:
+    """A leaf's shape and dtype, nothing allocated."""
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+
+
+def abstract_params(specs: dict) -> dict:
+    """The shapes and dtypes ``init_params`` would produce."""
+    out: dict = {}
+    for path, spec in _leaves(specs):
+        node = out
+        *head, leaf = path.split("/")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[leaf] = AbstractParam(tuple(spec.shape), DTYPES[spec.dtype])
+    return out

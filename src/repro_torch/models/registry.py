@@ -25,6 +25,11 @@ def init_params(cfg, seed: int = 0, device="cuda"):
     return pmod.init_params(param_specs(cfg), seed, device)
 
 
+def abstract_params(cfg):
+    """Shapes and dtypes of the parameter tree (no allocation)."""
+    return pmod.abstract_params(param_specs(cfg))
+
+
 def sparse_paths(cfg):
     return module_for(cfg).sparse_paths(cfg)
 

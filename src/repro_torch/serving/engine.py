@@ -64,10 +64,19 @@ own thread):
     ``error`` is set. An exception from ``step`` leaves the host state
     ``Supervisor.recover`` (serving/recovery.py) rebuilds from.
 
+Weight generations (``serving/hotswap.py``): ``swap_weights(artifact)``
+validates a sealed artifact, stages it beside the serving weights,
+replays its canaries and flips the generation between steps. New
+admissions decode under the new weights; every in-flight lane keeps the
+generation it was admitted under until it retires, when the old weights
+are freed. While lanes of several generations are live, each slab and
+mixed call runs once per generation with the others masked out (see
+``_decode_slab``). A monitor commits the swap after a window of steps or
+rolls it back when new-generation lanes are quarantined.
+
 Not ported: the reference's ``tracer=`` (stats stay a plain dict),
-``dist=``, ``attn_backend=`` (the paged decode kernel is the one
-backend), and weight hot-swap (``swap_weights`` and the weight
-generations). Everything runs on ``device`` (default the GPU); the CPU
+``dist=`` and ``attn_backend=`` (the paged decode kernel is the one
+backend). Everything runs on ``device`` (default the GPU); the CPU
 serves only when the caller asks for it, as the tests do.
 """
 from __future__ import annotations
@@ -130,6 +139,9 @@ class _Lane:
     generated: list[int]
     pages: list[int] = dataclasses.field(default_factory=list)
     token_times: list[float] = dataclasses.field(default_factory=list)
+    # the weight generation the lane was admitted under: a hot-swap
+    # never changes an in-flight request's numerics
+    gen: int = 0
 
 
 @dataclasses.dataclass
@@ -150,6 +162,8 @@ class _Preempted:
     # salvaged by crash recovery rather than preempted: its restore counts
     # toward recovered_zero_reprefill
     recovered: bool = False
+    # the weight generation it decoded under; the restore keeps it
+    gen: int = 0
 
 
 def _pow2_bucket(n: int, cap: int) -> int:
@@ -183,7 +197,14 @@ _COUNTERS = (
     # shed and cancelled requests, condemned hangs and crashes
     "faults_injected", "recoveries", "recovered_zero_reprefill",
     "re_prefilled_tokens", "shed_requests", "cancelled",
-    "deadline_cancelled", "watchdog_hangs", "engine_crashes")
+    "deadline_cancelled", "watchdog_hangs", "engine_crashes",
+    # weight hot-swap: swaps flipped, canary rejections, rollbacks,
+    # canary tokens decoded, new-generation quarantines in a monitor
+    # window; and the gauges: the current generation and how many param
+    # generations are held on the device
+    "weight_swaps", "swap_canary_failures", "swap_rollbacks",
+    "swap_canary_tokens", "swap_quarantines", "weight_generation",
+    "weight_generations_held")
 
 
 class Engine:
@@ -241,6 +262,16 @@ class Engine:
             raise ValueError(f"slab_k={slab_k} must be >= 1")
         self.cfg = cfg
         self.params = params
+        # weight generations (serving/hotswap.py): ``_gen`` is the one
+        # new admissions decode under, ``_gen_params`` every param set an
+        # in-flight lane still uses (``_gc_generations`` frees the rest),
+        # ``_gen_pins`` uid -> generation of crash relaunches, which must
+        # resume on their admission-time weights, and ``_swap_monitor``
+        # the post-flip rollback watcher
+        self._gen = 0
+        self._gen_params: dict[int, object] = {0: params}
+        self._gen_pins: dict[int, int] = {}
+        self._swap_monitor = None
         self.device = torch.device(device)
         self.max_batch = max_batch
         self.max_len = max_len
@@ -503,8 +534,13 @@ class Engine:
         lane = self.lanes[i]
         self.lanes[i] = None
         self._mirror["live"][i] = False
+        self._gen_pins.pop(lane.req.uid, None)
         if self.paged and lane.pages:
-            if self.pcache is not None and lane.offset == 0:
+            # donation also needs current-generation KV: the swap flushed
+            # the tree at its flip, and an old-generation lane finishing
+            # later must not reseed it with KV of retired weights
+            if (self.pcache is not None and lane.offset == 0
+                    and lane.gen == self._gen):
                 # insert-on-finish: donate the pages covering every slot
                 # the lane wrote, prompt and continuation (offset 0: slot
                 # s holds token s); they park as cached-idle on release
@@ -553,6 +589,13 @@ class Engine:
         state is untouched, so their streams are too."""
         lane = self.lanes[i]
         self.lanes[i] = None
+        self._gen_pins.pop(lane.req.uid, None)
+        if (self._swap_monitor is not None
+                and isinstance(exc, (LaneFaultError,
+                                     OffloadCorruptionError))):
+            # rollback evidence: quarantines of lanes on the freshly
+            # flipped generation
+            self._swap_monitor.note_quarantine(lane.gen, self)
         m = self._mirror
         m["live"][i] = False
         m["faulted"][i] = False
@@ -600,12 +643,14 @@ class Engine:
         req = self.scheduler.remove(uid)
         if req is not None:
             self.stats["cancelled"] += 1
+            self._gen_pins.pop(uid, None)
             self._pending_results.append(
                 self._failed_result(req, [], RequestCancelledError(uid)))
             return True
         for j, pre in enumerate(self._preempted):
             if pre.req.uid == uid:
                 self._preempted.pop(j)
+                self._gen_pins.pop(uid, None)
                 self._offload.drop(uid)
                 if pre.pinned:
                     self.pool.release(list(pre.pinned.values()))
@@ -691,7 +736,7 @@ class Engine:
             token_times=lane.token_times, pending=int(m["pending"][i]),
             frontier=int(m["frontier"][i]),
             remaining=int(m["remaining"][i]), n_pages=len(lane.pages),
-            pinned=pinned))
+            pinned=pinned, gen=lane.gen))
         self.lanes[i] = None
         m["live"][i] = False
         m["bt"][i] = 0
@@ -736,7 +781,8 @@ class Engine:
             if pre.recovered:
                 self.stats["recovered_zero_reprefill"] += 1
         self.lanes[i] = _Lane(pre.req, pre.offset, pre.generated,
-                              pages=pages, token_times=pre.token_times)
+                              pages=pages, token_times=pre.token_times,
+                              gen=pre.gen)
         m = self._mirror
         m["bt"][i] = 0
         m["bt"][i, :len(pages)] = pages
@@ -842,29 +888,40 @@ class Engine:
             reqs = self.scheduler.admit(len(free))
         if not reqs:
             return
+        # grouped by target weight generation: the current one, except
+        # crash relaunches pinned to their admission-time generation (one
+        # group outside a swap window)
+        groups: dict[int, list[Request]] = {}
+        for r in reqs:
+            groups.setdefault(self._gen_pins.get(r.uid, self._gen),
+                              []).append(r)
         m = self._mirror
-        # the group prefills right-aligned in slots [0, W): a lane freed
-        # mid-traffic restarts at slot 0
-        width = max(r.prompt_len for r in reqs)
-        new_lanes = []
+        built: list[tuple[int, int, list[int]]] = []   # (gen, W, lanes)
         try:
-            for r in reqs:
-                i = free.pop(0)
-                off = width - r.prompt_len
-                self.lanes[i] = _Lane(r, off, [])
-                if self.paged:
-                    need = self.pool.slots_for(
-                        min(max(width + r.max_new_tokens - 1, width),
-                            self.max_len))
-                    self.lanes[i].pages = self.pool.alloc(need)
-                    m["bt"][i] = 0
-                    m["bt"][i, :need] = self.lanes[i].pages
-                m["offsets"][i] = off
-                m["frontier"][i] = width
-                m["remaining"][i] = r.max_new_tokens - 1
-                m["pending"][i] = 0
-                m["live"][i] = True
-                new_lanes.append(i)
+            for gen in sorted(groups):
+                sub = groups[gen]
+                # the group prefills right-aligned in slots [0, W): a
+                # lane freed mid-traffic restarts at slot 0
+                width = max(r.prompt_len for r in sub)
+                new_lanes = []
+                for r in sub:
+                    i = free.pop(0)
+                    off = width - r.prompt_len
+                    self.lanes[i] = _Lane(r, off, [], gen=gen)
+                    if self.paged:
+                        need = self.pool.slots_for(
+                            min(max(width + r.max_new_tokens - 1, width),
+                                self.max_len))
+                        self.lanes[i].pages = self.pool.alloc(need)
+                        m["bt"][i] = 0
+                        m["bt"][i, :need] = self.lanes[i].pages
+                    m["offsets"][i] = off
+                    m["frontier"][i] = width
+                    m["remaining"][i] = r.max_new_tokens - 1
+                    m["pending"][i] = 0
+                    m["live"][i] = True
+                    new_lanes.append(i)
+                built.append((gen, width, new_lanes))
         except BaseException:
             # crash-safe admission: after an allocation failure mid-group,
             # requests that never reached a lane go back to the queue head
@@ -875,21 +932,25 @@ class Engine:
             raise
         self._dirty = True
         self._note_admitted(reqs)
-        tokens = np.zeros((self.max_batch, width), np.int32)
-        for i in new_lanes:
-            p = self.lanes[i].req.prompt
-            tokens[i, width - p.size:] = p
-        self._run_prefill(new_lanes, tokens, width)
+        for gen, width, new_lanes in built:
+            # each group prefills through its own generation's weights
+            tokens = np.zeros((self.max_batch, width), np.int32)
+            for i in new_lanes:
+                p = self.lanes[i].req.prompt
+                tokens[i, width - p.size:] = p
+            self._run_prefill(new_lanes, tokens, width,
+                              self._gen_params[gen])
         self.stats["prefill_tokens"] += sum(r.prompt_len for r in reqs)
         self.stats["prompt_tokens"] += sum(r.prompt_len for r in reqs)
 
     def _run_prefill(self, lane_ids: list[int], tokens: np.ndarray,
-                     cover_slots: int) -> None:
-        """Run ``tokens`` (max_batch, W) through the prefill step in whole
-        chunks (the first ``W % chunk`` wide, the rest ``chunk``), lanes
-        outside ``lane_ids`` shielded by the lane mask, then fold each
-        lane's FIRST generated token into the mirror. Every call stalls
-        the other live lanes' decode (counted)."""
+                     cover_slots: int, params) -> None:
+        """Run ``tokens`` (max_batch, W) through the prefill step with
+        ``params`` (one weight generation) in whole chunks (the first
+        ``W % chunk`` wide, the rest ``chunk``), lanes outside
+        ``lane_ids`` shielded by the lane mask, then fold each lane's
+        FIRST generated token into the mirror. Every call stalls the other
+        live lanes' decode (counted)."""
         width = tokens.shape[1]
         lane_mask = np.zeros((self.max_batch,), bool)
         lane_mask[lane_ids] = True
@@ -910,14 +971,14 @@ class Engine:
         for c in sizes:
             if self.paged:
                 last, self.cache = self._prefill(
-                    self.params, self.cache, toks[:, pos:pos + c], pos,
+                    params, self.cache, toks[:, pos:pos + c], pos,
                     offsets, mask_t, bt, read_pages=r_pf)
                 self.stats["pages_read"] += r_pf * len(lane_ids) * c
                 self.stats["pages_read_dense_equiv"] += (
                     self.pool.slots_for(self.max_len) * len(lane_ids) * c)
             else:
                 last, self.cache = self._prefill(
-                    self.params, self.cache, toks[:, pos:pos + c], pos,
+                    params, self.cache, toks[:, pos:pos + c], pos,
                     offsets, mask_t)
             pos += c
             self.stats["prefill_chunks"] += 1
@@ -947,7 +1008,8 @@ class Engine:
             except BaseException:
                 self.scheduler.push_front(reqs[j:])
                 raise
-            self.lanes[i] = _Lane(r, 0, [], pages=pages)
+            self.lanes[i] = _Lane(r, 0, [], pages=pages,
+                                  gen=self._gen_pins.get(r.uid, self._gen))
             m["bt"][i] = 0
             m["bt"][i, :need] = pages
             m["offsets"][i] = 0
@@ -991,7 +1053,13 @@ class Engine:
         pages -> copy the boundary page -> register the tail prefill.
         False when the pool cannot cover the request (nothing held; an
         eviction already made is not undone)."""
-        m, extent = self._effective_match(r)
+        gen = self._gen_pins.get(r.uid, self._gen)
+        if gen != self._gen:
+            # a relaunch pinned to retired weights must not match: cached
+            # KV always belongs to the current generation
+            m, extent = Match([], 0), self._page_cost([r])
+        else:
+            m, extent = self._effective_match(r)
         # pin everything matched before eviction or allocation can touch
         # it: the tail page until its copy lands, the full pages for the
         # lane's lifetime
@@ -1018,7 +1086,7 @@ class Engine:
             self.pool.release(pin_tail)
             self.stats["cow_copies"] += 1
         pages = m.pages + own           # logical page order
-        self.lanes[i] = _Lane(r, 0, [], pages=pages)
+        self.lanes[i] = _Lane(r, 0, [], pages=pages, gen=gen)
         mir = self._mirror
         mir["bt"][i] = 0
         mir["bt"][i, :len(pages)] = pages
@@ -1043,7 +1111,7 @@ class Engine:
             plan = {i: min(self.lanes[i].req.prompt_len
                            - self._prefilling[i], self.chunk)
                     for i in lane_ids if i in self._prefilling}
-            self._mixed_call([], plan)
+            self._run_mixed([], plan)
 
     def _sweep_finished(self, finished: list[GenResult]) -> None:
         """Evict lanes whose budget is spent, that emitted eos, or that
@@ -1096,37 +1164,104 @@ class Engine:
             plan = self.scheduler.plan_chunks(tails, len(decode_lanes),
                                               self.chunk)
             if plan:
-                self._mixed_call(decode_lanes, plan)
+                self._run_mixed(decode_lanes, plan)
             elif decode_lanes:
                 self._decode_slab()
         elif self.active_lanes:
             self._decode_slab()
         self._harvest_faults(finished)
+        self._gc_generations()
+        if self._swap_monitor is not None:
+            self._swap_monitor.on_step_end(self)
         self._pending_results = []
         return finished
+
+    def _gc_generations(self) -> None:
+        """Drop the weight generations no lane, preempted record or
+        relaunch pin uses any more: when the last lane admitted before a
+        swap retires, the old params are freed. The current generation is
+        always held."""
+        if len(self._gen_params) == 1:
+            return
+        held = {self._gen}
+        held.update(l.gen for l in self.lanes if l is not None)
+        held.update(p.gen for p in self._preempted)
+        held.update(self._gen_pins.values())
+        for g in [g for g in self._gen_params if g not in held]:
+            del self._gen_params[g]
+        self.stats["weight_generations_held"] = len(self._gen_params)
+
+    def swap_weights(self, artifact_dir: str, **kw):
+        """Hot-swap the weights from a sealed artifact: validate, stage,
+        canary, flip the generation, then a monitored commit or an
+        automatic rollback (serving/hotswap.py). Call between steps."""
+        from repro_torch.serving import hotswap
+        return hotswap.swap_weights(self, artifact_dir, **kw)
 
     def _decode_slab(self) -> None:
         """One slab of ``slab_k`` device-side decode steps, one host
         sync; paged, it reads ``read_pages`` = the power-of-two bucket
-        covering every lane's frontier + slab_k."""
+        covering every lane's frontier + slab_k.
+
+        In a hot-swap window the live lanes may span several weight
+        generations: the slab then runs once per generation, the other
+        generations' lanes masked out of ``live`` (and ``poison``, which
+        the slab zeroes) and restored after. A masked lane writes only at
+        the park slot, and its pending token, frontier and budget come
+        back unchanged, so its KV and state are bitwise untouched. Each
+        call keeps all ``max_batch`` rows, so the kernels' split plans
+        (``split_plan.choose`` sees the same M) and every lane's rows are
+        bitwise those of a one-generation call. Outside a window there is
+        one generation and one call."""
         self._sync_dstate()
         if self._faults is not None:
             self._faults.on_device_step(self._step_idx - 1, self)
-        lanes = self.active_lanes
+        gens = sorted({self.lanes[i].gen for i in self.active_lanes
+                       if self._mirror["live"][i]})
+        if len(gens) <= 1:
+            params = self._gen_params[gens[0]] if gens else self.params
+            self._slab_call(params, self.active_lanes)
+            return
+        for g in gens:
+            part = [i for i in self.active_lanes
+                    if self._mirror["live"][i] and self.lanes[i].gen == g]
+            mask = np.zeros(self.max_batch, bool)
+            mask[part] = True
+            save_live = self._mirror["live"].copy()
+            save_poison = self._mirror["poison"].copy()
+            self._mirror["live"] = save_live & mask
+            self._mirror["poison"] = np.where(mask, save_poison,
+                                              np.float32(0.0))
+            self._dirty = True
+            self._sync_dstate()
+            self._slab_call(self._gen_params[g], part)
+            m = self._mirror
+            m["live"] = np.where(mask, m["live"], save_live)
+            m["poison"] = np.where(mask, m["poison"], save_poison)
+            self._dirty = True
+
+    def _slab_call(self, params, lanes: list[int]) -> None:
+        """One slab call with ``params`` and the host fold, for ``lanes``
+        (the other rows ride along masked). The read width covers every
+        active lane's frontier, not only ``lanes``': a call of one
+        generation then reads the pages a one-generation call would, so
+        paged decode picks the same split and its lanes' rows are bitwise
+        equal."""
         t0 = time.monotonic()
         if self.paged:
-            fmax = int(max(self._mirror["frontier"][i] for i in lanes))
+            fmax = int(max(self._mirror["frontier"][i]
+                           for i in self.active_lanes))
             need = min(fmax + self.slab_k, self.max_len)
             r = _pow2_bucket(self.pool.slots_for(need), self.max_pages)
             block, self._dstate, self.cache = self._slab(
-                self.params, self.cache, self._dstate, read_pages=r)
+                params, self.cache, self._dstate, read_pages=r)
             n = len(lanes) * self.slab_k
             self.stats["pages_read"] += r * n
             self.stats["pages_read_dense_equiv"] += (
                 self.pool.slots_for(self.max_len) * n)
         else:
             block, self._dstate, self.cache = self._slab(
-                self.params, self.cache, self._dstate)
+                params, self.cache, self._dstate)
         block = block.cpu().numpy()                        # host sync
         now = time.monotonic()
         self.stats["decode_s"] += now - t0
@@ -1134,9 +1269,34 @@ class Engine:
         self.stats["decode_steps"] += self.slab_k
         self._replay(block, now)
 
-    def _mixed_call(self, decode_lanes: list[int],
-                    plan: dict[int, int]) -> None:
-        """One fused decode+prefill call: decode lanes give one token each
+    def _run_mixed(self, decode_lanes: list[int],
+                   plan: dict[int, int]) -> None:
+        """The fused decode+prefill call, once per weight generation of
+        the lanes it carries (one call outside a hot-swap window; rows are
+        independent, so the split is bitwise, as in ``_decode_slab``). A
+        stalled decode step is one in which a chunk ran while a live lane
+        got no token from any call of the step; it is counted here, once,
+        so a window's split does not count the sibling call's lanes as
+        stalled (the reference counts them, per call)."""
+        covered = set(decode_lanes) | set(plan)
+        if plan and any(self._mirror["live"][j] for j in self.active_lanes
+                        if j not in covered):
+            self.stats["stalled_decode_steps"] += 1
+        gens = sorted({self.lanes[i].gen for i in decode_lanes}
+                      | {self.lanes[i].gen for i in plan})
+        if len(gens) <= 1:
+            params = self._gen_params[gens[0]] if gens else self.params
+            self._mixed_call(decode_lanes, plan, params)
+            return
+        for g in gens:
+            dl = [i for i in decode_lanes if self.lanes[i].gen == g]
+            pl = {i: c for i, c in plan.items() if self.lanes[i].gen == g}
+            if dl or pl:
+                self._mixed_call(dl, pl, self._gen_params[g], split=True)
+
+    def _mixed_call(self, decode_lanes: list[int], plan: dict[int, int],
+                    params, split: bool = False) -> None:
+        """One fused decode+prefill call with ``params``: decode lanes give one token each
         (q_len 1 at their frontier), ``plan`` lanes a prompt chunk (q_len c
         at their prefill position), padded to a power-of-two width. The
         host folds the next tokens: decode lanes advance with the slab's
@@ -1146,7 +1306,10 @@ class Engine:
         calls that carry only mid-prompt chunks queue without a sync (a
         fault in such a chunk poisons the KV it wrote, so the lane's next
         emitting call still catches it). With no decode lane (the phased
-        tail prefill) the call time is prefill time."""
+        tail prefill) the call time is prefill time. ``split`` (one call
+        of several generations) masks the poison to this call's lanes and
+        clears only theirs, so a poison aimed at another generation's
+        lane reaches that lane's call."""
         m = self._mirror
         w = _pow2_bucket(max(plan.values(), default=1), self._wcap)
         tokens = np.zeros((self.max_batch, w), np.int32)
@@ -1165,19 +1328,25 @@ class Engine:
             q_lens[i] = c
             need = max(need, pos + c)
         covered = set(decode_lanes) | set(plan)
-        if plan and any(m["live"][j] for j in self.active_lanes
-                        if j not in covered):
-            self.stats["stalled_decode_steps"] += 1
         r = _pow2_bucket(self.pool.slots_for(need), self.max_pages)
         if self._faults is not None:
             self._faults.on_device_step(self._step_idx - 1, self)
+        if split:
+            pmask = np.zeros(self.max_batch, bool)
+            pmask[list(covered)] = True
+            poison = np.where(pmask, m["poison"], np.float32(0.0))
+        else:
+            poison = m["poison"]
         t0 = time.monotonic()
         nxt, faulted, self.cache = self._mixed_fn(
-            self.params, self.cache, self._tensor(tokens),
+            params, self.cache, self._tensor(tokens),
             self._tensor(starts), self._tensor(q_lens),
             self._tensor(m["offsets"]), self._tensor(m["bt"]),
-            read_pages=r, poison=self._tensor(m["poison"]))
-        m["poison"][:] = 0.0     # one-shot, like the slab's
+            read_pages=r, poison=self._tensor(poison))
+        if split:
+            m["poison"] = np.where(pmask, np.float32(0.0), m["poison"])
+        else:
+            m["poison"][:] = 0.0     # one-shot, like the slab's
         fa = None
         if decode_lanes or any(self._prefilling[i] + c
                                >= self.lanes[i].req.prompt_len

@@ -24,16 +24,25 @@ the finest deterministic granularity):
     to the host offload store after its checksums were computed; the
     restore-side verify must fail only that request.
 
-Every fault that fires adds one to the engine's ``faults_injected``. The
-artifact corruption helpers of the reference are not ported here.
+Every fault that fires adds one to the engine's ``faults_injected``.
+
+``FaultPlan.on_artifact(d, kind)`` corrupts a sealed artifact directory
+with one of the ``ARTIFACT_FAULTS`` injectors (one per corruption class
+of serving/artifact.py) and returns the typed ``ArtifactError`` the
+corruption must raise at validate or canary time.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import time
 
 import numpy as np
 import torch
+
+from repro_torch.checkpointing.checkpoint import (crc32_array, decode_leaf,
+                                                  encode_leaf)
 
 
 # --------------------------------------------------------------- errors
@@ -247,6 +256,14 @@ class FaultPlan:
             return True
         return False
 
+    def on_artifact(self, d: str, kind: str) -> type:
+        """Corrupt the sealed artifact at ``d`` with injector ``kind`` (see
+        ``ARTIFACT_FAULTS``) and audit it. Returns the ``ArtifactError``
+        subclass the corruption must raise."""
+        expected = ARTIFACT_FAULTS[kind](d)
+        self.fired.append(f"artifact:{kind}")
+        return expected
+
     def on_offload_save(self, rec) -> None:
         """Host-store hook (offload.py), called after the checksums were
         computed: flip one bit of the first byte of the record's K."""
@@ -262,3 +279,173 @@ class FaultPlan:
         if self._engine is not None:
             self._engine.stats["faults_injected"] += 1
         self.fired.append(f"bitflip:save{nth}")
+
+
+# ----------------------------------------------- artifact corruption
+# One injector per corruption class of the sealed-artifact layer
+# (serving/artifact.py). Each takes an artifact directory, mutates it in
+# place, and returns the typed ArtifactError subclass that validate() or
+# load(run_canaries=True) must raise. The *_signed kinds recompute the
+# checksum manifest after corrupting (a toolchain bug or an attacker that
+# re-signs), so the structural and canary layers must catch what the
+# byte layer cannot.
+
+def _art_load(d):
+    with open(os.path.join(d, "manifest.json")) as f:
+        manifest = json.load(f)
+    with np.load(os.path.join(d, "arrays.npz")) as z:
+        stored = {k: np.array(z[k]) for k in z.files}
+    return manifest, stored
+
+
+def _art_write(d, manifest, stored, resign=False):
+    if resign:
+        manifest["checksums"] = {k: crc32_array(v)
+                                 for k, v in stored.items()}
+    np.savez(os.path.join(d, "arrays.npz"), **stored)
+    with open(os.path.join(d, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+
+
+def _art_mutate(stored, manifest, key, fn):
+    """Apply ``fn`` (float32 ndarray -> ndarray) to a stored array through
+    its true dtype (bfloat16 leaves live in the npz as uint16 bits; the
+    result rounds back to nearest even)."""
+    arr = stored[key]
+    if manifest["dtypes"][key] == "bfloat16":
+        vals = decode_leaf(arr.copy(), "bfloat16").float().numpy()
+        out = torch.from_numpy(np.asarray(fn(vals), np.float32))
+        stored[key], _ = encode_leaf(out.to(torch.bfloat16))
+    else:
+        stored[key] = np.asarray(fn(arr), arr.dtype)
+
+
+def _first_packed(manifest):
+    return sorted(manifest["packed"])[0]
+
+
+def _bitflip(d, suffix):
+    from repro_torch.serving import artifact as art
+    manifest, stored = _art_load(d)
+    a = stored[f"{_first_packed(manifest)}/{suffix}"]
+    flat = a.reshape(-1).view(np.uint8)
+    flat[len(flat) // 2] ^= np.uint8(1)
+    _art_write(d, manifest, stored)
+    return art.ArtifactChecksumError
+
+
+def _fault_idx_bitflip(d):
+    return _bitflip(d, "idx")
+
+
+def _fault_block_bitflip(d):
+    return _bitflip(d, "blocks")
+
+
+def _fault_leaf_truncate(d):
+    from repro_torch.serving import artifact as art
+    manifest, stored = _art_load(d)
+    del stored[f"{_first_packed(manifest)}/blocks"]
+    _art_write(d, manifest, stored)
+    return art.ArtifactChecksumError
+
+
+def _fault_config_mismatch(d):
+    from repro_torch.serving import artifact as art
+    manifest, stored = _art_load(d)
+    manifest["fingerprint"] = "0" * 64
+    _art_write(d, manifest, stored)
+    return art.ArtifactConfigError
+
+
+def _fault_idx_oob_signed(d):
+    from repro_torch.serving import artifact as art
+    manifest, stored = _art_load(d)
+    path = _first_packed(manifest)
+    kb = int(manifest["packed"][path]["kb"])
+    stored[f"{path}/idx"].reshape(-1)[0] = kb + 7   # past the block-rows
+    _art_write(d, manifest, stored, resign=True)
+    return art.ArtifactStructureError
+
+
+def _fault_idx_dup_signed(d):
+    from repro_torch.serving import artifact as art
+    manifest, stored = _art_load(d)
+    path = _first_packed(manifest)
+    idx = stored[f"{path}/idx"]
+    nnz = idx.shape[-1]
+    if nnz < 2:
+        raise ValueError("the duplicate fault needs nnz >= 2")
+    flat = idx.reshape(-1, nnz)
+    flat[0, 1] = flat[0, 0]             # one block-row twice in column 0
+    # both duplicate slots must carry data for the double-count hazard
+    _art_mutate(stored, manifest, f"{path}/blocks",
+                lambda b: np.where(b == 0, np.float32(0.25), b))
+    _art_write(d, manifest, stored, resign=True)
+    return art.ArtifactStructureError
+
+
+def _fault_nan_block_signed(d):
+    from repro_torch.serving import artifact as art
+    manifest, stored = _art_load(d)
+
+    def poison(b):
+        b.reshape(-1)[0] = np.nan
+        return b
+    _art_mutate(stored, manifest, f"{_first_packed(manifest)}/blocks",
+                poison)
+    _art_write(d, manifest, stored, resign=True)
+    return art.ArtifactNonFiniteError
+
+
+def _fault_joint_break_signed(d):
+    from repro_torch.serving import artifact as art
+    manifest, stored = _art_load(d)
+    # claim a joint promise on a gate leaf whose idx table then differs
+    # from its up partner's: the joint GLU would contract the wrong blocks
+    gates = [p for p in manifest["packed"]
+             if p.split("/")[-1] in ("w_gate", "ws_gate")]
+    if not gates:
+        raise ValueError("the joint fault needs a gate leaf")
+    path = gates[0]
+    manifest["packed"][path]["joint"] = True
+    idx = stored[f"{path}/idx"]
+    uidx = stored.get(f"{path.replace('gate', 'up')}/idx")
+    if uidx is not None and np.array_equal(idx, uidx):
+        kb = int(manifest["packed"][path]["kb"])
+        idx.reshape(-1)[0] = (int(idx.reshape(-1)[0]) + 1) % kb
+    _art_write(d, manifest, stored, resign=True)
+    return art.ArtifactStructureError
+
+
+def _fault_canary_weights_signed(d):
+    from repro_torch.serving import artifact as art
+    manifest, stored = _art_load(d)
+    # structurally sound, finite, correctly signed: only the golden
+    # generations can tell these weights are not the sealed ones
+    _art_mutate(stored, manifest, f"{_first_packed(manifest)}/blocks",
+                lambda b: b * 1.5)
+    _art_write(d, manifest, stored, resign=True)
+    return art.ArtifactCanaryError
+
+
+def _fault_canary_tamper(d):
+    from repro_torch.serving import artifact as art
+    manifest, stored = _art_load(d)
+    manifest["canaries"][0]["tokens"][0] += 1
+    _art_write(d, manifest, stored)
+    return art.ArtifactChecksumError
+
+
+ARTIFACT_FAULTS = {
+    "idx_bitflip": _fault_idx_bitflip,
+    "block_bitflip": _fault_block_bitflip,
+    "leaf_truncate": _fault_leaf_truncate,
+    "config_mismatch": _fault_config_mismatch,
+    "idx_oob_signed": _fault_idx_oob_signed,
+    "idx_dup_signed": _fault_idx_dup_signed,
+    "nan_block_signed": _fault_nan_block_signed,
+    "joint_break_signed": _fault_joint_break_signed,
+    "canary_weights_signed": _fault_canary_weights_signed,
+    "canary_tamper": _fault_canary_tamper,
+}

@@ -35,11 +35,17 @@ salvages. Past the recovery budget, or when recovery fails, the open
 streams fail with the error. A request that fails alone (quarantine,
 cancel, deadline) fails only its own stream.
 
+Hot-swap: ``await front.swap_weights_async(artifact_dir)`` queues the
+swap to the engine thread, which runs it between steps (validate, stage,
+canary, flip; ``serving/hotswap.py``) while traffic keeps flowing; it
+resolves to the ``SwapReport`` once the swap flipped, or raises the
+typed ``ArtifactError`` with the serving weights untouched.
+
 ``await front.aclose()`` drains in-flight work, joins the threads and
 finalizes the engine's stats; a stream that can no longer finish fails
-with ``RequestCancelledError`` instead of hanging its consumer. The
-reference's ``/metrics`` endpoint, hot-swap queue and flight-recorder
-dumps are not ported.
+with ``RequestCancelledError`` instead of hanging its consumer, and a
+swap still queued fails with ``RuntimeError``. The reference's
+``/metrics`` endpoint and flight-recorder dumps are not ported.
 """
 from __future__ import annotations
 
@@ -179,6 +185,8 @@ class AsyncEngine:
         # the loop side appends, the engine thread pops: both atomic
         self._inbox: deque = deque()
         self._cancels: deque = deque()
+        # hot-swap requests, run by the engine thread between steps
+        self._swaps: deque = deque()
         self._wake = threading.Event()
         self._stop = False
         self._thread: threading.Thread | None = None
@@ -246,6 +254,14 @@ class AsyncEngine:
         exc = RequestCancelledError(-1, "cancelled: engine shut down")
         for s in leftovers:
             s._fail_threadsafe(exc)
+        while self._swaps:
+            _, _, fut, floop = self._swaps.popleft()
+            try:
+                floop.call_soon_threadsafe(
+                    lambda f=fut: f.done() or f.set_exception(
+                        RuntimeError("engine shut down mid-swap")))
+            except RuntimeError:
+                pass           # that loop is gone: nobody awaits
 
     # --------------------------------------------------------- submit
     async def submit_async(self, prompt, max_new_tokens: int = 32, *,
@@ -267,7 +283,39 @@ class AsyncEngine:
         await stream._submitted
         return stream
 
+    async def swap_weights_async(self, artifact_dir: str, **kw):
+        """Hot-swap the serving weights from a sealed artifact without
+        stopping the engine: the engine thread runs the swap between
+        steps. Resolves to the live ``SwapReport`` once it flipped;
+        raises the typed ``ArtifactError`` (weights untouched) when the
+        artifact fails validation or its canaries. ``kw`` goes to
+        ``hotswap.swap_weights``."""
+        if self._thread is None or self._stop:
+            raise RuntimeError(
+                "AsyncEngine is not running: use 'async with "
+                "AsyncEngine(engine)' or call start()")
+        loop = asyncio.get_running_loop()
+        fut = loop.create_future()
+        self._swaps.append((artifact_dir, kw, fut, loop))
+        self._wake.set()
+        return await fut
+
     # -------------------------------------------------- engine thread
+    def _drain_swaps(self) -> None:
+        while self._swaps:
+            d, kw, fut, floop = self._swaps.popleft()
+            try:
+                out = self.engine.swap_weights(d, **kw)
+                done = lambda f=fut, r=out: (  # noqa: E731
+                    f.done() or f.set_result(r))
+            except Exception as e:
+                done = lambda f=fut, e=e: (    # noqa: E731
+                    f.done() or f.set_exception(e))
+            try:
+                floop.call_soon_threadsafe(done)
+            except RuntimeError:
+                pass           # that loop is gone: nobody awaits
+
     def _drain_inbox(self) -> None:
         eng = self.engine
         while self._inbox:
@@ -333,6 +381,7 @@ class AsyncEngine:
             while True:
                 self._beat = time.monotonic()
                 self._drain_cancels()
+                self._drain_swaps()
                 self._drain_inbox()
                 if self._has_work():
                     self._busy = True

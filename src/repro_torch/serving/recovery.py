@@ -36,7 +36,11 @@ page first).
      mid-prefill, host store full) are re-queued at the head as
      ``prompt + emitted`` with the budget left; greedy decode is
      deterministic, so the continuation is the dead lane's, and results
-     are re-split at the original prompt (``_recovered_prefix``);
+     are re-split at the original prompt (``_recovered_prefix``). A
+     salvaged or relaunched lane keeps the weight generation it was
+     admitted under (the record's ``gen``, or a pin in
+     ``Engine._gen_pins``), so a crash inside a hot-swap window resumes
+     each stream on its own weights;
   3. **rebuild** — a fresh pool, zeroed cache, slab state and prefix
      cache; earlier preempted records keep their host KV (pages they
      held pinned on the device are salvaged into the record first, or
@@ -115,7 +119,7 @@ class Supervisor:
                     eng._offload.save(req.uid, list(range(n_live)), k, v)
                 except (OffloadCapacityError, RuntimeError):
                     # host store full, or the download failed: relaunch
-                    relaunch.append((req, list(gen)))
+                    relaunch.append((req, list(gen), lane.gen))
                     continue
                 eng.stats["offloaded_pages"] += n_live
                 nbytes += 2 * k.numel() * k.element_size()
@@ -125,9 +129,10 @@ class Supervisor:
                     pending=int(m["pending"][i]),
                     frontier=int(m["frontier"][i]),
                     remaining=int(m["remaining"][i]),
-                    n_pages=len(lane.pages), pinned={}, recovered=True))
+                    n_pages=len(lane.pages), pinned={}, recovered=True,
+                    gen=lane.gen))
                 continue
-            relaunch.append((req, list(gen)))
+            relaunch.append((req, list(gen), lane.gen))
         return nbytes
 
     def _resolve_preempted(self, device_lost: bool,
@@ -158,7 +163,7 @@ class Supervisor:
                     keep.append(pre)
                     continue
             eng._offload.drop(pre.req.uid)
-            relaunch.append((pre.req, list(pre.generated)))
+            relaunch.append((pre.req, list(pre.generated), pre.gen))
         return keep
 
     def _rebuild(self, keep_preempted: list) -> None:
@@ -190,13 +195,18 @@ class Supervisor:
     def _relaunch(self, relaunch: list) -> None:
         eng = self.engine
         reqs, deadlines = [], []
-        for req, emitted in relaunch:
+        for req, emitted, gen in relaunch:
             # remember the original split; it chains across repeated
             # crashes (the prompt may already hold earlier emissions)
             orig, prev = eng._recovered_prefix.get(req.uid,
                                                    (req.prompt, []))
             eng._recovered_prefix[req.uid] = (orig,
                                               list(prev) + list(emitted))
+            # a relaunch re-prefills and goes on under its admission-time
+            # weights: greedy determinism (the bitwise recovery promise)
+            # holds only within one generation; the pin goes when the
+            # lane retires
+            eng._gen_pins[req.uid] = gen
             nr = Request(
                 req.uid,
                 np.concatenate([req.prompt,

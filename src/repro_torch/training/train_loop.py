@@ -1,13 +1,22 @@
 """Training loop (port of ``repro/training/train_loop.py``): the train
-step with BLaST prune-and-grow inside it, the anomaly guard, and a
-wall-time straggler watchdog.
+step with BLaST prune-and-grow inside it, the anomaly guard, checkpoints
+with resume and rewind, the preemption save and a wall-time straggler
+watchdog.
 
-What the reference adds around this and the port does not have yet:
-checkpointing (``ckpt_dir``; resume, periodic saves, rewind restore)
-waits for the checkpoint slice, and passing one raises; the tracer and
-the metrics registry wait for the obs slice, so the counters are a plain
-dict. Without checkpoints a rewind verdict takes the reference's
-``rewind_unavailable`` branch: log it, clear the streak, go on.
+  * auto-resume from the newest intact checkpoint in ``ckpt_dir`` (torn
+    or corrupt ones are skipped through the crc32 manifest);
+  * periodic async checkpoints every ``ckpt_every`` steps (keep-k,
+    atomic, non-destructive); a failed background write surfaces on the
+    next save or at the end;
+  * K consecutive anomalies rewind: restore the newest intact checkpoint
+    and replay (bitwise: batches are a function of (seed, step) and the
+    generator is in the state). A spent rewind budget raises
+    ``TrainingDivergedError``; without checkpoints the verdict takes the
+    ``rewind_unavailable`` branch (log it, clear the streak, go on);
+  * SIGTERM/SIGINT save one blocking checkpoint, then stop.
+
+Not ported yet: the reference's tracer and metrics registry (the
+counters are a plain dict) and ``dist=``.
 
 One host sync per step: the step reads its loss and gradient norm
 together to decide skip or update (``training/step.py``), and the loop
@@ -18,14 +27,17 @@ from __future__ import annotations
 
 import dataclasses
 import signal
+import sys
 import time
 from typing import Callable
 
 import numpy as np
 import torch
 
+from repro_torch.checkpointing.checkpoint import Checkpointer
 from repro_torch.optim import adamw
 from repro_torch.training import step as step_mod
+from repro_torch.training.faults import TrainingDivergedError
 from repro_torch.training.guard import AnomalyGuard, GuardConfig
 
 COUNTERS = ("straggler_steps", "ckpt_fallbacks", "anomaly_steps",
@@ -36,7 +48,9 @@ COUNTERS = ("straggler_steps", "ckpt_fallbacks", "anomaly_steps",
 class TrainLoopConfig:
     total_steps: int = 100
     ckpt_dir: str | None = None
+    ckpt_every: int = 50
     log_every: int = 10
+    keep: int = 3
     straggler_factor: float = 3.0
     guard: GuardConfig | None = dataclasses.field(
         default_factory=GuardConfig)
@@ -50,16 +64,15 @@ def train(cfg, opt_cfg: adamw.AdamWConfig, source, loop: TrainLoopConfig,
 
     ``source.batch(step)`` gives numpy 'tokens' and 'labels'. Without a
     ``state`` the run starts from ``step.init_state(cfg, seed, device)``;
-    with one, on its params' device. ``faults`` is an optional fault plan
-    with the reference's hooks (``on_host_step``, ``step_scalars``,
-    ``on_timed_step``). History entries are step metrics (every
-    ``log_every`` steps and the final step, which is always last) or
-    structured events (``{"event": "straggler" | ...}``); each
-    step-metrics entry carries the loop's counters."""
-    if loop.ckpt_dir:
-        raise NotImplementedError(
-            "checkpointing (ckpt_dir) waits for the checkpoint slice of the "
-            "port")
+    with one, on its params' device; an intact checkpoint in
+    ``loop.ckpt_dir`` replaces either, and the run resumes at its step.
+    ``faults`` is an optional fault plan with the hooks of
+    ``training/faults.py::TrainFaultPlan`` (``on_host_step``,
+    ``step_scalars``, ``on_timed_step``, ``on_ckpt_saved``). History
+    entries are step metrics (every ``log_every`` steps and the final
+    step, which is always last) or structured events (``{"event":
+    "straggler" | "rewind" | ...}``); each step-metrics entry carries the
+    loop's counters."""
     gcfg = loop.guard if (loop.guard and loop.guard.enabled) else None
     step_fn = step_mod.make_train_step(
         cfg, opt_cfg, kd_beta=kd_beta, teacher_cfg=teacher_cfg,
@@ -68,6 +81,16 @@ def train(cfg, opt_cfg: adamw.AdamWConfig, source, loop: TrainLoopConfig,
     if state is None:
         state = step_mod.init_state(cfg, seed, device)
     dev = adamw.tree_leaves(state.params)[0].device
+
+    ckpt = Checkpointer(loop.ckpt_dir, keep=loop.keep) \
+        if loop.ckpt_dir else None
+    if ckpt is not None and faults is not None:
+        ckpt.fault_hook = faults.on_ckpt_saved
+    start = 0
+    if ckpt and ckpt.latest_intact_step() is not None:
+        state = ckpt.restore_state(state)
+        start = state.step
+        print(f"[resume] restored step {start} from {loop.ckpt_dir}")
 
     guard = AnomalyGuard(
         gcfg, step_size=(cfg.blast.step_size if cfg.blast.enabled
@@ -97,7 +120,8 @@ def train(cfg, opt_cfg: adamw.AdamWConfig, source, loop: TrainLoopConfig,
             print(f"[{event['event']}] {event}")
 
     try:
-        for i in range(loop.total_steps):
+        i = start
+        while i < loop.total_steps:
             if faults is not None:
                 faults.on_host_step(i)
             batch = {k: torch.as_tensor(v, device=dev)
@@ -121,11 +145,31 @@ def train(cfg, opt_cfg: adamw.AdamWConfig, source, loop: TrainLoopConfig,
                                         bool(metrics["anomaly"]))
                 counters.update(guard.counters)
                 if verdict == "rewind":
+                    target = ckpt.latest_intact_step() if ckpt else None
+                    if (target is not None
+                            and guard.counters["rewinds"]
+                            < gcfg.max_rewinds):
+                        state = ckpt.restore_state(state)
+                        counters["ckpt_fallbacks"] = ckpt.fallbacks
+                        new_i = state.step
+                        guard.note_rewind(i, new_i)
+                        counters.update(guard.counters)
+                        emit({"event": "rewind", "step": i,
+                              "to_step": new_i,
+                              "consecutive": gcfg.max_consecutive})
+                        i = new_i
+                        continue
+                    if ckpt is not None:
+                        raise TrainingDivergedError(
+                            i, guard.consecutive,
+                            guard.counters["rewinds"])
                     guard.reset()
                     emit({"event": "rewind_unavailable", "step": i})
 
             if i % loop.log_every == 0 or i == loop.total_steps - 1:
                 m = {k: float(v) for k, v in metrics.items()}
+                if ckpt:
+                    counters["ckpt_fallbacks"] = ckpt.fallbacks
                 m.update(step=i, sec_per_step=dt, **counters)
                 history.append(m)
                 if log_fn:
@@ -133,10 +177,24 @@ def train(cfg, opt_cfg: adamw.AdamWConfig, source, loop: TrainLoopConfig,
                 else:
                     print(f"step {i:5d} loss {m['loss']:.4f} "
                           f"sparsity {m['sparsity']:.3f} {dt:.2f}s")
+            if ckpt and ((i + 1) % loop.ckpt_every == 0):
+                ckpt.save(i + 1, state)
             if stop["flag"]:
-                print(f"[preempt] signal at step {i}; stopping")
+                print(f"[preempt] signal at step {i}; checkpointing")
+                if ckpt:
+                    ckpt.save(i + 1, state, blocking=True)
                 break
+            i += 1
     finally:
+        propagating = sys.exc_info()[1] is not None
+        if ckpt:
+            if propagating:
+                try:          # do not mask the in-flight exception
+                    ckpt.wait()
+                except Exception:
+                    pass
+            else:
+                ckpt.wait()
         for sig, h in old_handlers.items():
             signal.signal(sig, h)
     return state, history

@@ -56,11 +56,12 @@ def test_no_file_imports_jax_or_repro(rel):
 def test_entry_points_default_to_the_gpu():
     from repro_torch.models import registry, transformer
     from repro_torch.models.params import init_params
-    from repro_torch.serving import engine, serve_loop
-    from repro_torch.training import step, train_loop
+    from repro_torch.serving import artifact, engine, serve_loop
+    from repro_torch.training import faults, step, train_loop
     for fn in (engine.Engine.__init__, engine.generate, registry.init_params,
                init_params, transformer.init_paged_cache,
                transformer.init_cache, serve_loop.generate,
                serve_loop.prefill_with_decode, step.init_state,
-               train_loop.train):
+               train_loop.train, artifact.load):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert faults.default_chaos_spec("/nonexistent")["device"] == "cuda"

@@ -38,12 +38,15 @@ from repro.optim import adamw as jadam  # noqa: E402
 from repro.training import faults as jfaults  # noqa: E402
 from repro.training import step as jts, train_loop as jloop  # noqa: E402
 from repro_torch import interop  # noqa: E402
+from repro_torch.checkpointing.checkpoint import Checkpointer  # noqa: E402
 from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.core import prune_grow as tpg, sparse_mlp as tsm  # noqa: E402
 from repro_torch.core import topk as ttk  # noqa: E402
 from repro_torch.models import registry as treg  # noqa: E402
 from repro_torch.optim import adamw as tadam  # noqa: E402
+from repro_torch.training import faults as tfaults  # noqa: E402
 from repro_torch.training import guard as tguard  # noqa: E402
+from repro_torch.training.faults import CheckpointCorruptionError  # noqa: E402
 from repro_torch.training import step as tts, train_loop as tloop  # noqa: E402
 
 LR = 1e-4
@@ -332,14 +335,17 @@ def test_microbatches_and_in_step_teacher_match_reference():
 
 
 # -------------------------------------------------------- train loop
-def _loop_runs():
+def _loop_runs(port_plan=None):
+    """The reference loop and the port's on one plan; the port's loop
+    takes the reference's plan unless ``port_plan`` (a plan module)
+    names its own."""
     jcfg = tiny_cfg()
     jopt, topt = _opt()
     gcfg = dict(warmup_steps=3, max_consecutive=3)
     src = SyntheticLM(jcfg.vocab_size, 16, 4, seed=3)
 
-    def plan():
-        return (jfaults.TrainFaultPlan().nan_grads(2).force_skip(5)
+    def plan(mod=jfaults):
+        return (mod.TrainFaultPlan().nan_grads(2).force_skip(5)
                 .loss_spike(7, 1e3).nan_grads(9).nan_grads(10, "inf")
                 .nan_grads(11))
     js = jts.init_state(jcfg, jax.random.PRNGKey(0))
@@ -353,12 +359,12 @@ def _loop_runs():
     _, jh = jloop.train(jcfg, jopt, src, jl, state=js, faults=plan(),
                         log_fn=lambda m: None)
     _, th = tloop.train(port_cfg(jcfg), topt, src, tl, state=ts,
-                        faults=plan(), log_fn=lambda m: None)
+                        faults=plan(port_plan or jfaults),
+                        log_fn=lambda m: None)
     return jh, th
 
 
-def test_train_loop_history_and_guard_counters_match_reference():
-    jh, th = _loop_runs()
+def _check_loop_runs(jh, th):
     assert len(th) == len(jh)
     for t, j in zip(th, jh):
         assert set(t) == set(j)
@@ -380,8 +386,32 @@ def test_train_loop_history_and_guard_counters_match_reference():
     assert [e["step"] for e in th if e.get("event")] == [11]
 
 
+def test_train_loop_history_and_guard_counters_match_reference():
+    _check_loop_runs(*_loop_runs())
+
+
+def test_train_loop_port_plan_matches_reference_plan():
+    """The same schedule armed on the port's own ``TrainFaultPlan``."""
+    _check_loop_runs(*_loop_runs(port_plan=tfaults))
+
+
 def test_train_loop_refuses_checkpointing(tmp_path):
-    loop = tloop.TrainLoopConfig(total_steps=2, ckpt_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        tloop.train(port_cfg(tiny_cfg()), _opt()[1], None, loop,
-                    device="cpu")
+    """The loop refuses a checkpoint that fails its crc32: with only a
+    corrupt one in ``ckpt_dir`` it starts from step 0, and an explicit
+    restore of that step raises."""
+    cfg = port_cfg(tiny_cfg())
+    src = SyntheticLM(cfg.vocab_size, 16, 4, seed=3)
+    d = str(tmp_path)
+    ck = Checkpointer(d)
+    ck.save(2, tts.init_state(cfg, 1, "cpu"), blocking=True)
+    f = tmp_path / "step_00000002" / "arrays.npz"
+    raw = bytearray(f.read_bytes())
+    raw[len(raw) // 2] ^= 1
+    f.write_bytes(bytes(raw))
+    loop = tloop.TrainLoopConfig(total_steps=2, ckpt_dir=d, ckpt_every=50,
+                                 log_every=1)
+    state, hist = tloop.train(cfg, _opt()[1], src, loop, device="cpu",
+                              log_fn=lambda m: None)
+    assert [h["step"] for h in hist] == [0, 1] and state.step == 2
+    with pytest.raises(CheckpointCorruptionError):
+        ck.restore_state(state, step=2)
