@@ -75,6 +75,26 @@ child (``training/faults.py``) at two layers is SIGKILLed, resumed, and
 resumed again past a corrupted newest checkpoint; each must end where
 an uninterrupted child ends (``train_chaos``).
 
+Observability (``repro_torch/obs``): ``obs_serve`` serves the 12
+requests at full depth in three rounds, each an untraced and a traced
+engine stepped in alternation (the host's speed drifts by tens of
+percent over seconds, and alternation moves both alike), and holds the
+streams and the count of synchronizing CUDA calls equal on and off, no
+span constructed when off, the spans' sums equal to the engine's
+``decode_s``/``prefill_s``, and the median over rounds of the traced
+engine's tok/s over the untraced one's at 0.9 or more (it writes the
+Chrome trace under ``build/obs``);
+``obs_frontdoor`` scrapes the front door's ``/metrics`` endpoint every
+second through the SLA trace (every scrape parses, no counter falls, the
+last equals the registry); ``obs_postmortems`` checks the flight
+recorder's dumps (reason, file, the victims' uids in the frozen records)
+of every chaos plan, the swap rollback and a training rewind (a chaos
+child); ``obs_train`` holds the ``train.step`` spans against the train
+phase's step time and each step's CUDA event pair (a span may not end
+before the step's device work), also over 12 more steps at the loop's
+default ``log_every`` of 10, and holds two chaos children that train 4
+steps, one untraced and one traced, to bitwise-equal final states.
+
 Prints JSON lines; the line before the last is a ``kernels`` summary and
 the last is ``{"ok": true, "device": {...}}``. Any failed phase raises
 and the script exits non-zero without that line. Needs one CUDA card.
@@ -141,6 +161,18 @@ REPLACES = {
                 "src/repro/kernels/bspmm_t.py:46"),
 }
 TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEP_SIZE = 12, 128, 8, 4
+# observability: postmortems and the Chrome trace under the gitignored
+# build/; the serving runs with tracing off and on, interleaved; the
+# front door's /metrics scrape period; the traced/untraced tok/s floor
+# (a gross-fault alarm, not a benchmark); the train.step span median's
+# tolerance against the phase's step time; the on/off training pair's
+# steps and the rewind child's NaN steps (a rewind at 7 to step 4); the
+# steps of the traced run at the loop's default log_every
+OBS_DIR = os.path.join(ROOT, "build", "obs")
+OBS_ROUNDS, OBS_SCRAPE_S, OBS_TOK_FLOOR, OBS_STEP_TOL = 3, 1.0, 0.9, 0.10
+OBS_PAIR_STEPS, OBS_REWIND_NAN, OBS_REWIND_STEPS = 4, [5, 6, 7], 8
+OBS_UNLOGGED_STEPS = 12
+SYNC_WARNING = "called a synchronizing CUDA operation"
 
 
 def emit(**obj):
@@ -597,6 +629,167 @@ def phase_serve_modes(torch, cfg, packed, prompts, phased):
     return counts
 
 
+def _span_summary(records) -> dict:
+    """{name: count, seconds summed and the median in ms} of a ring."""
+    out = {}
+    for r in records:
+        out.setdefault(r.name, []).append(r.dur)
+    return {k: {"count": len(v), "sum_s": sum(v),
+                "p50_ms": statistics.median(v) * 1e3}
+            for k, v in sorted(out.items())}
+
+
+def _lockstep(cfg, params, prompts, tracer, made):
+    """One ``obs_serve`` round: two engines, one untraced and one under
+    ``tracer``, each given ``prompts``, driven by ``Engine.step`` in
+    alternation (the untraced first at even steps, the traced first at
+    odd) until both drain, so that the host's speed, which drifts by tens
+    of percent over seconds, moves both alike. Per side: the results, the
+    engine, and over its own steps the synchronizing CUDA calls, the
+    ``Span``s constructed, the kernel launches, the wall and this
+    thread's CPU seconds; the submissions' spans are counted too."""
+    import warnings
+    from repro_torch.serving.engine import Engine
+    side = {}
+    for on in (False, True):
+        made.clear()
+        eng = Engine(cfg, params, device=DEVICE, **ENGINE,
+                     tracer=tracer if on else None)
+        uids = [eng.submit(p, NEW_TOKENS) for p in prompts]
+        side[on] = dict(eng=eng, uids=uids, out={}, syncs=0,
+                        spans=len(made), wall_s=0.0, thread_cpu_s=0.0,
+                        counts=dict.fromkeys(_read_counts(), 0))
+
+    def busy(eng):
+        return bool(len(eng.scheduler) or eng.active_lanes
+                    or eng._preempted or eng._pending_results)
+
+    n = 0
+    while any(busy(d["eng"]) for d in side.values()):
+        for on in ((False, True) if n % 2 == 0 else (True, False)):
+            d = side[on]
+            if not busy(d["eng"]):
+                continue
+            made.clear()
+            _reset_counts()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                c0, t0 = time.thread_time(), time.monotonic()
+                for r in d["eng"].step():
+                    d["out"][r.uid] = r
+                d["wall_s"] += time.monotonic() - t0
+                d["thread_cpu_s"] += time.thread_time() - c0
+            d["syncs"] += sum(SYNC_WARNING in str(w.message)
+                              for w in caught)
+            d["spans"] += len(made)
+            for k, v in _read_counts().items():
+                d["counts"][k] += v
+        n += 1
+    for d in side.values():
+        d["eng"].finalize_stats()
+        d["res"] = [d["out"][u] for u in d["uids"]]
+    return side
+
+
+def phase_obs_serve(torch, cfg, packed, prompts):
+    """``obs_serve``: the 12 requests of ``phase_serve`` (phased paged,
+    full depth) in ``OBS_ROUNDS`` rounds, each an untraced and a traced
+    engine stepped in alternation (``_lockstep``). Every step counts the
+    synchronizing CUDA calls PyTorch makes
+    (``torch.cuda.set_sync_debug_mode("warn")``: stream and device syncs,
+    blocking copies); each engine's count must equal the first's, traced
+    or not, as must every stream. No ``Span`` may be constructed in an
+    untraced engine's steps (the class is wrapped to count); in a traced
+    one the ``decode.slab`` durations sum to ``decode_s`` and the
+    ``prefill.chunks`` durations to ``prefill_s`` (1e-9 s), and every
+    kernel of the path launches in each. The median over rounds of the
+    traced engine's tok/s over the untraced one's must reach
+    ``OBS_TOK_FLOOR``. The last round's Chrome trace is written under
+    ``build/obs``. Returns the launch counts."""
+    from repro_torch.obs import export, trace as trace_mod
+    made = []
+    orig = trace_mod.Span
+
+    class CountingSpan(orig):
+        def __init__(self, *a, **kw):
+            made.append(a[0])
+            super().__init__(*a, **kw)
+
+    trace_mod.Span = CountingSpan
+    rows, counts, first = [], [], None
+    try:
+        for n in range(OBS_ROUNDS):
+            tr = trace_mod.Tracer()
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                side = _lockstep(cfg, packed, prompts, tr, made)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            row = {"round": n}
+            for on, d in side.items():
+                st, res = d["eng"].stats, d["res"]
+                what = f"obs_serve round {n} (tracing {on})"
+                counts.append(d["counts"])
+                gen = [r.generated for r in res]
+                check(all(r.ok and g.size == NEW_TOKENS
+                          for r, g in zip(res, gen)),
+                      f"{what}: a request did not complete")
+                if first is None:
+                    first = (gen, d["syncs"])
+                check(all(np.array_equal(g, f)
+                          for g, f in zip(gen, first[0])),
+                      f"{what}: a stream changed")
+                check(d["syncs"] == first[1] and d["syncs"] > 0,
+                      f"{what}: {d['syncs']} synchronizing calls, the "
+                      f"first engine made {first[1]}")
+                for k in PAGED:
+                    check(d["counts"][k] > 0, f"{what}: kernel {k} never "
+                                              "launched")
+                row["on" if on else "off"] = {
+                    "tok_per_s": st["tok_per_s"], "wall_s": d["wall_s"],
+                    "thread_cpu_s": d["thread_cpu_s"],
+                    "sync_calls": d["syncs"],
+                    "spans_constructed": d["spans"]}
+            check(side[False]["spans"] == 0,
+                  f"obs_serve round {n}: {side[False]['spans']} spans "
+                  "constructed with tracing off")
+            recs, st = list(tr.records), side[True]["eng"].stats
+            check(side[True]["spans"] == len(recs),
+                  f"obs_serve: {side[True]['spans']} spans made, "
+                  f"{len(recs)} kept")
+            slab = sum(r.dur for r in recs if r.name == "decode.slab")
+            pre = sum(r.dur for r in recs if r.name == "prefill.chunks")
+            check(abs(slab - st["decode_s"]) <= 1e-9
+                  and abs(pre - st["prefill_s"]) <= 1e-9,
+                  f"obs_serve: spans {slab}/{pre} s against decode_s "
+                  f"{st['decode_s']}, prefill_s {st['prefill_s']}")
+            row["spans"] = _span_summary(recs)
+            row["ratio"] = row["on"]["tok_per_s"] / row["off"]["tok_per_s"]
+            rows.append(row)
+    finally:
+        trace_mod.Span = orig
+    os.makedirs(OBS_DIR, exist_ok=True)
+    path = export.write_chrome_trace(os.path.join(OBS_DIR, "serve.json"),
+                                     recs)
+    nbytes = os.path.getsize(path)
+    json.loads(open(path).read())
+    tps = {k: [r[k]["tok_per_s"] for r in rows] for k in ("off", "on")}
+    ratios = [r["ratio"] for r in rows]
+    spread = {k: (max(v) - min(v)) / statistics.median(v)
+              for k, v in tps.items()}
+    emit(phase="obs_serve", requests=len(prompts), new_tokens=NEW_TOKENS,
+         rounds=rows, tok_per_s_off=tps["off"], tok_per_s_on=tps["on"],
+         tok_per_s_spread=spread, tok_per_s_ratios=ratios,
+         tok_per_s_ratio_median=statistics.median(ratios),
+         sync_calls=first[1], chrome_trace_bytes=nbytes,
+         chrome_trace_events=len(recs))
+    check(statistics.median(ratios) >= OBS_TOK_FLOOR,
+          f"obs_serve: traced/untraced tok/s {ratios}, median below "
+          f"{OBS_TOK_FLOOR}")
+    return counts
+
+
 def _prefix_prompts(cfg, rng):
     """One warm request and 12 sharing its 100-token system prompt, each
     with a distinct 16-48-token suffix."""
@@ -748,11 +941,23 @@ def _pctl(xs, q):
     return float(np.percentile(np.asarray(xs, np.float64), q)) if xs else 0.0
 
 
-def _frontdoor_run(torch, cfg, params, batch, inter, sla):
+def _http_get(url):
+    import urllib.request
+    t0 = time.monotonic()
+    with urllib.request.urlopen(url, timeout=10) as f:
+        text = f.read().decode()
+    return time.monotonic() - t0, text
+
+
+def _frontdoor_run(torch, cfg, params, batch, inter, sla, scrape=False):
     """The launcher's ``--frontdoor --sla --preempt`` trace through
     ``AsyncEngine``: the batch tier at t = 0, the interactive tier from
     ``FD_FIRST_S`` every ``FD_GAP_S``. ``sla=False`` runs it FIFO, without
-    preemption. Returns (per-class results, stats, wall seconds)."""
+    preemption. With ``scrape`` the front door serves ``/metrics``
+    (``metrics_port=0``), scraped every ``OBS_SCRAPE_S`` while the trace
+    runs and once after it (the engine idle), beside the registry's
+    snapshot at that moment. Returns (per-class results, stats, wall
+    seconds, scrapes: [(latency s, text)], final snapshot, engine)."""
     import asyncio
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.frontend import AsyncEngine
@@ -766,9 +971,23 @@ def _frontdoor_run(torch, cfg, params, batch, inter, sla):
         res = await stream.result()
         return res, time.monotonic() - t_sub
 
+    async def scraper(url, done, scrapes):
+        loop = asyncio.get_running_loop()
+        while not done.is_set():
+            scrapes.append(await loop.run_in_executor(None, _http_get, url))
+            try:
+                await asyncio.wait_for(done.wait(), OBS_SCRAPE_S)
+            except asyncio.TimeoutError:
+                pass
+
     async def drive():
-        tasks = []
-        async with AsyncEngine(eng) as front:
+        tasks, scrapes, final = [], [], None
+        async with AsyncEngine(eng, metrics_port=0 if scrape
+                               else None) as front:
+            if scrape:
+                done = asyncio.Event()
+                url = "http://%s:%d/metrics" % front.metrics_addr
+                job = asyncio.ensure_future(scraper(url, done, scrapes))
             t0 = time.monotonic()
             # submitted together, so one admission fills every lane
             for s in await asyncio.gather(*(
@@ -785,10 +1004,17 @@ def _frontdoor_run(torch, cfg, params, batch, inter, sla):
                 tasks.append(("interactive", asyncio.ensure_future(
                     finish(s, time.monotonic()))))
             out = [(cls, *(await t)) for cls, t in tasks]
-        return out, time.monotonic() - t0
+            wall = time.monotonic() - t0
+            if scrape:
+                done.set()
+                await job
+                # every stream finished: the engine thread idles
+                final = (await asyncio.get_running_loop().run_in_executor(
+                    None, _http_get, url), eng.metrics.snapshot())
+        return out, wall, scrapes, final
 
-    out, wall = asyncio.run(asyncio.wait_for(drive(), 600))
-    return out, dict(eng.stats), wall
+    out, wall, scrapes, final = asyncio.run(asyncio.wait_for(drive(), 600))
+    return out, dict(eng.stats), wall, scrapes, final, eng
 
 
 def phase_serve_frontdoor(torch, cfg, packed, rng):
@@ -806,8 +1032,11 @@ def phase_serve_frontdoor(torch, cfg, packed, rng):
     counts = []
     for name, sla in (("sla_preempt", True), ("fifo", False)):
         _reset_counts()
-        out, st, wall = _frontdoor_run(torch, cfg, packed, batch, inter, sla)
+        out, st, wall, scrapes, final, eng = _frontdoor_run(
+            torch, cfg, packed, batch, inter, sla, scrape=sla)
         c = _read_counts()
+        if sla:
+            _check_scrapes(scrapes, final, eng)
         counts.append(c)
         classes = {}
         for cls, want in (("batch", FD_BATCH_TOKENS),
@@ -845,6 +1074,41 @@ def phase_serve_frontdoor(torch, cfg, packed, rng):
     return counts
 
 
+def _check_scrapes(scrapes, final, eng):
+    """``obs_frontdoor``: every scrape taken while the SLA trace ran
+    parses, no counter decreases from one scrape to the next, and the
+    scrape taken after the trace (the engine idle) equals the registry's
+    snapshot: every scalar, and each summary's count and sum."""
+    from repro_torch.obs.metrics import Histogram, parse_prometheus_text
+    kinds = {n: eng.metrics[n].kind for n in eng.metrics.names()}
+    parsed = [parse_prometheus_text(t) for _, t in scrapes]
+    check(len(parsed) >= 3, f"obs_frontdoor: {len(parsed)} scrapes")
+    for a, b in zip(parsed, parsed[1:]):
+        for n, k in kinds.items():
+            if k == "counter" and f"blast_{n}" in a:
+                check(b[f"blast_{n}"] >= a[f"blast_{n}"],
+                      f"obs_frontdoor: counter {n} fell from "
+                      f"{a[f'blast_{n}']} to {b[f'blast_{n}']}")
+    (lat_end, text), snap = final
+    last = parse_prometheus_text(text)
+    for n, v in snap.items():
+        if isinstance(eng.metrics[n], Histogram):
+            check(last[f"blast_{n}_count"] == v["count"]
+                  and last[f"blast_{n}_sum"] == v["sum"],
+                  f"obs_frontdoor: {n} {v} against the scrape")
+        else:
+            check(last[f"blast_{n}"] == v,
+                  f"obs_frontdoor: {n} = {v}, scraped {last[f'blast_{n}']}")
+    lat = [s for s, _ in scrapes]
+    emit(phase="obs_frontdoor", run="sla_preempt", scrapes=len(scrapes),
+         scrape_ms=[x * 1e3 for x in lat],
+         scrape_p50_ms=statistics.median(lat) * 1e3,
+         scrape_max_ms=max(lat) * 1e3, final_scrape_ms=lat_end * 1e3,
+         text_bytes=len(text.encode()), metrics=len(snap),
+         generated_tokens_scraped=[p.get("blast_generated_tokens")
+                                   for p in parsed])
+
+
 def _near_tie_equal(torch, cfg, params, prompts, got, want, name):
     """Each stream of ``got`` equals ``want``'s, or first diverges where
     the fault-free run's top-2 margin is below ``NEAR_TIE``. Returns the
@@ -863,14 +1127,15 @@ def _near_tie_equal(torch, cfg, params, prompts, got, want, name):
     return accepted
 
 
-def _chaos_async(cfg, params, prompts, plan, watchdog_s):
+def _chaos_async(cfg, params, prompts, plan, watchdog_s, tracer=None):
     """``prompts`` through ``AsyncEngine(watchdog_s, max_recoveries=2)``
-    over an engine running ``plan``. Returns ({uid: result or error},
-    engine stats, recovery log)."""
+    over an engine running ``plan`` (and ``tracer``). Returns ({uid:
+    result or error}, engine stats, recovery log)."""
     import asyncio
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.frontend import AsyncEngine
-    eng = Engine(cfg, params, device=DEVICE, faults=plan, **ENGINE)
+    eng = Engine(cfg, params, device=DEVICE, faults=plan, tracer=tracer,
+                 **ENGINE)
 
     async def drive():
         async with AsyncEngine(eng, watchdog_s=watchdog_s,
@@ -889,11 +1154,12 @@ def _chaos_async(cfg, params, prompts, plan, watchdog_s):
     return out, dict(eng.stats), log
 
 
-def _chaos_sync(cfg, params, prompts, plan, preempt_uid=None):
+def _chaos_sync(cfg, params, prompts, plan, preempt_uid=None, tracer=None):
     """``prompts`` through the engine's own loop; with ``preempt_uid``
     that request's lane is preempted after step 1."""
     from repro_torch.serving.engine import Engine
-    eng = Engine(cfg, params, device=DEVICE, faults=plan, **ENGINE)
+    eng = Engine(cfg, params, device=DEVICE, faults=plan, tracer=tracer,
+                 **ENGINE)
     uids = [eng.submit(p, CHAOS_TOKENS) for p in prompts]
     out = {}
     if preempt_uid is not None:
@@ -915,32 +1181,40 @@ def phase_serve_chaos(torch, cfg, packed, prompts):
     (d) a corrupted offload record of request 0 preempted by hand, (e) a
     step stalled past the watchdog. Then (b) at full depth in bf16.
     Returns the launch counts."""
+    from repro_torch.obs.trace import Tracer
     from repro_torch.serving.faults import FaultPlan, LaneFaultError
     cfg2 = dataclasses.replace(cfg, num_layers=PARITY_DEPTH,
                                compute_dtype="float32")
     p2 = _first_layers(packed, PARITY_DEPTH)
     reqs = prompts[:CHAOS_REQUESTS]
+    shutil.rmtree(os.path.join(OBS_DIR, "chaos"), ignore_errors=True)
+    tracers = {name: Tracer(postmortem_dir=os.path.join(OBS_DIR, "chaos",
+                                                        name))
+               for name in ("none", "a_poison", "b_host_crash",
+                            "c_device_lost", "d_corrupt_offload", "e_stall",
+                            "b_host_crash_full")}
     plans = {
-        "none": (lambda: _chaos_sync(cfg2, p2, reqs, None)),
-        "a_poison": (lambda: _chaos_sync(
-            cfg2, p2, reqs, FaultPlan().poison_logits(2, 3))),
-        "b_host_crash": (lambda: _chaos_async(
-            cfg2, p2, reqs, FaultPlan().crash(2), CHAOS_WATCHDOG_S)),
-        "c_device_lost": (lambda: _chaos_async(
+        "none": (lambda tr: _chaos_sync(cfg2, p2, reqs, None, tracer=tr)),
+        "a_poison": (lambda tr: _chaos_sync(
+            cfg2, p2, reqs, FaultPlan().poison_logits(2, 3), tracer=tr)),
+        "b_host_crash": (lambda tr: _chaos_async(
+            cfg2, p2, reqs, FaultPlan().crash(2), CHAOS_WATCHDOG_S, tr)),
+        "c_device_lost": (lambda tr: _chaos_async(
             cfg2, p2, reqs, FaultPlan().crash(2, device_lost=True),
-            CHAOS_WATCHDOG_S)),
-        "d_corrupt_offload": (lambda: _chaos_sync(
-            cfg2, p2, reqs, FaultPlan().corrupt_offload(0), preempt_uid=0)),
-        "e_stall": (lambda: _chaos_async(
+            CHAOS_WATCHDOG_S, tr)),
+        "d_corrupt_offload": (lambda tr: _chaos_sync(
+            cfg2, p2, reqs, FaultPlan().corrupt_offload(0), preempt_uid=0,
+            tracer=tr)),
+        "e_stall": (lambda tr: _chaos_async(
             cfg2, p2, reqs, FaultPlan().stall(2, 10 * CHAOS_WATCHDOG_S),
-            CHAOS_WATCHDOG_S)),
+            CHAOS_WATCHDOG_S, tr)),
     }
     failed_uid = {"a_poison": 3, "d_corrupt_offload": 0}
     counts, base = [], None
     for name, run in plans.items():
         _reset_counts()
         t0 = time.monotonic()
-        out, st, log = run()
+        out, st, log = run(tracers[name])
         wall = time.monotonic() - t0
         c = _read_counts()
         counts.append(c)
@@ -995,7 +1269,8 @@ def phase_serve_chaos(torch, cfg, packed, prompts):
     full, _, _ = _chaos_sync(cfg, packed, reqs, None)
     t0 = time.monotonic()
     out, st, log = _chaos_async(cfg, packed, reqs, FaultPlan().crash(2),
-                                CHAOS_WATCHDOG_FULL_S)
+                                CHAOS_WATCHDOG_FULL_S,
+                                tracers["b_host_crash_full"])
     wall = time.monotonic() - t0
     c = _read_counts()
     counts.append(c)
@@ -1017,7 +1292,69 @@ def phase_serve_chaos(torch, cfg, packed, prompts):
          **{k: st[k] for k in ("recoveries", "recovered_zero_reprefill",
                                "re_prefilled_tokens", "engine_crashes",
                                "offloaded_pages", "restored_pages")})
+    _check_chaos_postmortems(tracers)
     return counts
+
+
+def _postmortem_rows(tr, directory):
+    """Each postmortem of ``tr`` as a printable row, checked against the
+    file the tracer wrote for it under ``directory``."""
+    files = sorted(os.listdir(directory)) if os.path.isdir(directory) else []
+    check(files == [f"postmortem_{i:04d}_{p['reason']}.json"
+                    for i, p in enumerate(tr.postmortems)],
+          f"obs_postmortems: files {files} for "
+          f"{[p['reason'] for p in tr.postmortems]}")
+    for f, p in zip(files, tr.postmortems):
+        with open(os.path.join(directory, f)) as fh:
+            check(json.load(fh)["reason"] == p["reason"],
+                  f"obs_postmortems: {f} does not hold its reason")
+    return [{"reason": p["reason"], "records": len(p["spans"]),
+             "meta": {k: v for k, v in p["meta"].items()
+                      if k in ("error", "device_lost", "active_uids",
+                               "open_streams", "cause", "bad_gen",
+                               "restored_gen", "step", "consecutive")}}
+            for p in tr.postmortems]
+
+
+def _uid_in(spans, uid):
+    return any(s["attrs"].get("uid") == uid
+               or uid in (s["attrs"].get("uids") or ()) for s in spans)
+
+
+def _check_chaos_postmortems(tracers):
+    """``obs_postmortems`` of the chaos plans: the reasons the reference
+    gives for each (a watchdog dump, then the supervisor's, for a crash,
+    a device loss and a hang; none for a quarantine, which is an event),
+    the uids on lanes at the crash threading the frozen records, and the
+    quarantined victims' own timelines."""
+    want = {"none": [], "a_poison": [], "d_corrupt_offload": [],
+            "b_host_crash": ["watchdog_crash", "supervisor_recover"],
+            "c_device_lost": ["watchdog_crash", "supervisor_recover"],
+            "e_stall": ["watchdog_hang", "supervisor_recover"],
+            "b_host_crash_full": ["watchdog_crash", "supervisor_recover"]}
+    rows = {}
+    for name, tr in tracers.items():
+        reasons = [p["reason"] for p in tr.postmortems]
+        check(reasons == want[name],
+              f"obs_postmortems {name}: reasons {reasons}")
+        for p in tr.postmortems:
+            if p["reason"] == "supervisor_recover":
+                uids = p["meta"]["active_uids"]
+                check(uids and all(_uid_in(p["spans"], u) for u in uids),
+                      f"obs_postmortems {name}: uids {uids} not in the "
+                      "frozen records")
+        rows[name] = _postmortem_rows(tr, os.path.join(OBS_DIR, "chaos",
+                                                       name))
+    for name, uid, tail in (
+            ("a_poison", 3, ["request.quarantined"]),
+            ("d_corrupt_offload", 0,
+             ["offload.corrupt", "request.quarantined"])):
+        got = [s["name"] for s in tracers[name].spans_for(uid)]
+        check(got[0] == "request.queued" and got[-len(tail):] == tail,
+              f"obs_postmortems {name}: victim {uid}'s timeline {got}")
+        rows[name] = [{"victim": uid, "timeline_tail": got[-len(tail):],
+                       "records": len(got)}]
+    emit(phase="obs_postmortems", drive="serve_chaos", runs=rows)
 
 
 def _last_logits(torch, cfg, params, prompt):
@@ -1283,24 +1620,31 @@ def phase_kernels_t(torch, card, packed):
     return summary
 
 
-def _record_steps(train_loop):
+def _record_steps(train_loop, torch):
     """Wrap the loop's step factory so every step's (step, new masks) is
-    kept; returns (list, restore)."""
-    seen = []
+    kept, and a CUDA event pair brackets each step's device work (start
+    recorded before the step, end after its last kernel was queued; no
+    sync). Returns (masks list, event pairs, restore)."""
+    seen, events = [], []
     make = train_loop.step_mod.make_train_step
 
     def recording(*a, **kw):
         fn = make(*a, **kw)
 
         def step(state, batch):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
             new, metrics = fn(state, batch)
+            end.record()
+            events.append((start, end))
             seen.append((state.step, new.masks))
             return new, metrics
         return step
 
     train_loop.step_mod.make_train_step = recording
-    return seen, lambda: setattr(train_loop.step_mod, "make_train_step",
-                                 make)
+    return seen, events, lambda: setattr(train_loop.step_mod,
+                                         "make_train_step", make)
 
 
 def phase_train(torch, cfg):
@@ -1315,6 +1659,7 @@ def phase_train(torch, cfg):
     from repro_torch.core.schedule import keep_count, sparsity_at
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.models import registry
+    from repro_torch.obs.trace import Tracer
     from repro_torch.optim import adamw
     from repro_torch.training import train_loop
     cfg = dataclasses.replace(cfg, blast=dataclasses.replace(
@@ -1326,12 +1671,14 @@ def phase_train(torch, cfg):
     loop = train_loop.TrainLoopConfig(total_steps=TRAIN_STEPS, log_every=1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    seen, restore = _record_steps(train_loop)
+    seen, events, restore = _record_steps(train_loop, torch)
+    tr = Tracer()
     _reset_counts()
     t0 = time.monotonic()
     try:
-        state, hist = train_loop.train(cfg, opt, src, loop, device=DEVICE,
-                                       seed=SEED, log_fn=lambda m: None)
+        state, hist = train_loop.train(
+            cfg, opt, src, loop, device=DEVICE, seed=SEED, tracer=tr,
+            log_fn=lambda m: None)
     finally:
         restore()
     torch.cuda.synchronize()
@@ -1356,6 +1703,8 @@ def phase_train(torch, cfg):
     check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
     check(not any(counts.values()), f"training launched kernels: {counts}")
+    _check_train_spans(tr, [s.elapsed_time(e) / 1e3 for s, e in events],
+                       "train", med)
     spec, flags = cfg.blast, registry.dense_layer_flags(cfg)
     refreshes = []
     for step, masks in seen:
@@ -1385,6 +1734,70 @@ def phase_train(torch, cfg):
                   f"{path}: pruned blocks not zero in {name}")
     emit(phase="train_refreshes", refreshes=refreshes)
     return cfg, opt, src, state
+
+
+def _check_train_spans(tr, device_s, run, med=None):
+    """``obs_train``: one ``train.step`` span per step, in order. What
+    shows that the loop's ``dt`` covers the whole step on the device is
+    ``device_s``, each step's CUDA event pair (start before the step, end
+    after its last kernel, AdamW's included): no span may be shorter, and
+    the spans' median over all steps but the first lies within
+    ``OBS_STEP_TOL`` of the pairs' median, as it does of ``med``, the
+    train phase's ``median_step_ms`` (taken from the same ``dt``s), when
+    given. ``dt`` ends at the metrics' read, every step, logged or not:
+    the sparsity, a device scalar made after the update."""
+    spans = [r for r in tr.records if r.name == "train.step"]
+    n = len(device_s)
+    check([r.attrs["step"] for r in spans] == list(range(n)),
+          f"obs_train {run}: spans for steps "
+          f"{[r.attrs['step'] for r in spans]}, {n} event pairs")
+    span_med = statistics.median(r.dur for r in spans[1:])
+    dev_med = statistics.median(device_s[1:])
+    short = [(r.attrs["step"], r.dur, d) for r, d in zip(spans, device_s)
+             if r.dur < d]
+    extra = {} if med is None else dict(median_step_ms=med * 1e3,
+                                        span_over_step=span_med / med)
+    emit(phase="obs_train", run=run, steps=n,
+         train_step_span_median_ms=span_med * 1e3,
+         device_step_median_ms=dev_med * 1e3,
+         span_ms=[r.dur * 1e3 for r in spans],
+         device_step_ms=[d * 1e3 for d in device_s],
+         span_over_device=span_med / dev_med, **extra,
+         closing_read="every step's metrics float() (sparsity, a device "
+                      "scalar made after the update)",
+         records={k: sum(r.name == k for r in tr.records)
+                  for k in sorted({r.name for r in tr.records})})
+    check(med is None or abs(span_med - med) <= OBS_STEP_TOL * med,
+          f"obs_train {run}: span median {span_med} against step median "
+          f"{med}")
+    check(not short, f"obs_train {run}: spans shorter than the step's "
+                     f"device work (step, span, device): {short}")
+    check(abs(span_med - dev_med) <= OBS_STEP_TOL * dev_med,
+          f"obs_train {run}: span median {span_med} against the device "
+          f"step median {dev_med}")
+
+
+def phase_obs_train_unlogged(torch, cfg, opt, src, state):
+    """``obs_train`` at the loop's default ``log_every`` (10):
+    ``OBS_UNLOGGED_STEPS`` more traced steps from the trained state, of
+    which only the first and the last two are logged; each step's
+    ``train.step`` span must still cover its CUDA event pair."""
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.training import train_loop
+    loop = train_loop.TrainLoopConfig(total_steps=OBS_UNLOGGED_STEPS)
+    _, events, restore = _record_steps(train_loop, torch)
+    tr = Tracer()
+    try:
+        _, hist = train_loop.train(cfg, opt, src, loop, state=state,
+                                   device=DEVICE, tracer=tr,
+                                   log_fn=lambda m: None)
+    finally:
+        restore()
+    logged = [h["step"] for h in hist if "event" not in h]
+    check(loop.log_every == 10 and logged == [0, 10, 11],
+          f"obs_train log_every {loop.log_every}: logged steps {logged}")
+    _check_train_spans(tr, [s.elapsed_time(e) / 1e3 for s, e in events],
+                       "log_every_10")
 
 
 def phase_train_profile(torch, cfg, opt, src, state):
@@ -1651,7 +2064,7 @@ def phase_artifact(torch, cfg, packed, joint):
 
 
 def _swap_traffic(torch, cfg, params, reqs, post, swap=None, poison=False,
-                  monitor_steps=8):
+                  monitor_steps=8, tracer=None):
     """The serving configuration on ``params`` (generation 0): ``reqs``
     ((prompt, budget) pairs) at the start, ``post`` after step
     ``SWAP_AFTER_STEP``; with ``swap`` (an artifact dir) the engine swaps
@@ -1661,7 +2074,7 @@ def _swap_traffic(torch, cfg, params, reqs, post, swap=None, poison=False,
     launches of every slab and prefill call by weight generation.
     Returns a dict; ``pre`` are the uids on lanes at the flip."""
     from repro_torch.serving.engine import Engine
-    eng = Engine(cfg, params, device=DEVICE, **ENGINE)
+    eng = Engine(cfg, params, device=DEVICE, tracer=tracer, **ENGINE)
     del params
     launches, slab_gens = {}, set()
 
@@ -1865,9 +2278,13 @@ def phase_serve_swap(torch, cfg, dirs, prompts, rng):
     del eng
 
     # a NaN in a generation-1 lane inside the window rolls back
+    from repro_torch.obs.trace import Tracer
+    pm_dir = os.path.join(OBS_DIR, "swap_rollback")
+    shutil.rmtree(pm_dir, ignore_errors=True)
+    tr = Tracer(postmortem_dir=pm_dir)
     _reset_counts()
     rb = _swap_traffic(torch, cfg, gen0(), reqs, post, swap=dirs["joint"],
-                       poison=True, monitor_steps=1000)
+                       poison=True, monitor_steps=1000, tracer=tr)
     counts.append(_read_counts())
     rrep = rb["report"]
     check(rrep.state == hotswap.ROLLED_BACK
@@ -1890,6 +2307,20 @@ def phase_serve_swap(torch, cfg, dirs, prompts, rng):
          swap_rollbacks=rb["stats"]["swap_rollbacks"],
          launches_by_generation={str(k): v for k, v in
                                  rb["launches"].items()})
+    reasons = [p["reason"] for p in tr.postmortems]
+    check(reasons == ["swap.rollback"],
+          f"obs_postmortems swap: reasons {reasons}")
+    pm = tr.postmortems[0]
+    check(pm["meta"]["cause"] == "quarantine_spike"
+          and _uid_in(pm["spans"], rb["poisoned"]),
+          f"obs_postmortems swap: {pm['meta']}, victim {rb['poisoned']}")
+    stages = [s.name for s in tr.records if s.name.startswith("swap.")]
+    check(stages == ["swap.stage", "swap.canary", "swap.flip",
+                     "swap.rollback"], f"obs swap spans {stages}")
+    emit(phase="obs_postmortems", drive="serve_swap_rollback",
+         victim=rb["poisoned"], postmortems=_postmortem_rows(tr, pm_dir),
+         swap_spans_ms={s.name: s.dur * 1e3 for s in tr.records
+                        if s.name.startswith("swap.")})
     return counts
 
 
@@ -1973,6 +2404,69 @@ def phase_train_ckpt(torch, cfg, state):
          pinned_host_bytes=pinned)
 
 
+def _obs_train_pair(child, wd):
+    """``obs_train``: two chaos children in the train_chaos setting (two
+    layers, full width, f32, deterministic algorithms) train
+    ``OBS_PAIR_STEPS`` steps from the same seed, one untraced and one with
+    a ``trace_dir``: every TrainState leaf bitwise equal."""
+    r0, m0, w0, out0 = child("obs_off", steps=OBS_PAIR_STEPS)
+    check(r0.returncode == 0, f"obs_train pair, off: {r0.stderr[-2000:]}")
+    r1, m1, w1, out1 = child("obs_on", steps=OBS_PAIR_STEPS,
+                             trace_dir=os.path.join(wd, "obs_pair_pm"))
+    check(r1.returncode == 0, f"obs_train pair, on: {r1.stderr[-2000:]}")
+    with np.load(out0) as off, np.load(out1) as on:
+        check(set(off.files) == set(on.files), "obs_train pair: keys")
+        unequal = sorted(k for k in off.files
+                         if not np.array_equal(off[k], on[k]))
+        leaves = len(off.files)
+    check(unequal == [], f"obs_train pair: {unequal} differ with tracing on")
+    tr = m1["trace"]
+    check(m0["trace"] is None
+          and tr["records"].get("train.step") == OBS_PAIR_STEPS,
+          f"obs_train pair: records {tr['records']}")
+    return {"steps": OBS_PAIR_STEPS, "leaves": leaves, "bitwise": True,
+            "records": tr["records"],
+            "train_step_ms": [x * 1e3 for x in tr["train_step_s"]],
+            "child_wall_s": {"off": w0, "on": w1},
+            "nondeterministic_ops": sorted(set(
+                m0["nondeterministic_ops"] + m1["nondeterministic_ops"]))}
+
+
+def _obs_train_rewind(tf, wd):
+    """``obs_postmortems`` of a training rewind: the chaos child's own
+    two-layer tiny model (``default_chaos_spec``) on the card, NaN
+    gradients at steps 5, 6 and 7 with checkpoints every 4, traced: the
+    guard rewinds at step 7 to step 4 and the child finishes; its tracer
+    dumps one ``train_rewind`` postmortem, whose frozen records hold the
+    three ``train.anomaly`` events and end with the last."""
+    d = os.path.join(wd, "rewind")
+    os.makedirs(d)
+    pm_dir = os.path.join(d, "pm")
+    spec = tf.default_chaos_spec(d, ckpt_dir=os.path.join(d, "ck"),
+                                 steps=OBS_REWIND_STEPS,
+                                 nan_at=OBS_REWIND_NAN, device=DEVICE,
+                                 trace_dir=pm_dir)
+    t0 = time.monotonic()
+    r = tf.run_child(spec, os.path.join(d, "spec.json"), timeout=600)
+    wall = time.monotonic() - t0
+    check(r.returncode == 0, f"obs rewind child: {r.stderr[-2000:]}")
+    with open(spec["meta_out"]) as f:
+        meta = json.load(f)
+    pms = meta["trace"]["postmortems"]
+    check([p["reason"] for p in pms] == ["train_rewind"]
+          and pms[0]["meta"]["step"] == OBS_REWIND_NAN[-1]
+          and pms[0]["names"].count("train.anomaly") == 3
+          and pms[0]["names"][-1] == "train.anomaly"
+          and meta["counters"]["rewinds"] == 1,
+          f"obs rewind child: {pms}, counters {meta['counters']}")
+    check(sorted(os.listdir(pm_dir)) == ["postmortem_0000_train_rewind.json"],
+          f"obs rewind child: files {os.listdir(pm_dir)}")
+    return {"postmortems": [{k: p[k] for k in ("reason", "meta", "records")}
+                            for p in pms],
+            "records": meta["trace"]["records"], "child_wall_s": wall,
+            "counters": meta["counters"]}
+
+
 def phase_train_chaos(torch, cfg):
     """The SIGKILL chaos at two layers and full width in f32, through the
     chaos child (``training/faults.py``; deterministic algorithms, each
@@ -2003,8 +2497,8 @@ def phase_train_chaos(torch, cfg):
 
     def child(name, **kw):
         spec = tf.default_chaos_spec(
-            wd, **common, out=os.path.join(wd, f"{name}.npz"),
-            meta_out=os.path.join(wd, f"{name}.json"), **kw)
+            wd, **dict(common, out=os.path.join(wd, f"{name}.npz"),
+                       meta_out=os.path.join(wd, f"{name}.json"), **kw))
         t0 = time.monotonic()
         r = tf.run_child(spec, os.path.join(wd, f"{name}_spec.json"),
                          timeout=600)
@@ -2065,7 +2559,11 @@ def phase_train_chaos(torch, cfg):
                 check(not unequal or nondet,
                       f"chaos {name}: {len(unequal)} leaves differ by up "
                       f"to {worst} with no nondeterministic op named")
+    pair = _obs_train_pair(child, wd)
+    rewind = _obs_train_rewind(tf, wd)
     shutil.rmtree(wd)
+    emit(phase="obs_train", run="pair", **pair)
+    emit(phase="obs_postmortems", drive="train_rewind", **rewind)
     emit(phase="train_chaos", layers=CHAOS_LAYERS, dtype="float32",
          steps=CHAOS_STEPS, kill_at=CHAOS_KILL, torn_at_kill=torn,
          resumed_from=m2["resumed_from"],
@@ -2105,6 +2603,7 @@ def main():
         must_launch=PAGED, must_not=("fused_glu_joint",))
     served = [counts]
     served += phase_serve_modes(torch, cfg, packed, prompts, _brief(st))
+    served += phase_obs_serve(torch, cfg, packed, prompts)
     served += phase_serve_prefix(torch, cfg, packed, warm, prefix_reqs)
     served += phase_serve_loop(torch, cfg, packed, loop_prompts)
     _, jcounts, _ = phase_serve(
@@ -2130,6 +2629,7 @@ def main():
     tcfg, opt, src, state = phase_train(torch, cfg)
     ft = phase_finetune_packed(torch, tcfg, state, src.batch(TRAIN_STEPS))
     phase_train_profile(torch, tcfg, opt, src, state)
+    phase_obs_train_unlogged(torch, tcfg, opt, src, state)
     phase_train_ckpt(torch, tcfg, state)
     del state
     torch.cuda.empty_cache()

@@ -30,6 +30,12 @@ other wrote.
 numpy has no bfloat16: such a leaf is stored as its 16-bit pattern
 (``uint16``) and ``meta.json`` records its dtype under ``dtypes``. The
 reference reads only ``checksums`` and ``step`` there.
+
+``tracer`` (obs/trace.py; the train loop installs its own) records a
+``ckpt.save`` span over the part of a save that holds up training (the
+join, the gather and a blocking write), a ``ckpt.restore`` span and a
+``ckpt.fallback`` event for each restore that skipped corrupt
+checkpoints.
 """
 from __future__ import annotations
 
@@ -37,11 +43,13 @@ import json
 import os
 import shutil
 import threading
+import time
 import zlib
 
 import numpy as np
 import torch
 
+from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.training.faults import CheckpointCorruptionError
 
 
@@ -163,6 +171,7 @@ class Checkpointer:
         self._error: BaseException | None = None
         self.fallbacks = 0         # corrupt or torn checkpoints skipped
         self.fault_hook = None     # training/faults.py corruption port
+        self.tracer = NULL_TRACER  # obs/trace.py; train_loop installs
         os.makedirs(directory, exist_ok=True)
         self._recover_leftovers()
 
@@ -194,6 +203,7 @@ class Checkpointer:
         ``state`` is a ``TrainState`` or any nested dict of tensors and
         arrays."""
         from repro_torch.training.step import TrainState
+        t_save = time.monotonic()
         tree = _state_tree(state) if isinstance(state, TrainState) else state
         self.wait()
         host, dtypes = host_arrays(flatten_tree(tree))
@@ -235,6 +245,11 @@ class Checkpointer:
                     self._error = e
             self._thread = threading.Thread(target=runner, daemon=True)
             self._thread.start()
+        if self.tracer.enabled:
+            # the part that holds up training: the join, the gather and,
+            # blocking, the write
+            self.tracer.span_at("ckpt.save", t_save, time.monotonic(),
+                                step=int(step), blocking=blocking)
 
     def wait(self):
         """Join any in-flight write and re-raise its exception."""
@@ -323,20 +338,26 @@ class Checkpointer:
         An explicit ``step`` is verified and raises
         ``CheckpointCorruptionError`` on a mismatch. With ``step=None``
         the newest intact checkpoint is restored; corrupt or torn newer
-        ones are skipped (counted in ``fallbacks``)."""
-        if step is not None:
-            if not self.verify(step):
-                raise CheckpointCorruptionError(step, self.dir)
-            return self._load(template, step, device)
-        steps = self.steps()
-        if not steps:
-            raise FileNotFoundError(f"no checkpoints in {self.dir}")
-        for skipped, s in enumerate(reversed(steps)):
-            if self.verify(s):
-                self.fallbacks += skipped
-                return self._load(template, s, device)
-        raise CheckpointCorruptionError(
-            steps[-1], self.dir, "no intact checkpoint to fall back to")
+        ones are skipped (counted in ``fallbacks``, each skip a
+        ``ckpt.fallback`` event inside the ``ckpt.restore`` span)."""
+        with self.tracer.span("ckpt.restore",
+                              step=-1 if step is None else int(step)):
+            if step is not None:
+                if not self.verify(step):
+                    raise CheckpointCorruptionError(step, self.dir)
+                return self._load(template, step, device)
+            steps = self.steps()
+            if not steps:
+                raise FileNotFoundError(f"no checkpoints in {self.dir}")
+            for skipped, s in enumerate(reversed(steps)):
+                if self.verify(s):
+                    if skipped:
+                        self.tracer.event("ckpt.fallback",
+                                          skipped=skipped, to_step=s)
+                    self.fallbacks += skipped
+                    return self._load(template, s, device)
+            raise CheckpointCorruptionError(
+                steps[-1], self.dir, "no intact checkpoint to fall back to")
 
     def restore_state(self, template_state, step: int | None = None,
                       device=None):

@@ -74,10 +74,18 @@ mixed call runs once per generation with the others masked out (see
 ``_decode_slab``). A monitor commits the swap after a window of steps or
 rolls it back when new-generation lanes are quarantined.
 
-Not ported: the reference's ``tracer=`` (stats stay a plain dict),
-``dist=`` and ``attn_backend=`` (the paged decode kernel is the one
-backend). Everything runs on ``device`` (default the GPU); the CPU
-serves only when the caller asks for it, as the tests do.
+Observability (``repro_torch/obs``): every stat is a typed metric of
+``self.metrics`` (declared once in ``_METRICS``; ``self.stats`` is its
+dict view, ``reset_stats`` resets the registry), and ``tracer=`` records
+the request events and the ``prefill.chunks``, ``decode.slab`` and
+``mixed.step`` spans from the timestamps the engine already takes around
+each call's host read (``.cpu()``), so a traced run syncs exactly as an
+untraced one.
+
+Not ported: the reference's ``dist=`` and ``attn_backend=`` (the paged
+decode kernel is the one backend). Everything runs on ``device``
+(default the GPU); the CPU serves only when the caller asks for it, as
+the tests do.
 """
 from __future__ import annotations
 
@@ -90,6 +98,8 @@ import numpy as np
 import torch
 
 from repro_torch.models import registry
+from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.serving.faults import (BackpressureError,
                                         DeadlineExceededError,
                                         LaneFaultError,
@@ -172,39 +182,96 @@ def _pow2_bucket(n: int, cap: int) -> int:
     return max(1, min(cap, 1 << max(0, (n - 1).bit_length())))
 
 
-_COUNTERS = (
-    "prefill_chunks", "prefill_tokens", "decode_slabs", "decode_steps",
-    "decode_tokens", "generated_tokens", "prefill_s", "decode_s",
-    "admitted", "evicted", "truncated", "lanes_quarantined",
+# every engine stat, declared once with its kind and help (obs/metrics.py):
+# reset_stats, snapshot and the Prometheus text all derive from the
+# registry, so adding a metric here is the whole job
+_METRICS = [
+    ("counter", "prefill_chunks", "prefill chunk calls"),
+    ("counter", "prefill_tokens", "prompt tokens actually computed"),
+    ("counter", "decode_slabs", "on-device decode slab calls"),
+    ("counter", "decode_steps", "decode steps (slab_k per slab)"),
+    ("counter", "decode_tokens", "tokens emitted by decode"),
+    ("counter", "generated_tokens", "all tokens emitted"),
+    ("counter", "prefill_s", "seconds in prefill calls"),
+    ("counter", "decode_s", "seconds in decode slabs"),
+    ("counter", "admitted", "requests admitted to lanes"),
+    ("counter", "evicted", "lanes freed (finish or failure)"),
+    ("counter", "truncated", "requests that hit the slot cap"),
     # mixed batching: fused calls, their time, and blocking prefill calls
     # that ran while live decode lanes waited (0 when mixed)
-    "mixed_steps", "mixed_s", "stalled_decode_steps",
+    ("counter", "mixed_steps", "fused decode+prefill calls"),
+    ("counter", "mixed_s", "seconds in fused mixed calls"),
+    ("counter", "stalled_decode_steps",
+     "blocking prefill calls that stalled live decode lanes"),
     # paged attention reads (page units) against a dense max_len read
-    "pages_read", "pages_read_dense_equiv",
+    ("counter", "pages_read", "pages the paged attention gathered"),
+    ("counter", "pages_read_dense_equiv",
+     "pages a dense max_len read would have touched"),
+    ("gauge", "peak_kv_pages", "page pool in-use high-water"),
+    # admission: queue depth high-water, page-gate rejections, seconds
+    # queued
+    ("gauge", "queue_depth_peak", "admission queue depth high-water"),
+    ("counter", "admission_rejections",
+     "distinct queue heads blocked by the page gate"),
+    ("counter", "queued_s_total", "total seconds requests queued"),
+    ("gauge", "queued_s_max", "longest single queued wait"),
     # prefix cache: prompt tokens submitted, radix hits and misses, the
     # prompt tokens shared pages covered, boundary-page copies, and
     # cached-idle pages reclaimed under pressure
-    "prompt_tokens", "prefix_hits", "prefix_misses",
-    "prefill_tokens_skipped", "cow_copies", "cache_evicted_pages",
-    # admission: queue depth high-water and seconds queued
-    "queue_depth_peak", "queued_s_total", "queued_s_max",
+    ("counter", "prompt_tokens", "prompt tokens submitted"),
+    ("counter", "prefix_hits", "admissions with a radix-tree match"),
+    ("counter", "prefix_misses", "admissions with no match"),
+    ("counter", "prefill_tokens_skipped",
+     "prompt tokens covered by shared prefix pages"),
+    ("counter", "cow_copies", "boundary pages copy-on-write duplicated"),
+    ("counter", "cache_evicted_pages",
+     "cached-idle pages reclaimed under pressure"),
     # preemption: lanes frozen and resumed, pages round-tripped through
     # the host (and shared pages that stayed pinned), host bytes peak
-    "preemptions", "restores", "offloaded_pages", "restored_pages",
-    "preempt_pinned_pages", "offload_bytes_peak",
-    # faults: injected faults that fired, recoveries, salvaged lanes
-    # restored with no re-prefill, tokens relaunches prefilled again,
-    # shed and cancelled requests, condemned hangs and crashes
-    "faults_injected", "recoveries", "recovered_zero_reprefill",
-    "re_prefilled_tokens", "shed_requests", "cancelled",
-    "deadline_cancelled", "watchdog_hangs", "engine_crashes",
-    # weight hot-swap: swaps flipped, canary rejections, rollbacks,
-    # canary tokens decoded, new-generation quarantines in a monitor
-    # window; and the gauges: the current generation and how many param
-    # generations are held on the device
-    "weight_swaps", "swap_canary_failures", "swap_rollbacks",
-    "swap_canary_tokens", "swap_quarantines", "weight_generation",
-    "weight_generations_held")
+    ("counter", "preemptions", "lanes frozen off-device"),
+    ("counter", "restores", "preempted lanes resumed"),
+    ("counter", "offloaded_pages", "pages downloaded to the host store"),
+    ("counter", "restored_pages", "pages scattered back on restore"),
+    ("counter", "preempt_pinned_pages",
+     "shared pages that stayed pinned through preemption"),
+    ("gauge", "offload_bytes_peak",
+     "host offload store bytes high-water"),
+    ("counter", "admission_rejected_steps",
+     "admission attempts a blocked head held off"),
+    # faults: injected faults that fired, quarantined lanes, recoveries,
+    # salvaged lanes restored with no re-prefill, tokens relaunches
+    # prefilled again, shed and cancelled requests, condemned hangs and
+    # crashes
+    ("counter", "faults_injected", "injected faults that fired"),
+    ("counter", "lanes_quarantined", "lanes torn down as untrusted"),
+    ("counter", "recoveries", "supervisor recoveries completed"),
+    ("counter", "recovered_zero_reprefill",
+     "crash-salvaged lanes restored with zero re-prefill"),
+    ("counter", "re_prefilled_tokens",
+     "tokens re-prefilled by relaunches"),
+    ("counter", "shed_requests", "submits shed by the queue bound"),
+    ("counter", "cancelled", "requests cancelled (any stage)"),
+    ("counter", "deadline_cancelled", "cancelled by SLA deadline"),
+    ("counter", "watchdog_hangs", "hung steps the watchdog condemned"),
+    ("counter", "engine_crashes", "engine-thread crashes recovered"),
+    # weight hot-swap: swaps flipped, canary rejections, rollbacks, canary
+    # tokens decoded, new-generation quarantines in a monitor window; the
+    # current generation and the param generations held on the device
+    ("counter", "weight_swaps", "weight hot-swaps flipped"),
+    ("counter", "swap_canary_failures", "swaps rejected by the canary "
+     "gate before flipping"),
+    ("counter", "swap_rollbacks", "flipped swaps rolled back"),
+    ("counter", "swap_canary_tokens", "tokens decoded by swap canaries"),
+    ("counter", "swap_quarantines",
+     "new-generation lanes quarantined inside a swap monitor window"),
+    ("gauge", "weight_generation", "current weight generation id"),
+    ("gauge", "weight_generations_held",
+     "distinct param generations held on device"),
+    # per-request latency samples (monotonic clock), folded into p50/p95
+    # by finalize_stats
+    ("histogram", "ttft_s", "submit -> first token seconds"),
+    ("histogram", "itl_s", "inter-token gap seconds"),
+]
 
 
 class Engine:
@@ -222,7 +289,7 @@ class Engine:
     ``offload_capacity_bytes`` (the host store's budget; None for
     unbounded), ``admission_queue_limit``,
     ``enforce_deadlines`` and ``faults`` the serving behaviour (module
-    docstring)."""
+    docstring); ``tracer`` (default off) records spans and events."""
 
     def __init__(self, cfg, params, *, max_batch: int, max_len: int,
                  prefill_chunk: int = 16, slab_k: int = 8,
@@ -236,7 +303,7 @@ class Engine:
                  offload_capacity_bytes: int | None = None,
                  admission_queue_limit: int | None = None,
                  enforce_deadlines: bool = False, faults=None,
-                 device="cuda"):
+                 tracer=None, device="cuda"):
         if not registry.supports_prefill_chunk(cfg):
             raise NotImplementedError(
                 f"family {cfg.family!r} is not servable by the engine; "
@@ -260,6 +327,14 @@ class Engine:
                              "are the unit of offload)")
         if slab_k < 1:
             raise ValueError(f"slab_k={slab_k} must be >= 1")
+        # not ``tracer or ...``: the same falsy-default hazard as the
+        # scheduler's below
+        self.tracer = NULL_TRACER if tracer is None else tracer
+        self.metrics = MetricsRegistry()
+        for kind, name, help_ in _METRICS:
+            getattr(self.metrics, kind)(name, help_)
+        # the dict view: every ``self.stats[...]`` lands on a typed metric
+        self.stats = self.metrics.view()
         self.cfg = cfg
         self.params = params
         # weight generations (serving/hotswap.py): ``_gen`` is the one
@@ -284,6 +359,7 @@ class Engine:
         # one is falsy and ``or`` would swap it for a new FIFO
         self.scheduler = (scheduler if scheduler is not None
                           else FIFOScheduler(max_batch, max_len))
+        self.scheduler.tracer = self.tracer
         if prefill_token_budget is not None:
             self.scheduler.prefill_token_budget = prefill_token_budget
         elif self.scheduler.prefill_token_budget is None:
@@ -341,6 +417,7 @@ class Engine:
             self._mirror["bt"] = np.zeros((max_batch, self.max_pages),
                                           np.int32)
             self._offload = HostKVStore(offload_capacity_bytes)
+            self._offload.tracer = self.tracer
             self._gather = make_gather_pages_step()
             self._scatter = make_scatter_pages_step()
             self.scheduler.feasibility = self._check_feasible
@@ -375,14 +452,25 @@ class Engine:
             self._offload.fault_hook = plan.on_offload_save
 
     def reset_stats(self) -> None:
-        self.stats: dict = {k: 0 for k in _COUNTERS}
-        self._ttft: list[float] = []
-        self._itl: list[float] = []
+        """Zero every registered metric: derived from the registry, so a
+        metric added to ``_METRICS`` or registered through the view at
+        finalize cannot be missed."""
+        self.metrics.reset()
         self.scheduler.reset_stats()
         if self.pool is not None:
             self.pool.reset_peaks()
         if self._offload is not None:
             self._offload.reset_peaks()
+
+    # the raw latency samples, registry histograms (reset clears them in
+    # place), under the names callers append to and read
+    @property
+    def _ttft(self) -> list[float]:
+        return self.metrics.histogram("ttft_s").samples
+
+    @property
+    def _itl(self) -> list[float]:
+        return self.metrics.histogram("itl_s").samples
 
     # ------------------------------------------------------------ memory
     @property
@@ -420,14 +508,21 @@ class Engine:
         if (self.admission_queue_limit is not None
                 and len(self.scheduler) >= self.admission_queue_limit):
             self.stats["shed_requests"] += 1
+            self.tracer.event("request.shed",
+                              queue_depth=len(self.scheduler))
             raise BackpressureError(len(self.scheduler),
                                     self.admission_queue_limit,
                                     self._retry_after_hint())
         uid = self._uid if uid is None else uid
         self._uid = max(self._uid, uid) + 1
-        self.scheduler.submit(Request(uid, np.asarray(prompt),
-                                      max_new_tokens, priority=priority,
-                                      deadline_s=deadline_s))
+        req = Request(uid, np.asarray(prompt), max_new_tokens,
+                      priority=priority, deadline_s=deadline_s)
+        self.scheduler.submit(req)
+        if self.tracer.enabled:
+            self.tracer.event("request.queued", t=req.queued_at,
+                              uid=uid, prompt_len=req.prompt_len,
+                              max_new_tokens=max_new_tokens,
+                              priority=priority)
         self.stats["queue_depth_peak"] = max(self.stats["queue_depth_peak"],
                                              len(self.scheduler))
         return uid
@@ -566,6 +661,10 @@ class Engine:
         pre = self._recovered_prefix.pop(lane.req.uid, None)
         if pre is not None:
             prompt, gen = pre[0], list(pre[1]) + gen
+        if self.tracer.enabled:
+            self.tracer.event("request.finish", uid=lane.req.uid,
+                              lane=i, tokens=len(gen), ttft_s=ttft,
+                              truncated=truncated)
         return GenResult(lane.req.uid, prompt, np.asarray(gen, np.int32),
                          truncated, ttft_s=ttft)
 
@@ -607,6 +706,14 @@ class Engine:
         self._dirty = True
         self.stats["evicted"] += 1
         self._finish_times.append(time.monotonic())
+        if self.tracer.enabled:
+            name = ("request.quarantined"
+                    if isinstance(exc, (LaneFaultError,
+                                        OffloadCorruptionError))
+                    else "request.failed")
+            self.tracer.event(name, uid=lane.req.uid, lane=i,
+                              error=type(exc).__name__,
+                              tokens=len(lane.generated))
         return self._failed_result(lane.req, lane.generated, exc)
 
     def _harvest_faults(self, finished: list[GenResult]) -> None:
@@ -742,6 +849,10 @@ class Engine:
         m["bt"][i] = 0
         self._dirty = True
         self.stats["preemptions"] += 1
+        if self.tracer.enabled:
+            self.tracer.event("request.preempt", uid=lane.req.uid, lane=i,
+                              offloaded_pages=len(dl_pages),
+                              pinned_pages=len(pinned))
 
     def _restore_one(self, pre: _Preempted) -> bool:
         """Re-admit one preempted lane: fresh pages for every logical page
@@ -770,6 +881,9 @@ class Engine:
             # others are untouched (own pages free, pinned ones unpin)
             self.pool.release(pages)
             self.stats["lanes_quarantined"] += 1
+            self.tracer.event("request.quarantined", uid=pre.req.uid,
+                              error=type(e).__name__,
+                              tokens=len(pre.generated))
             self._pending_results.append(self._failed_result(
                 pre.req, pre.generated,
                 LaneFaultError(pre.req.uid, -1, reason=str(e))))
@@ -793,6 +907,12 @@ class Engine:
         m["live"][i] = True
         self._dirty = True
         self.stats["restores"] += 1
+        if self.tracer.enabled:
+            self.tracer.event(
+                "request.restore", uid=pre.req.uid, lane=i,
+                frontier=pre.frontier, recovered=pre.recovered,
+                restored_pages=(len(rec.logical) if rec is not None
+                                else 0))
         return True
 
     def _try_restore(self) -> None:
@@ -858,10 +978,14 @@ class Engine:
     # --------------------------------------------------------- admission
     def _note_admitted(self, reqs: list[Request]) -> None:
         now = self.scheduler.clock()
+        tr = self.tracer
         for r in reqs:
             q = max(0.0, now - r.queued_at)
             self.stats["queued_s_total"] += q
             self.stats["queued_s_max"] = max(self.stats["queued_s_max"], q)
+            if tr.enabled:
+                tr.event("request.admitted", t=now, uid=r.uid,
+                         queued_s=q, priority=r.priority)
         self.stats["admitted"] += len(reqs)
 
     def _admit(self) -> None:
@@ -985,6 +1109,12 @@ class Engine:
         first = torch.argmax(last, dim=-1).cpu().numpy()   # host sync
         now = time.monotonic()
         self.stats["prefill_s"] += now - t0
+        if self.tracer.enabled:
+            # the span reuses this loop's own timestamps: no sync added
+            self.tracer.span_at(
+                "prefill.chunks", t0, now, lanes=len(lane_ids),
+                chunks=len(sizes), tokens=width,
+                uids=[self.lanes[i].req.uid for i in lane_ids])
         for i in lane_ids:
             self._mirror["pending"][i] = int(first[i])
             self.lanes[i].generated.append(int(first[i]))
@@ -1267,6 +1397,10 @@ class Engine:
         self.stats["decode_s"] += now - t0
         self.stats["decode_slabs"] += 1
         self.stats["decode_steps"] += self.slab_k
+        if self.tracer.enabled:
+            self.tracer.span_at(
+                "decode.slab", t0, now, k=self.slab_k, lanes=len(lanes),
+                uids=[self.lanes[i].req.uid for i in lanes])
         self._replay(block, now)
 
     def _run_mixed(self, decode_lanes: list[int],
@@ -1354,6 +1488,11 @@ class Engine:
             nxt = nxt.cpu().numpy()                        # host sync
             fa = faulted.cpu().numpy()
         now = time.monotonic()
+        if self.tracer.enabled:
+            self.tracer.span_at(
+                "mixed.step", t0, now, decode_lanes=len(decode_lanes),
+                prefill_lanes=len(plan), prefill_tokens=sum(plan.values()),
+                uids=[self.lanes[i].req.uid for i in covered])
         if self.mixed:
             self.stats["mixed_steps"] += 1
         if decode_lanes:
@@ -1430,12 +1569,16 @@ class Engine:
 
     def finalize_stats(self) -> dict:
         """Fold the counters into derived stats: decode throughput (decode
-        tokens over decode time, fused mixed calls included), TTFT and
+        tokens over decode time, fused mixed calls included; e2e adds
+        prefill time and counts every token), TTFT and
         inter-token percentiles, KV peaks, the host store's peak and
         budget, and the prefix-cache hit rate."""
         st = self.stats
         dec_s = st["decode_s"] + st["mixed_s"]
         st["tok_per_s"] = st["decode_tokens"] / dec_s if dec_s > 0 else 0.0
+        total_s = dec_s + st["prefill_s"]
+        st["e2e_tok_per_s"] = (st["generated_tokens"] / total_s
+                               if total_s > 0 else 0.0)
         for name, vals in (("ttft", self._ttft), ("itl", self._itl)):
             arr = np.asarray(vals, np.float64)
             for q in (50, 95):
@@ -1466,10 +1609,12 @@ def generate(cfg, params, prompts, *, max_new_tokens: int = 32,
              max_batch: int | None = None, paged: bool = True,
              page_size: int = 16, n_pages: int | None = None,
              prefix_cache: bool = False, mixed: bool = False,
-             prefill_token_budget: int | None = None, device="cuda"):
+             prefill_token_budget: int | None = None, tracer=None,
+             device="cuda"):
     """Ragged 1-D prompts -> (list of per-request token arrays, stats).
     A request that runs out of cache returns fewer than
-    ``max_new_tokens`` tokens (``stats["truncated"]`` counts them)."""
+    ``max_new_tokens`` tokens (``stats["truncated"]`` counts them).
+    ``tracer`` goes to the ``Engine``."""
     prompts = [np.asarray(p, np.int32).reshape(-1) for p in prompts]
     max_len = max_len or (max(p.size for p in prompts) + max_new_tokens)
     eng = Engine(cfg, params, max_batch=max_batch or len(prompts),
@@ -1477,7 +1622,8 @@ def generate(cfg, params, prompts, *, max_new_tokens: int = 32,
                  slab_k=slab_k, eos_id=eos_id, paged=paged,
                  page_size=page_size, n_pages=n_pages,
                  prefix_cache=prefix_cache, mixed=mixed,
-                 prefill_token_budget=prefill_token_budget, device=device)
+                 prefill_token_budget=prefill_token_budget, tracer=tracer,
+                 device=device)
     uids = [eng.submit(p, max_new_tokens) for p in prompts]
     res = eng.run()
     return [res[u].tokens for u in uids], eng.stats

@@ -44,8 +44,17 @@ typed ``ArtifactError`` with the serving weights untouched.
 ``await front.aclose()`` drains in-flight work, joins the threads and
 finalizes the engine's stats; a stream that can no longer finish fails
 with ``RequestCancelledError`` instead of hanging its consumer, and a
-swap still queued fails with ``RuntimeError``. The reference's
-``/metrics`` endpoint and flight-recorder dumps are not ported.
+swap still queued fails with ``RuntimeError``.
+
+Observability: ``AsyncEngine(engine, metrics_port=0)`` serves the
+engine's metrics registry as Prometheus text on ``/`` and ``/metrics``
+(any other path: 404) from a stdlib ``ThreadingHTTPServer`` on its own
+thread, bound to 127.0.0.1 (``metrics_port=0`` picks a free port; the
+bound address is ``metrics_addr``), closed by ``aclose``. Each scrape
+renders from a snapshot of the registry, so it needs no lock against the
+engine thread. Every recovery the watchdog runs first dumps the engine
+tracer's flight recorder as a ``watchdog_hang`` or ``watchdog_crash``
+postmortem, even when the recovery budget is spent.
 """
 from __future__ import annotations
 
@@ -175,11 +184,13 @@ class AsyncEngine:
     ``watchdog_s`` arms the hung-step deadline; ``max_recoveries`` bounds
     how often the supervisor may rebuild the engine before the open
     streams fail (0: the first crash fails them). ``recovery_log`` keeps
-    one summary per recovery."""
+    one summary per recovery. ``metrics_port`` (None: off, 0: a free
+    port) starts the ``/metrics`` endpoint."""
 
     def __init__(self, engine, *, idle_wait_s: float = 0.002,
                  watchdog_s: float | None = None,
-                 max_recoveries: int = 0):
+                 max_recoveries: int = 0,
+                 metrics_port: int | None = None):
         self.engine = engine
         self._idle_wait_s = idle_wait_s
         # the loop side appends, the engine thread pops: both atomic
@@ -187,6 +198,11 @@ class AsyncEngine:
         self._cancels: deque = deque()
         # hot-swap requests, run by the engine thread between steps
         self._swaps: deque = deque()
+        # the Prometheus endpoint; its bound (host, port) is metrics_addr
+        self._metrics_port = metrics_port
+        self._metrics_srv = None
+        self._metrics_thread: threading.Thread | None = None
+        self.metrics_addr: tuple[str, int] | None = None
         self._wake = threading.Event()
         self._stop = False
         self._thread: threading.Thread | None = None
@@ -220,7 +236,41 @@ class AsyncEngine:
             self._monitor = threading.Thread(
                 target=self._watch, name="serving-watchdog", daemon=True)
             self._monitor.start()
+        if self._metrics_port is not None and self._metrics_srv is None:
+            self._start_metrics_server()
         return self
+
+    def _start_metrics_server(self) -> None:
+        """The ``/metrics`` endpoint: a threaded stdlib HTTP server that
+        renders the engine's registry as Prometheus text on each scrape."""
+        import http.server
+        eng = self.engine
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_GET(self):          # noqa: N802 (stdlib API name)
+                if self.path.split("?")[0] not in ("/", "/metrics"):
+                    self.send_response(404)
+                    self.end_headers()
+                    return
+                body = eng.metrics.prometheus_text().encode()
+                self.send_response(200)
+                self.send_header(
+                    "Content-Type",
+                    "text/plain; version=0.0.4; charset=utf-8")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *args):
+                pass               # scrapes must not spam stderr
+
+        srv = http.server.ThreadingHTTPServer(
+            ("127.0.0.1", self._metrics_port), Handler)
+        self._metrics_srv = srv
+        self.metrics_addr = srv.server_address[:2]
+        self._metrics_thread = threading.Thread(
+            target=srv.serve_forever, name="serving-metrics", daemon=True)
+        self._metrics_thread.start()
 
     async def __aenter__(self) -> "AsyncEngine":
         return self.start()
@@ -262,6 +312,13 @@ class AsyncEngine:
                         RuntimeError("engine shut down mid-swap")))
             except RuntimeError:
                 pass           # that loop is gone: nobody awaits
+        if self._metrics_srv is not None:
+            self._metrics_srv.shutdown()
+            self._metrics_srv.server_close()
+            self._metrics_srv = None
+            if self._metrics_thread is not None:
+                await loop.run_in_executor(None, self._metrics_thread.join)
+                self._metrics_thread = None
 
     # --------------------------------------------------------- submit
     async def submit_async(self, prompt, max_new_tokens: int = 32, *,
@@ -448,7 +505,14 @@ class AsyncEngine:
 
     def _do_recover(self, exc: BaseException) -> None:
         """One supervisor pass and a stepper restart (on the watchdog
-        thread; the stepper is confirmed dead)."""
+        thread; the stepper is confirmed dead). The flight recorder is
+        dumped first, so even a spent budget leaves the timeline."""
+        self.engine.tracer.postmortem(
+            "watchdog_" + ("hang" if isinstance(exc, EngineHangError)
+                           else "crash"),
+            error=type(exc).__name__, recoveries=self._recoveries,
+            budget=self._max_recoveries,
+            open_streams=sorted(self._streams))
         if self._recoveries >= self._max_recoveries or self._stop:
             for s in list(self._streams.values()):
                 s._fail_threadsafe(exc)

@@ -28,10 +28,14 @@ engine's consistent host-sync point):
                     would mix weights within one stream); each is
                     quarantined on its own.
 
-The counters and gauges are plain ``engine.stats`` keys:
+Observability: ``swap.stage``, ``swap.canary``, ``swap.flip`` and
+``swap.rollback`` spans and the ``swap.commit`` event on the engine's
+tracer, and the ``swap.validate_failure``, ``swap.canary_failure`` and
+``swap.rollback`` postmortems of its flight recorder; the
 ``weight_swaps``, ``swap_canary_failures``, ``swap_rollbacks``,
-``swap_canary_tokens``, ``swap_quarantines``, ``weight_generation`` and
-``weight_generations_held``.
+``swap_canary_tokens`` and ``swap_quarantines`` counters and the
+``weight_generation`` and ``weight_generations_held`` gauges in its
+metrics registry.
 """
 from __future__ import annotations
 
@@ -98,6 +102,9 @@ class _SwapMonitor:
             return
         engine._swap_monitor = None
         self.report.state = COMMITTED
+        if engine.tracer.enabled:
+            engine.tracer.event("swap.commit", gen=self.gen,
+                                quarantines=self.report.quarantines)
 
 
 def _flip_generation(engine, params) -> int:
@@ -117,6 +124,7 @@ def _flip_generation(engine, params) -> int:
 
 
 def _rollback(engine, mon: _SwapMonitor, reason: str) -> None:
+    t0 = time.monotonic()
     engine._swap_monitor = None
     g = _flip_generation(engine, mon.prev_params)
     engine.stats["swap_rollbacks"] += 1
@@ -124,6 +132,12 @@ def _rollback(engine, mon: _SwapMonitor, reason: str) -> None:
     r.state = ROLLED_BACK
     r.rollback_reason = reason
     r.rollback_gen = g
+    engine.tracer.span_at("swap.rollback", t0, time.monotonic(),
+                          bad_gen=mon.gen, to_gen=g, reason=reason,
+                          quarantines=r.quarantines)
+    engine.tracer.postmortem(
+        "swap.rollback", bad_gen=mon.gen, restored_gen=g, cause=reason,
+        quarantines=r.quarantines, fingerprint=r.fingerprint)
 
 
 def swap_weights(engine, artifact_dir: str, *, monitor_steps: int = 8,
@@ -138,14 +152,22 @@ def swap_weights(engine, artifact_dir: str, *, monitor_steps: int = 8,
     if engine._swap_monitor is not None:
         raise RuntimeError(
             "previous swap is still in its monitoring window")
+    tr = engine.tracer
 
     # STAGED: bytes and structure, then placement beside the live weights
     t0 = time.monotonic()
-    params, manifest = artifact.load(artifact_dir, engine.cfg,
-                                     device=engine.device)
+    try:
+        params, manifest = artifact.load(artifact_dir, engine.cfg,
+                                         device=engine.device)
+    except artifact.ArtifactError as e:
+        tr.postmortem("swap.validate_failure", artifact=artifact_dir,
+                      error=type(e).__name__, detail=str(e))
+        raise
     if engine.device.type == "cuda":
         torch.cuda.synchronize(engine.device)
     t1 = time.monotonic()
+    tr.span_at("swap.stage", t0, t1, artifact=artifact_dir,
+               fingerprint=manifest["fingerprint"])
 
     # CANARY: the behavioural layer, on the decode path
     gold = artifact.golden_logits(artifact_dir, manifest)
@@ -154,18 +176,26 @@ def swap_weights(engine, artifact_dir: str, *, monitor_steps: int = 8,
             engine.cfg, params, manifest, gold,
             max_token_mismatches=max_token_mismatches,
             max_logit_drift=max_logit_drift)
-    except artifact.ArtifactCanaryError:
+    except artifact.ArtifactCanaryError as e:
         engine.stats["swap_canary_failures"] += 1
+        tr.span_at("swap.canary", t1, time.monotonic(),
+                   artifact=artifact_dir, passed=False)
+        tr.postmortem("swap.canary_failure", artifact=artifact_dir,
+                      fingerprint=manifest["fingerprint"], detail=str(e))
         raise
-    engine.stats["swap_canary_tokens"] += sum(
-        len(c["tokens"]) for c in manifest.get("canaries", []))
+    n_tok = sum(len(c["tokens"]) for c in manifest.get("canaries", []))
+    engine.stats["swap_canary_tokens"] += n_tok
     t2 = time.monotonic()
+    tr.span_at("swap.canary", t1, t2, artifact=artifact_dir, passed=True,
+               tokens=n_tok)
 
     # FLIPPED: the generational cutover at the step boundary
     prev_gen, prev_params = engine._gen, engine.params
     g = _flip_generation(engine, params)
     engine.stats["weight_swaps"] += 1
     t3 = time.monotonic()
+    tr.span_at("swap.flip", t2, t3, from_gen=prev_gen, to_gen=g,
+               fingerprint=manifest["fingerprint"])
     report = SwapReport(
         state=FLIPPED, from_gen=prev_gen, to_gen=g,
         fingerprint=manifest["fingerprint"], canary=canary,

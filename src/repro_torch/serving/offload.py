@@ -29,6 +29,7 @@ import zlib
 
 import torch
 
+from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.serving.faults import (OffloadCapacityError,
                                         OffloadCorruptionError)
 
@@ -73,6 +74,8 @@ class HostKVStore:
         self.capacity_bytes = capacity_bytes
         self.bytes_peak = 0
         self.fault_hook = None
+        # span tracer (obs/trace.py), installed by the engine
+        self.tracer = NULL_TRACER
 
     def __len__(self) -> int:
         return len(self._recs)
@@ -110,6 +113,9 @@ class HostKVStore:
         rec = OffloadRecord(list(logical), k, v)
         self._admit(rec.nbytes)
         self._seal(uid, rec)
+        if self.tracer.enabled:
+            self.tracer.event("offload.save", uid=uid,
+                              pages=len(logical), bytes=rec.nbytes)
 
     def pop(self, uid: int) -> OffloadRecord | None:
         """Take and drop the record for ``uid``, verifying every page;
@@ -123,7 +129,12 @@ class HostKVStore:
             bad = [lg for i, lg in enumerate(rec.logical)
                    if rec.page_crc(i) != rec.checksums[i]]
             if bad:
+                self.tracer.event("offload.corrupt", uid=uid,
+                                  bad_pages=bad)
                 raise OffloadCorruptionError(uid, bad)
+        if self.tracer.enabled:
+            self.tracer.event("offload.pop", uid=uid,
+                              pages=len(rec.logical), bytes=rec.nbytes)
         return rec
 
     def extend(self, uid: int, logical: list[int], k: torch.Tensor,

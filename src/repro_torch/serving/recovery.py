@@ -52,7 +52,9 @@ Queued requests are host state and stay queued. A broken CUDA context
 (a sticky error such as an illegal address) cannot be recovered in the
 process: ``recover`` then raises ``EngineCrashError(device_lost=True)``
 without rebuilding. The watchdog of ``serving/frontend.py`` is the usual
-caller.
+caller. Before anything is touched, ``recover`` dumps the engine tracer's
+flight recorder as a ``supervisor_recover`` postmortem (the uids on lanes
+at the crash in its meta), and it records a ``recovery`` span.
 """
 from __future__ import annotations
 
@@ -229,6 +231,14 @@ class Supervisor:
         engine's pending results. Safe to call again: each call recovers
         the current snapshot."""
         eng = self.engine
+        device_lost = bool(getattr(exc, "device_lost", False))
+        # the flight recorder holds the last N spans before the crash:
+        # freeze them first (a broken CUDA context below included), so the
+        # rebuild, which clears the lanes, cannot disturb the timeline
+        eng.tracer.postmortem(
+            "supervisor_recover", error=type(exc).__name__,
+            device_lost=device_lost,
+            active_uids=[eng.lanes[i].req.uid for i in eng.active_lanes])
         if eng.device.type == "cuda":
             try:
                 torch.cuda.synchronize(eng.device)
@@ -237,7 +247,6 @@ class Supervisor:
                     f"CUDA context is broken, not recoverable in this "
                     f"process: {e}", device_lost=True) from e
         t0 = time.monotonic()
-        device_lost = bool(getattr(exc, "device_lost", False))
         results: list = []
         relaunch: list = []
         salvaged: list = []
@@ -252,7 +261,14 @@ class Supervisor:
         if eng.paged:
             eng.stats["offload_bytes_peak"] = max(
                 eng.stats["offload_bytes_peak"], eng._offload.bytes_peak)
-        return {"latency_s": time.monotonic() - t0,
+        latency = time.monotonic() - t0
+        if eng.tracer.enabled:
+            eng.tracer.span_at("recovery", t0, t0 + latency,
+                               error=type(exc).__name__,
+                               device_lost=device_lost,
+                               salvaged=len(salvaged),
+                               relaunched=len(relaunch))
+        return {"latency_s": latency,
                 "device_lost": device_lost,
                 "salvaged_lanes": len(salvaged),
                 "salvaged_bytes": nbytes,

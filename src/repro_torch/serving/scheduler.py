@@ -31,6 +31,8 @@ from typing import Callable, Iterable
 
 import numpy as np
 
+from repro_torch.obs.trace import NULL_TRACER
+
 
 @dataclasses.dataclass
 class Request:
@@ -90,6 +92,8 @@ class FIFOScheduler:
         # engine-installed extra submit gate: callable(req) raising
         # ValueError when the request could never run
         self.feasibility: Callable[[Request], None] | None = None
+        # span tracer (obs/trace.py), installed by the engine
+        self.tracer = NULL_TRACER
         self._queue: deque[Request] = deque()
         self._seq = 0
         # arrival seqs of crash-relaunched requests: far below every fresh
@@ -139,14 +143,22 @@ class FIFOScheduler:
         once per attempt (``rejected_steps``)."""
         out: list[Request] = []
         while self._queue and len(out) < n_free:
-            if (page_cost is not None
-                    and page_cost(out + [self._queue[0]]) > free_pages):
-                self.rejected_steps += 1
-                head = self._queue[0]
-                if head.uid != self._blocked_uid:
-                    self.rejections += 1
-                    self._blocked_uid = head.uid
-                break
+            if page_cost is not None:
+                trial = out + [self._queue[0]]
+                if page_cost(trial) > free_pages:
+                    self.rejected_steps += 1
+                    head = self._queue[0]
+                    if head.uid != self._blocked_uid:
+                        self.rejections += 1
+                        self._blocked_uid = head.uid
+                        if self.tracer.enabled:
+                            # once per distinct blocked head, like the
+                            # counter
+                            self.tracer.event(
+                                "admit.blocked", uid=head.uid,
+                                free_pages=free_pages,
+                                need_pages=page_cost(trial))
+                    break
             out.append(self._queue.popleft())
         return out
 

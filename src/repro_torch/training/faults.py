@@ -25,7 +25,11 @@ repro_torch.training.faults spec.json``): a training run built from a
 JSON spec that tests and ``chip_smoke.py`` SIGKILL, resume and compare
 bitwise against an uninterrupted run. The child switches PyTorch to its
 deterministic algorithms (``CUBLAS_WORKSPACE_CONFIG=:4096:8``) before
-CUDA starts, and records any op that has no deterministic variant.
+CUDA starts, and records any op that has no deterministic variant. With
+a ``trace_dir`` in its spec the child trains under a ``Tracer`` whose
+postmortems land there, and its metadata summarises the ring (records by
+name, ``train.step`` durations, each postmortem's reason, meta and record
+count).
 """
 from __future__ import annotations
 
@@ -202,7 +206,7 @@ def default_chaos_spec(workdir: str, **overrides) -> dict:
                     weight_decay=0.0),
         "ckpt_dir": None, "ckpt_every": 4, "keep": 3,
         "kill_at": None, "nan_at": [],
-        "device": "cuda",
+        "device": "cuda", "trace_dir": None,
         "out": os.path.join(workdir, "final.npz"),
         "meta_out": os.path.join(workdir, "meta.json"),
     }
@@ -247,6 +251,7 @@ def chaos_child_main(argv: list[str]) -> None:
     from repro_torch.configs.base import ModelConfig
     from repro_torch.core.prune_grow import BlastSpec
     from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.obs.trace import Tracer
     from repro_torch.optim import adamw
     from repro_torch.training import train_loop
 
@@ -270,12 +275,15 @@ def chaos_child_main(argv: list[str]) -> None:
         total_steps=spec["steps"], ckpt_dir=spec.get("ckpt_dir"),
         ckpt_every=spec["ckpt_every"], keep=spec["keep"],
         log_every=10 ** 9)
+    tracer = (Tracer(postmortem_dir=spec["trace_dir"])
+              if spec.get("trace_dir") else None)
     t0 = time.monotonic()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         state, hist = train_loop.train(cfg, opt, src, loop, faults=plan,
                                        log_fn=lambda m: None,
-                                       device=spec["device"])
+                                       device=spec["device"],
+                                       tracer=tracer)
     wall = time.monotonic() - t0
     nondet = sorted({str(w.message).split("\n")[0] for w in caught
                      if "deterministic" in str(w.message)})
@@ -287,11 +295,24 @@ def chaos_child_main(argv: list[str]) -> None:
     counters = {k: hist[-1].get(k) for k in
                 ("anomaly_steps", "skipped_steps", "rewinds",
                  "ckpt_fallbacks")} if hist else {}
+    trace = None
+    if tracer is not None:
+        recs = list(tracer.records)
+        names: dict[str, int] = {}
+        for r in recs:
+            names[r.name] = names.get(r.name, 0) + 1
+        trace = {"records": names,
+                 "train_step_s": [r.dur for r in recs
+                                  if r.name == "train.step"],
+                 "postmortems": [{"reason": p["reason"], "meta": p["meta"],
+                                  "records": len(p["spans"]),
+                                  "names": [s["name"] for s in p["spans"]]}
+                                 for p in tracer.postmortems]}
     with open(spec["meta_out"], "w") as f:
         json.dump({"resumed_from": resumed_from, "wall_s": wall,
                    "verify_latency_s": restore_s, "fired": plan.fired,
-                   "counters": counters, "nondeterministic_ops": nondet},
-                  f)
+                   "counters": counters, "nondeterministic_ops": nondet,
+                   "trace": trace}, f)
 
 
 if __name__ == "__main__":

@@ -22,6 +22,9 @@ jumps — the sparsifier just zeroed whole weight blocks — so for
 ``refresh_window`` steps after each refresh the z-threshold is widened
 by ``refresh_relax`` instead of tripping the guard on the schedule's
 own dynamics.
+
+Each anomalous verdict is a ``train.anomaly`` event on ``tracer``
+(obs/trace.py; the train loop installs its own).
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ import math
 import numpy as np
 
 from repro_torch.core.schedule import steps_since_refresh
+from repro_torch.obs.trace import NULL_TRACER
 
 
 @dataclasses.dataclass
@@ -67,6 +71,7 @@ class AnomalyGuard:
         self._var = 0.0
         self._n = 0                    # healthy observations seen
         self.consecutive = 0
+        self.tracer = NULL_TRACER  # obs/trace.py; train_loop installs
         self.counters = {"anomaly_steps": 0, "skipped_steps": 0,
                          "spike_steps": 0, "rewinds": 0,
                          "steps_replayed": 0}
@@ -109,6 +114,10 @@ class AnomalyGuard:
         if verdict != "ok":
             self.counters["anomaly_steps"] += 1
             self.consecutive += 1
+            if self.tracer.enabled:
+                self.tracer.event("train.anomaly", step=step,
+                                  verdict=verdict, loss=loss,
+                                  consecutive=self.consecutive)
             if self.consecutive >= c.max_consecutive:
                 return "rewind"
             return verdict

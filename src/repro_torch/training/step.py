@@ -5,8 +5,8 @@ paper Listing 1, and the masked AdamW update with pruned-moment reset.
 The reference decides skip vs update on the device under ``lax.cond``.
 Eager PyTorch cannot branch on a device value without reading it, so the
 step reads the loss and the gradient norm once, together, right after
-the backward (the one host sync of a step; the loop reads the loss from
-it and adds no other), decides on the host, and only then builds the
+the backward (the step's one host sync; the loop's read of the
+metrics follows it), decides on the host, and only then builds the
 update. A skipped step returns params, moments and masks unchanged. The
 step count is a host int, so the refresh cadence is a Python branch.
 """
@@ -78,7 +78,8 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, kd_alpha=1.0,
     Anomaly guard (``guard``): a non-finite loss or gradient norm, or a
     norm over ``grad_norm_limit``, skips the update. Metrics: 'loss',
     'aux', 'grad_norm', 'lr', 'anomaly' as host numbers; 'sparsity' as a
-    device scalar, read by whoever logs it."""
+    device scalar made after the update (0 without BLaST), so that its
+    read waits for the whole step on the device."""
     spec = cfg.blast
     flags = {"cpu": registry.dense_layer_flags(cfg)} if spec.enabled else None
 
@@ -167,7 +168,7 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, kd_alpha=1.0,
                                  + np.float32(poison["loss_poison"])),
                    "aux": float(aux),
                    "sparsity": (sm.tree_sparsity(masks) if spec.enabled
-                                else 0.0),
+                                else loss.new_zeros(())),
                    "grad_norm": gnorm_h,
                    "lr": adamw.lr_at(opt_cfg, state.step),
                    "anomaly": int(anomaly)}

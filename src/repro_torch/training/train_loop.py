@@ -13,15 +13,23 @@ watchdog.
     generator is in the state). A spent rewind budget raises
     ``TrainingDivergedError``; without checkpoints the verdict takes the
     ``rewind_unavailable`` branch (log it, clear the streak, go on);
-  * SIGTERM/SIGINT save one blocking checkpoint, then stop.
+  * SIGTERM/SIGINT save one blocking checkpoint, then stop;
+  * observability: ``tracer=`` records a ``train.step`` span per step,
+    routes every structured event as ``train.<event>``, installs itself
+    into the checkpointer and the guard, and dumps ``train_rewind`` and
+    ``training_diverged`` postmortems; the loop's counters live on a
+    ``MetricsRegistry(namespace="blast_train")`` (or the ``metrics=``
+    one a caller injects, to scrape it).
 
-Not ported yet: the reference's tracer and metrics registry (the
-counters are a plain dict) and ``dist=``.
+Not ported yet: ``dist=``.
 
-One host sync per step: the step reads its loss and gradient norm
+Two host reads per step: the step reads its loss and gradient norm
 together to decide skip or update (``training/step.py``), and the loop
-reuses that read. The sparsity metric is a device scalar, read only at
-logged steps.
+reads the step's metrics at every step, logged or not. Their sparsity is
+a device scalar made after the update, so that read is stream-ordered
+after AdamW and closes the step on the device. The step time ``dt``
+(history's ``sec_per_step`` and the ``train.step`` span) runs from
+before the step to that read, so every ``dt`` covers its whole step.
 """
 from __future__ import annotations
 
@@ -35,13 +43,23 @@ import numpy as np
 import torch
 
 from repro_torch.checkpointing.checkpoint import Checkpointer
+from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.optim import adamw
 from repro_torch.training import step as step_mod
 from repro_torch.training.faults import TrainingDivergedError
 from repro_torch.training.guard import AnomalyGuard, GuardConfig
 
-COUNTERS = ("straggler_steps", "ckpt_fallbacks", "anomaly_steps",
-            "skipped_steps", "spike_steps", "rewinds", "steps_replayed")
+# the loop's counters, registered with their help on its metrics registry
+_COUNTER_HELP = (
+    ("straggler_steps", "steps slower than factor x median"),
+    ("ckpt_fallbacks", "corrupt/torn checkpoints skipped"),
+    ("anomaly_steps", "steps with any anomaly verdict"),
+    ("skipped_steps", "device-skipped (non-finite/grad) steps"),
+    ("spike_steps", "host loss-spike verdicts"),
+    ("rewinds", "automatic checkpoint rewinds"),
+    ("steps_replayed", "steps re-run after rewinds"))
+COUNTERS = tuple(name for name, _ in _COUNTER_HELP)
 
 
 @dataclasses.dataclass
@@ -59,7 +77,8 @@ class TrainLoopConfig:
 def train(cfg, opt_cfg: adamw.AdamWConfig, source, loop: TrainLoopConfig,
           state=None, log_fn: Callable[[dict], None] | None = None,
           teacher_params=None, teacher_cfg=None, kd_beta: float = 0.0,
-          faults=None, device="cuda", seed: int = 0):
+          faults=None, device="cuda", seed: int = 0, tracer=None,
+          metrics=None):
     """Returns (final_state, history).
 
     ``source.batch(step)`` gives numpy 'tokens' and 'labels'. Without a
@@ -72,7 +91,15 @@ def train(cfg, opt_cfg: adamw.AdamWConfig, source, loop: TrainLoopConfig,
     entries are step metrics (every ``log_every`` steps and the final
     step, which is always last) or structured events (``{"event":
     "straggler" | "rewind" | ...}``); each step-metrics entry carries the
-    loop's counters."""
+    loop's counters.
+
+    ``tracer`` (obs/trace.py) records the ``train.step`` spans and the
+    ``train.*`` events and dumps the rewind and divergence postmortems;
+    ``metrics`` injects the ``MetricsRegistry`` behind the counters (by
+    default a private one), so a caller can scrape them."""
+    tr = NULL_TRACER if tracer is None else tracer
+    reg = metrics if metrics is not None else MetricsRegistry(
+        namespace="blast_train")
     gcfg = loop.guard if (loop.guard and loop.guard.enabled) else None
     step_fn = step_mod.make_train_step(
         cfg, opt_cfg, kd_beta=kd_beta, teacher_cfg=teacher_cfg,
@@ -84,8 +111,10 @@ def train(cfg, opt_cfg: adamw.AdamWConfig, source, loop: TrainLoopConfig,
 
     ckpt = Checkpointer(loop.ckpt_dir, keep=loop.keep) \
         if loop.ckpt_dir else None
-    if ckpt is not None and faults is not None:
-        ckpt.fault_hook = faults.on_ckpt_saved
+    if ckpt is not None:
+        ckpt.tracer = tr
+        if faults is not None:
+            ckpt.fault_hook = faults.on_ckpt_saved
     start = 0
     if ckpt and ckpt.latest_intact_step() is not None:
         state = ckpt.restore_state(state)
@@ -95,7 +124,11 @@ def train(cfg, opt_cfg: adamw.AdamWConfig, source, loop: TrainLoopConfig,
     guard = AnomalyGuard(
         gcfg, step_size=(cfg.blast.step_size if cfg.blast.enabled
                          else 0)) if gcfg else None
-    counters = dict.fromkeys(COUNTERS, 0)
+    if guard is not None:
+        guard.tracer = tr
+    for name, help_ in _COUNTER_HELP:
+        reg.counter(name, help_)
+    counters = reg.view()
 
     stop = {"flag": False}
 
@@ -114,6 +147,10 @@ def train(cfg, opt_cfg: adamw.AdamWConfig, source, loop: TrainLoopConfig,
 
     def emit(event: dict):
         history.append(event)
+        if tr.enabled:
+            # one schema for the history and the tracer
+            tr.event("train." + event["event"],
+                     **{k: v for k, v in event.items() if k != "event"})
         if log_fn:
             log_fn(event)
         else:
@@ -131,7 +168,10 @@ def train(cfg, opt_cfg: adamw.AdamWConfig, source, loop: TrainLoopConfig,
             t0 = time.monotonic()
             if faults is not None:
                 faults.on_timed_step(i)
-            state, metrics = step_fn(state, batch)
+            state, out = step_fn(state, batch)
+            # read here, before dt, at every step: stream-ordered after
+            # the update, this read closes the step on the device
+            m = {k: float(v) for k, v in out.items()}
             dt = time.monotonic() - t0
             durations.append(dt)
             med = float(np.median(durations[-50:]))
@@ -140,15 +180,25 @@ def train(cfg, opt_cfg: adamw.AdamWConfig, source, loop: TrainLoopConfig,
                 emit({"event": "straggler", "step": i,
                       "sec_per_step": dt, "median_s": med})
 
+            if tr.enabled:
+                # from the step's own timestamps: no read of its own
+                tr.span_at("train.step", t0, t0 + dt, step=i,
+                           loss=out["loss"], anomaly=bool(out["anomaly"]))
             if guard is not None:
-                verdict = guard.observe(i, metrics["loss"],
-                                        bool(metrics["anomaly"]))
+                verdict = guard.observe(i, out["loss"],
+                                        bool(out["anomaly"]))
                 counters.update(guard.counters)
                 if verdict == "rewind":
                     target = ckpt.latest_intact_step() if ckpt else None
                     if (target is not None
                             and guard.counters["rewinds"]
                             < gcfg.max_rewinds):
+                        # freeze the flight recorder first: the restore
+                        # goes back in time, and the ring is the only
+                        # record of the anomalous run-up
+                        tr.postmortem("train_rewind", step=i,
+                                      consecutive=guard.consecutive,
+                                      rewinds=guard.counters["rewinds"])
                         state = ckpt.restore_state(state)
                         counters["ckpt_fallbacks"] = ckpt.fallbacks
                         new_i = state.step
@@ -160,6 +210,10 @@ def train(cfg, opt_cfg: adamw.AdamWConfig, source, loop: TrainLoopConfig,
                         i = new_i
                         continue
                     if ckpt is not None:
+                        tr.postmortem(
+                            "training_diverged", step=i,
+                            consecutive=guard.consecutive,
+                            rewinds=guard.counters["rewinds"])
                         raise TrainingDivergedError(
                             i, guard.consecutive,
                             guard.counters["rewinds"])
@@ -167,7 +221,6 @@ def train(cfg, opt_cfg: adamw.AdamWConfig, source, loop: TrainLoopConfig,
                     emit({"event": "rewind_unavailable", "step": i})
 
             if i % loop.log_every == 0 or i == loop.total_steps - 1:
-                m = {k: float(v) for k, v in metrics.items()}
                 if ckpt:
                     counters["ckpt_fallbacks"] = ckpt.fallbacks
                 m.update(step=i, sec_per_step=dt, **counters)

@@ -62,9 +62,10 @@ def _snapshot(eng, paged):
     return snap
 
 
-def lockstep(name: str, mode: dict, **kw):
+def lockstep(name: str, mode: dict, tracers=(None, None), **kw):
     """Run the scenario through both engines, one step each in turn
-    (``kw`` overrides ``KW``).
+    (``kw`` overrides ``KW``; ``tracers`` are the reference's and the
+    port's ``tracer=``).
     Returns a dict: per-step snapshots, results and stats per side, the
     prompts, and the port's phased paged streams on the same traffic."""
     jcfg = CFGS[name]()
@@ -73,8 +74,9 @@ def lockstep(name: str, mode: dict, **kw):
     prompts, budgets = traffic(jcfg.vocab_size)
     paged = mode.get("paged", True)
     kw = dict(KW, **kw)
-    je = jengine.Engine(jcfg, jp, **kw, **mode)
-    te = tengine.Engine(tcfg, tp, device="cpu", **kw, **mode)
+    je = jengine.Engine(jcfg, jp, tracer=tracers[0], **kw, **mode)
+    te = tengine.Engine(tcfg, tp, device="cpu", tracer=tracers[1], **kw,
+                        **mode)
     for p, n in zip(prompts, budgets):
         assert je.submit(p, n) == te.submit(p, n)
     snaps_j, snaps_t, done_j, done_t = [], [], {}, {}

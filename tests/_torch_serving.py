@@ -163,6 +163,23 @@ def check_counters(je, te, keys=COUNTERS) -> None:
         assert te.stats.get(k, 0) == je.stats.get(k, 0), k
 
 
+# span attributes that are seconds on each side's own clock; the events'
+# other attributes must be equal
+TIME_ATTRS = ("queued_s", "ttft_s", "sec_per_step", "median_s")
+
+
+def events(spans) -> list:
+    """(name, attrs without the timed ones) of each span, oldest first;
+    ``spans`` is a tracer's ring or a postmortem's ``spans`` list."""
+    out = []
+    for s in list(spans):
+        name, attrs = ((s["name"], s["attrs"]) if isinstance(s, dict)
+                       else (s.name, s.attrs))
+        out.append((name, {k: v for k, v in attrs.items()
+                           if k not in TIME_ATTRS}))
+    return out
+
+
 def pool_consistent(e) -> bool:
     p = e.pool
     return p.free_pages + p.referenced + p.cached_idle == p.n_pages
