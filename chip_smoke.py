@@ -100,6 +100,7 @@ the last is ``{"ok": true, "device": {...}}``. Any failed phase raises
 and the script exits non-zero without that line. Needs one CUDA card.
 """
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -172,6 +173,15 @@ OBS_DIR = os.path.join(ROOT, "build", "obs")
 OBS_ROUNDS, OBS_SCRAPE_S, OBS_TOK_FLOOR, OBS_STEP_TOL = 3, 1.0, 0.9, 0.10
 OBS_PAIR_STEPS, OBS_REWIND_NAN, OBS_REWIND_STEPS = 4, [5, 6, 7], 8
 OBS_UNLOGGED_STEPS = 12
+# the four dense --arch configurations, packed at s = 0.8: qwen2-7b whole
+# through the launcher's main() (depth None), the others at full width
+# with their depth cut (f32 init of gemma2-27b at full depth is ~109 GB);
+# the launcher's 8 prompts of 64 tokens x 32 new; kernel lines at M = 8
+# rows and B = 8 lanes over R = 16 pages; parity prompts of 64-128 tokens
+ARCH_RUNS = {"qwen2-7b": None, "stablelm-3b": 4, "stablelm-12b": 4,
+             "gemma2-27b": 4}
+ARCH_SPARSITY, ARCH_BATCH, ARCH_PROMPT, ARCH_TOKENS = 0.8, 8, 64, 32
+ARCH_M, ARCH_DECODE_B, ARCH_DECODE_R, ARCH_PARITY_PROMPTS = 8, 8, 16, 4
 SYNC_WARNING = "called a synchronizing CUDA operation"
 
 
@@ -304,28 +314,25 @@ def phase_build():
 
 
 def phase_model(torch, cfg):
-    """Seeded f32 weights on the card, the one-shot prune at 0.8 of
-    repro/launch/serve.py (dense_last not applied), then the packed
-    (split), packed joint and pruned-dense serving params."""
-    from repro_torch.core import sparse_mlp as sm
-    from repro_torch.core.prune_grow import initial_mask
+    """Seeded f32 weights on the card, the launcher's one-shot prune at 0.8
+    (``launch.serve.prune_and_pack``; dense_last not applied), then the
+    packed (split), packed joint and pruned-dense serving params."""
+    import repro_torch.launch.serve as launcher
     from repro_torch.models import registry
     from repro_torch.serving import export
     t0 = time.monotonic()
     params = registry.init_params(cfg, SEED, device=DEVICE)
-    spec = dataclasses.replace(cfg.blast, s_init=0.8, s_max=0.8)
-    masks = {}
-    for path in registry.sparse_paths(cfg):
-        bi, bo = sm.block_dims_for(spec, path)
-        masks[path] = initial_mask(
-            dataclasses.replace(spec, b_in=bi, b_out=bo),
-            sm.get_path(params, path))
-    packed = export.pack_params(cfg, params, masks, unbalanced="raise")
+    masks = launcher.one_shot_masks(cfg, params, 0.8)
     jmasks = dict(masks)
     jmasks["layers/mlp/w_up"] = masks["layers/mlp/w_gate"]
-    joint = export.pack_params(cfg, params, jmasks, unbalanced="raise")
-    dense = export.prune_params(cfg, params, masks)
+    pad = {}
+    packed = launcher.prune_and_pack(cfg, params, 0.8, True, masks=masks,
+                                     pad_report=pad)
+    joint = launcher.prune_and_pack(cfg, params, 0.8, True, masks=jmasks,
+                                    pad_report=pad)
+    dense = launcher.prune_and_pack(cfg, params, 0.8, False, masks=masks)
     del params, masks, jmasks
+    check(not pad, f"one-shot masks are unbalanced: {pad}")
     mlp, jmlp = packed["layers"]["mlp"], joint["layers"]["mlp"]
     check(not mlp["w_gate"].joint and jmlp["w_gate"].joint
           and jmlp["w_up"].joint, "joint marking is wrong")
@@ -338,6 +345,24 @@ def phase_model(torch, cfg):
          memory_dense=export.memory_report(cfg, dense),
          memory_packed_joint=export.memory_report(cfg, joint))
     return packed, joint, dense
+
+
+def _record(torch, card, phase, name, dt, shape, got, want, t_k, t_p, t_l,
+            nbytes, ops_, **extra):
+    """Hold one kernel's result against its plain version's within
+    ``ulp_tol`` and emit its line (times, bound, library time)."""
+    err = float((got.float() - want.float()).abs().max())
+    tol = ulp_tol(torch, want, dt)
+    key = "bf16" if dt == torch.bfloat16 else "f32"
+    b_ms, b_by = bound_ms(card, nbytes, ops_, key)
+    emit(phase=phase, name=name, dtype=key, shape=shape, max_abs_err=err,
+         tol=tol, ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
+         bound_by=b_by, **extra)
+    check(err <= tol and math.isfinite(err),
+          f"{name} {key} {shape}: max abs err {err} > tol {tol}")
+    return dict(max_abs_err=err, tol=tol, ms=t_k, plain_ms=t_p,
+                library_ms=t_l, bound_ms=b_ms, bound_by=b_by,
+                shape=shape, dtype=key, **extra)
 
 
 def phase_kernels(torch, card, packed, joint):
@@ -374,20 +399,8 @@ def phase_kernels(torch, card, packed, joint):
     dense_gu_j = torch.cat([unpack(jmlp0["w_gate"]),
                             unpack(jmlp0["w_up"])], dim=1)
 
-    def record(name, dt, shape, got, want, t_k, t_p, t_l, nbytes, ops_,
-               **extra):
-        err = float((got.float() - want.float()).abs().max())
-        tol = ulp_tol(torch, want, dt)
-        key = "bf16" if dt == torch.bfloat16 else "f32"
-        b_ms, b_by = bound_ms(card, nbytes, ops_, key)
-        emit(phase="kernel", name=name, dtype=key, shape=shape,
-             max_abs_err=err, tol=tol, ms=t_k, plain_ms=t_p,
-             library_ms=t_l, bound_ms=b_ms, bound_by=b_by, **extra)
-        check(err <= tol and math.isfinite(err),
-              f"{name} {key} {shape}: max abs err {err} > tol {tol}")
-        return dict(max_abs_err=err, tol=tol, ms=t_k, plain_ms=t_p,
-                    library_ms=t_l, bound_ms=b_ms, bound_by=b_by,
-                    shape=shape, dtype=key, **extra)
+    def record(*args, **extra):
+        return _record(torch, card, "kernel", *args, **extra)
 
     for dt in (torch.bfloat16, torch.float32):
         es = 2 if dt == torch.bfloat16 else 4
@@ -1375,12 +1388,16 @@ def _last_logits(torch, cfg, params, prompt):
 
 
 def _first_layers(tree, n):
-    """The params of the model's first ``n`` layers (views)."""
+    """The params of the model's first ``n`` layers (views); a
+    local/global model's stacks hold n // 2 (local, global) pairs."""
     from repro_torch.core.packing import PackedBCSC
     out = {}
     for k, v in tree.items():
-        if k != "layers":
+        if not k.startswith("layers"):
             out[k] = v
+            continue
+        if k != "layers":
+            out[k] = _first_layers({"layers": v}, n // 2)["layers"]
             continue
         out[k] = {}
         for name, sub in v.items():
@@ -2578,6 +2595,264 @@ def phase_train_chaos(torch, cfg):
                           "a3": m3["verify_latency_s"]})
 
 
+# ------------------------------------------------------ the --arch registry
+def _mlp_of(cfg, tree, j):
+    """Layer ``j``'s MLP params (views), in layer order: a local/global
+    model alternates its two stacks."""
+    from repro_torch.models import transformer
+    if cfg.layer_pattern == "local_global":
+        stack, i = ("layers_local", "layers_global")[j % 2], j // 2
+    else:
+        stack, i = "layers", j
+    return transformer._layer_view(tree[stack], i)["mlp"]
+
+
+def phase_arch_kernels(torch, card, timer, cfg, packed, jgate, jup):
+    """The kernels at one full-width layer of ``cfg`` (layer 0, s = 0.8,
+    bf16): ``bspmm`` on the down projection, the split GLU with the
+    model's activation and the joint GLU at M = 8 rows, and paged decode
+    at B = 8 lanes over R = 16 pages of 16 with the model's kv heads, G,
+    head dim, scale, softcap and window (a pool of 256 pages), each held
+    against its plain version within ``ulp_tol``. The library yardsticks
+    are ``torch.matmul`` on the dense weight and SDPA on pre-gathered
+    pages (SDPA has no logit softcap: gemma2's is timed without it)."""
+    import torch.nn.functional as F
+    from repro_torch.core.packing import unpack
+    from repro_torch.kernels import bspmm as kb, ops
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import attention
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    dt, es, m, act = torch.bfloat16, 2, ARCH_M, cfg.mlp_act
+    mlp0 = _mlp_of(cfg, packed, 0)
+    down, gate, up = mlp0["w_down"], mlp0["w_gate"], mlp0["w_up"]
+    h = torch.randn(m, down.kb * down.b_in, generator=gen,
+                    device=DEVICE).to(dt)
+    x = torch.randn(m, gate.kb * gate.b_in, generator=gen,
+                    device=DEVICE).to(dt)
+    wd = unpack(down)
+    wgu = torch.cat([unpack(gate), unpack(up)], dim=1)
+    wgu_j = torch.cat([unpack(jgate), unpack(jup)], dim=1)
+    n_ff = gate.nb * gate.b_out
+    blk = lambda p: p.blocks.numel() * es + p.idx.numel() * 4  # noqa: E731
+    rows = {
+        "bspmm": (lambda: kb.bspmm(h, down),
+                  lambda: ops.bspmm_plain(h, down),
+                  lambda: torch.matmul(h, wd),
+                  h.numel() * es + blk(down) + m * down.nb * down.b_out * es,
+                  ops.flops_bspmm(m, down), kb.launch_plan(h, down), down),
+        "fused_glu_split": (
+            lambda: kb.fused_glu(x, gate, up, act=act),
+            lambda: ops.fused_glu_plain(x, gate, up, act),
+            lambda: torch.matmul(x, wgu),
+            x.numel() * es + blk(gate) + blk(up) + m * n_ff * es,
+            ops.flops_bspmm(m, gate) + ops.flops_bspmm(m, up),
+            kb.launch_plan(x, gate, up), gate),
+        "fused_glu_joint": (
+            lambda: kb.fused_glu(x, jgate, jup, act=act),
+            lambda: ops.fused_glu_plain(x, jgate, jup, act),
+            lambda: torch.matmul(x, wgu_j),
+            x.numel() * es + jgate.blocks.numel() * es * 2
+            + jgate.idx.numel() * 4 + m * n_ff * es,
+            ops.flops_bspmm(m, jgate) * 2, kb.launch_plan(x, jgate, jup),
+            jgate),
+    }
+    out = {}
+    base = dict(arch=cfg.name, block=[cfg.blast.b_in, cfg.blast.b_out])
+    for name, (k_fn, p_fn, l_fn, nbytes, ops_, plan, p) in rows.items():
+        out[name] = _record(
+            torch, card, "arch_kernel", name, dt, [m], k_fn(), p_fn(),
+            timer.ms(k_fn), timer.ms(p_fn), timer.ms(l_fn), nbytes, ops_,
+            plan=plan.describe(), act=act, kb=p.kb, nb=p.nb, nnz=p.nnz,
+            **base)
+    hq, kvh = attention.eff_heads(cfg)
+    b, g, hd, r = ARCH_DECODE_B, hq // kvh, cfg.head_dim, ARCH_DECODE_R
+    ps, n_pages = ENGINE["page_size"], 256
+    scale = cfg.attn_scale or 1.0 / math.sqrt(hd)
+    cap = float(cfg.attn_logit_softcap or 0.0)
+    pk_, pv_ = (torch.randn(n_pages, ps, kvh, hd, generator=gen,
+                            device=DEVICE).to(dt) for _ in range(2))
+    bt = torch.randperm(n_pages, generator=gen, device=DEVICE)[
+        :b * r].reshape(b, r).to(torch.int32)
+    q4 = torch.randn(b, kvh, g, hd, generator=gen, device=DEVICE).to(dt)
+    lens = torch.randint(1, r * ps + 1, (b,), generator=gen, device=DEVICE)
+    slots = torch.arange(r * ps, device=DEVICE)[None].expand(b, -1)
+    bias = pa.mask_bias((lens - 1)[:, None], slots,
+                        cfg.sliding_window).contiguous()
+    valid = int(lens.sum())
+    k_fn = lambda: pa.paged_flash_decode(  # noqa: E731
+        q4, pk_, pv_, bt, bias, scale=scale, softcap=cap)
+    p_fn = lambda: pa.paged_flash_decode_plain(  # noqa: E731
+        q4, pk_, pv_, bt, bias, scale=scale, softcap=cap)
+    gk = pk_[bt.long()].reshape(b, r * ps, kvh, hd).transpose(1, 2)
+    gv = pv_[bt.long()].reshape(b, r * ps, kvh, hd).transpose(1, 2)
+    qs = q4.reshape(b, kvh * g, 1, hd)
+    am = (bias > pa.NEG_INF / 2)[:, None, None, :]
+    l_fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qs, gk, gv, attn_mask=am, scale=scale, enable_gqa=True)
+    nbytes = (q4.numel() * es + valid * kvh * hd * es * 2 + bt.numel() * 4
+              + bias.numel() * 4 + q4.numel() * 4)
+    out["paged_flash_decode"] = _record(
+        torch, card, "arch_kernel", "paged_flash_decode", dt, [b, r], k_fn(),
+        p_fn(), timer.ms(k_fn), timer.ms(p_fn), timer.ms(l_fn), nbytes,
+        4 * valid * kvh * g * hd, kv_heads=kvh, G=g, head_dim=hd,
+        scale=scale, softcap=cap, window=cfg.sliding_window,
+        library_note="SDPA without the logit softcap" if cap else None,
+        **base)
+    return out
+
+
+def _arch_parity(torch, cfg, packed, dense, prompts):
+    """``phase_e2e``'s comparison on the model's first two layers: on the
+    hidden states the pruned-dense model feeds each MLP, the packed MLP
+    (fused GLU + BSpMM kernels) against the dense one (``torch.matmul``),
+    then each prompt's next-token logits, each within 2**-5 of the
+    output's magnitude."""
+    from repro_torch.models import transformer
+    cfg2 = dataclasses.replace(cfg, num_layers=PARITY_DEPTH)
+    p2 = _first_layers(packed, PARITY_DEPTH)
+    d2 = _first_layers(dense, PARITY_DEPTH)
+    worst = {"mlp": 0.0, "logits": 0.0}
+
+    def hold(kind, got, want, where):
+        check(bool(torch.isfinite(got).all()),
+              f"{cfg.name}: non-finite packed {where}")
+        tol = 2.0 ** -5 * float(want.abs().max())
+        err = float((got - want).abs().max())
+        worst[kind] = max(worst[kind], err / tol)
+        check(err <= tol, f"{cfg.name} {where}: packed vs dense differ by "
+                          f"{err} > {tol}")
+
+    hs = _mlp_inputs(torch, cfg2, d2, prompts)
+    with torch.inference_mode():
+        for i, h in enumerate(hs):
+            j = i % PARITY_DEPTH
+            hold("mlp", transformer.mlp_forward(
+                     cfg2, _mlp_of(cfg2, p2, j), h).float(),
+                 transformer.mlp_forward(
+                     cfg2, _mlp_of(cfg2, d2, j), h).float(), f"layer {j} MLP")
+    for p in prompts:
+        hold("logits", _last_logits(torch, cfg2, p2, p),
+             _last_logits(torch, cfg2, d2, p), "logits")
+    return {"depth": PARITY_DEPTH, "prompts": len(prompts),
+            "mlps_checked": len(hs),
+            "mlp_max_err_over_tol": worst["mlp"],
+            "logits_max_err_over_tol": worst["logits"],
+            "tol_fraction": 2.0 ** -5}
+
+
+def phase_serve_arch(torch, card):
+    """The ``--arch`` registry and the serving launcher on the four dense
+    architectures, packed at s = 0.8 (``ARCH_RUNS``): ``qwen2-7b`` whole
+    through ``launch.serve.main`` (params only; the f32 copy is dropped
+    once packed), the others at full width with their depth cut, through
+    ``prune_and_pack`` and ``launch.serve._serve``. Each serves the
+    launcher's 8 prompts of 64 tokens x 32 new on the paged engine, the
+    launch counters reset just before and read just after. Then, per
+    architecture, the kernel lines of one full-width layer and the
+    packed-vs-dense check on its first two layers (for qwen2-7b on a
+    fresh two-layer cut of its config). Returns the serving runs'
+    counts."""
+    import repro_torch.launch.serve as launcher
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention, registry
+    from repro_torch.serving import export
+    t_phase = time.monotonic()
+    timer = Timer(torch)
+    rng = np.random.default_rng(SEED + 3)
+    served = []
+    for arch, depth in ARCH_RUNS.items():
+        full = get_config(arch)
+        argv = ["--arch", arch, "--packed", "--batch", str(ARCH_BATCH),
+                "--prompt-len", str(ARCH_PROMPT), "--new-tokens",
+                str(ARCH_TOKENS)]
+        gc.collect()              # engines hold their weights in cycles
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.monotonic()
+        if depth is None:         # the whole model, through main()
+            cfg = full
+            _reset_counts()
+            res = launcher.main(argv)
+            counts = _read_counts()
+            tokens, stats = res["tokens"], res["stats"]
+            times, memory = res["seconds"], res["memory"]
+        else:
+            cfg = dataclasses.replace(full, num_layers=depth)
+            params = registry.init_params(cfg, SEED, DEVICE)
+            torch.cuda.synchronize()
+            times = {"init_s": time.monotonic() - t0}
+            packed = launcher.prune_and_pack(cfg, params, ARCH_SPARSITY,
+                                             True, times=times)
+            memory = export.memory_report(cfg, packed)
+            args = launcher.build_parser().parse_args(argv)
+            _reset_counts()
+            tokens, stats = launcher._serve(cfg, packed, args, DEVICE)
+            counts = _read_counts()
+        wall = time.monotonic() - t0
+        peak = torch.cuda.max_memory_allocated()
+        served.append(counts)
+        hq, kvh = attention.eff_heads(full)
+        emit(phase="serve_arch", arch=arch, layers=cfg.num_layers,
+             reduced=None if depth is None else [
+                 f"num_layers {full.num_layers} -> {depth}"
+                 + (f" ({depth // 2} local/global pairs)"
+                    if full.layer_pattern == "local_global" else "")],
+             entry=("launch.serve.main" if depth is None
+                    else "launch.serve.prune_and_pack + _serve"),
+             d_model=full.d_model, d_ff=full.d_ff, vocab=full.vocab_size,
+             q_heads=hq, kv_heads=kvh, G=hq // kvh, head_dim=full.head_dim,
+             block=[full.blast.b_in, full.blast.b_out], act=full.mlp_act,
+             sparsity=ARCH_SPARSITY, batch=ARCH_BATCH,
+             prompt_len=ARCH_PROMPT, new_tokens=ARCH_TOKENS,
+             tok_per_s=stats["tok_per_s"], ttft_p50_s=stats["ttft_p50_s"],
+             ttft_p95_s=stats["ttft_p95_s"],
+             generated_tokens=stats["generated_tokens"],
+             weight_bytes=memory["bytes"], max_memory_allocated=peak,
+             allocated_before=before,
+             **times, wall_s=wall, launches=counts,
+             sliding_window=full.sliding_window,
+             window_binds=bool(full.sliding_window)
+             and ARCH_PROMPT + ARCH_TOKENS > full.sliding_window)
+        check(len(tokens) == ARCH_BATCH and all(
+            t.size == ARCH_TOKENS and bool(((t >= 0)
+                                            & (t < full.vocab_size)).all())
+            for t in tokens), f"{arch}: a stream is short or leaves the "
+                              "vocabulary")
+        for k in PAGED:
+            check(counts[k] > 0, f"{arch}: kernel {k} never launched")
+        if depth is None:         # a fresh two-layer cut for the checks
+            cfg = dataclasses.replace(full, num_layers=PARITY_DEPTH)
+            params = registry.init_params(cfg, SEED, DEVICE)
+            packed = launcher.prune_and_pack(cfg, params, ARCH_SPARSITY,
+                                             True)
+        masks = launcher.one_shot_masks(cfg, params, ARCH_SPARSITY)
+        dense = launcher.prune_and_pack(cfg, params, ARCH_SPARSITY, False,
+                                        masks=masks)
+        # up takes gate's mask: the joint GLU's operands
+        joint = launcher.prune_and_pack(
+            cfg, params, ARCH_SPARSITY, True,
+            masks={k: masks[k.replace("w_up", "w_gate")] for k in masks})
+        del params, masks
+        jmlp = _mlp_of(cfg, joint, 0)
+        jgate, jup = jmlp["w_gate"], jmlp["w_up"]
+        check(jgate.joint and jup.joint, f"{arch}: joint marking is wrong")
+        prompts = [rng.integers(0, full.vocab_size, size=(int(n),))
+                   .astype(np.int32) for n in
+                   rng.integers(ARCH_PROMPT, 2 * ARCH_PROMPT + 1,
+                                size=ARCH_PARITY_PROMPTS)]
+        kern = phase_arch_kernels(torch, card, timer, cfg, packed, jgate,
+                                  jup)
+        emit(phase="arch_parity", arch=arch,
+             **_arch_parity(torch, cfg, packed, dense, prompts),
+             kernels={k: {f: v[f] for f in ("ms", "bound_ms", "library_ms")}
+                      for k, v in kern.items()})
+        del packed, dense, joint, jmlp, jgate, jup
+    torch.cuda.empty_cache()
+    emit(phase="serve_arch_total", seconds=time.monotonic() - t_phase)
+    return served
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2625,6 +2900,7 @@ def main():
     summary["bspmm_t"] = phase_kernels_t(torch, card, packed)
     del packed, joint, dense
     torch.cuda.empty_cache()
+    served += phase_serve_arch(torch, card)
 
     tcfg, opt, src, state = phase_train(torch, cfg)
     ft = phase_finetune_packed(torch, tcfg, state, src.batch(TRAIN_STEPS))

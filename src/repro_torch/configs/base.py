@@ -83,6 +83,14 @@ class ShapeConfig:
     kind: Literal["train", "prefill", "decode"]
 
 
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
 def derive_block_shape(d_in: int, d_out: int, tp: int,
                        shard_out: bool = True) -> tuple[int, int]:
     """Largest (b_in, b_out) in {128,64,32,16,8} tiling the per-shard

@@ -1,0 +1,2 @@
+"""Command-line entry points (port of ``repro/launch``): ``serve`` and
+``train``."""

@@ -1,0 +1,98 @@
+"""Training launcher (port of ``repro/launch/train.py``).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b \
+        --smoke --device cpu --steps 6 --batch 8 --seq 128 [--ckpt-dir d/]
+
+``--smoke`` selects the reduced config. Runs on the GPU unless ``--device
+cpu`` is given; without a CUDA device and without ``--device cpu`` it
+raises rather than fall back. Only ``--mesh none`` runs: the port has no
+multi-device path yet, so ``--mesh single|multi`` and a nonzero
+``--devices`` (the reference's forced host device count) exit non-zero.
+With ``--ckpt-dir`` the run checkpoints every ``max(steps // 5, 10)``
+steps and a second call resumes at the newest intact checkpoint.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+from repro_torch.launch.serve import resolve_device
+
+MULTI_DEVICE = ("needs the port's multi-device slice (distributed/*, "
+                "launch/mesh.py), which is not ported yet; use --mesh none")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="repro_torch.launch.train")
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--s-max", type=float, default=None)
+    ap.add_argument("--step-size", type=int, default=None)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--no-guard", action="store_true",
+                    help="disable the anomaly guard (device-side skip "
+                         "+ host-side spike/rewind policy)")
+    ap.add_argument("--data", default=None, help="memmap token file")
+    ap.add_argument("--mesh", choices=["none", "single", "multi"],
+                    default="none")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="forced device count (multi-device only)")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="where the model trains (no fallback: cuda "
+                         "without a GPU raises)")
+    return ap
+
+
+def main(argv=None):
+    """Train on ``argv`` (default: the command line); returns (final
+    state, history)."""
+    args = build_parser().parse_args(argv)
+    if args.mesh != "none":
+        raise SystemExit(f"--mesh {args.mesh} {MULTI_DEVICE}")
+    if args.devices:
+        raise SystemExit(f"--devices {args.devices} {MULTI_DEVICE}")
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import make_source
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw
+    from repro_torch.training import train_loop
+
+    cfg = get_config(args.arch, smoke=args.smoke)
+    registry.module_for(cfg)          # the families not ported raise here
+    device = resolve_device(args.device)
+    overrides = {}
+    if args.s_max is not None:
+        overrides["s_max"] = args.s_max
+    if args.step_size is not None:
+        overrides["step_size"] = args.step_size
+    if overrides or cfg.blast.enabled:
+        cfg = dataclasses.replace(cfg, blast=dataclasses.replace(
+            cfg.blast, total_steps=args.steps, **overrides))
+
+    shape = ShapeConfig("cli", args.seq, args.batch, "train")
+    source = make_source(cfg, shape, path=args.data)
+    opt = adamw.AdamWConfig(peak_lr=args.lr, total_steps=args.steps,
+                            warmup_steps=max(args.steps // 20, 5))
+    loop = train_loop.TrainLoopConfig(
+        total_steps=args.steps, ckpt_dir=args.ckpt_dir,
+        ckpt_every=max(args.steps // 5, 10),
+        guard=None if args.no_guard else train_loop.GuardConfig())
+    state, history = train_loop.train(cfg, opt, source, loop,
+                                      device=device)
+    logged = [h for h in history if "loss" in h]
+    if logged:
+        print(f"done: final loss {logged[-1]['loss']:.4f}, "
+              f"sparsity {logged[-1]['sparsity']:.3f}")
+    else:             # resumed at --steps: nothing left to train
+        print(f"done: nothing to train past step {state.step}")
+    return state, history
+
+
+if __name__ == "__main__":
+    main()

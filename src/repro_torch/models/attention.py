@@ -45,6 +45,21 @@ def eff_heads(cfg) -> tuple[int, int]:
     return h, kv
 
 
+def zero_padded_heads(cfg, p) -> None:
+    """Zero, in place, the ``wq`` columns and ``wo`` rows of the query
+    heads that ``pad_heads_to`` adds (heads >= ``num_heads``) in one
+    (possibly layer-stacked) attention param dict, so the padding adds
+    nothing to the output. Under GQA, live head h then reads kv head
+    h // G with the padded G (qwen2-7b: 32 // 4 = 8, not 28 // 4 = 7), so
+    a real checkpoint's heads would have to be placed to match; MHA pads
+    its kv heads too and keeps head h on kv head h."""
+    h, _ = eff_heads(cfg)
+    if h > cfg.num_heads:
+        with torch.no_grad():
+            p["wq"][..., cfg.num_heads:, :].zero_()
+            p["wo"][..., cfg.num_heads:, :, :].zero_()
+
+
 def attn_param_specs(cfg) -> dict:
     """ParamSpec dict for one attention block (stacked by the caller)."""
     d, hd = cfg.d_model, cfg.head_dim

@@ -21,8 +21,12 @@ def param_specs(cfg):
 
 
 def init_params(cfg, seed: int = 0, device="cuda"):
-    """Seeded f32 parameters on ``device``."""
-    return pmod.init_params(param_specs(cfg), seed, device)
+    """Seeded f32 parameters on ``device``; the query heads that
+    ``pad_heads_to`` adds start at zero (models/attention.py)."""
+    mod = module_for(cfg)
+    params = pmod.init_params(mod.param_specs(cfg), seed, device)
+    mod.zero_padded_heads(cfg, params)
+    return params
 
 
 def abstract_params(cfg):
@@ -43,9 +47,18 @@ def forward(cfg, params, tokens, **kw):
     return module_for(cfg).forward(cfg, params, tokens, **kw)
 
 
-def count_params(cfg) -> int:
-    """Parameter count from the spec tree (no allocation)."""
-    return sum(math.prod(s.shape) for _, s in pmod._leaves(param_specs(cfg)))
+def count_params(cfg, active_only: bool = False) -> int:
+    """Parameter count from the spec tree (no allocation). With
+    ``active_only`` an expert stack counts only its top_k experts (the
+    N_active of 6·N_active·D); the dense family has none, so both counts
+    agree there."""
+    total = 0
+    for _, s in pmod._leaves(param_specs(cfg)):
+        n = math.prod(s.shape)
+        if active_only and "experts" in s.axes:
+            n = n // cfg.num_experts * cfg.top_k
+        total += n
+    return total
 
 
 def init_masks(cfg, params):

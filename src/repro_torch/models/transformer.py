@@ -102,6 +102,14 @@ def param_specs(cfg) -> dict:
     return specs
 
 
+def zero_padded_heads(cfg, params) -> None:
+    """Zero the padded query heads of every layer stack, in place
+    (``attention.zero_padded_heads``)."""
+    for stack in ("layers", "layers_local", "layers_global"):
+        if stack in params:
+            attn.zero_padded_heads(cfg, params[stack]["attn"])
+
+
 def sparse_paths(cfg) -> list[str]:
     """Param-tree paths of the BLaST-sparsified (stacked) weights."""
     stacks = (["layers_local", "layers_global"]

@@ -1,0 +1,71 @@
+"""The port's ``--arch`` registry equals the reference's: every one of the
+ten configs and its smoke variant field by field (the BLaST spec and its
+derived block shape included), the ids, shapes, skips and dry-run cells,
+the errors on an unknown id and on the families the port does not run,
+and the parameter counts of the four dense models at full size (from the
+spec trees, nothing allocated)."""
+import dataclasses
+
+import pytest
+
+torch = pytest.importorskip("torch")
+# tiny tensors: one intra-op thread, so parallel test workers do not
+# oversubscribe the host
+torch.set_num_threads(1)
+
+from repro import configs as jconfigs  # noqa: E402
+from repro.models import registry as jreg  # noqa: E402
+from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.models import registry as treg  # noqa: E402
+
+DENSE = ("stablelm-3b", "stablelm-12b", "qwen2-7b", "gemma2-27b")
+NOT_PORTED = ("qwen3-moe-235b-a22b", "deepseek-moe-16b", "rwkv6-3b",
+              "whisper-large-v3", "zamba2-1.2b", "internvl2-2b")
+
+
+@pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
+@pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
+def test_config_matches_reference(arch, smoke):
+    j = jconfigs.get_config(arch, smoke=smoke)
+    t = tconfigs.get_config(arch, smoke=smoke)
+    assert type(t).__module__.startswith("repro_torch.")
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+
+
+def test_ids_shapes_skips_and_cells_match():
+    assert tconfigs.ARCH_IDS == jconfigs.ARCH_IDS
+    assert ({k: dataclasses.asdict(v) for k, v in tconfigs.SHAPES.items()}
+            == {k: dataclasses.asdict(v)
+                for k, v in jconfigs.SHAPES.items()})
+    for arch in jconfigs.ARCH_IDS:
+        assert tconfigs.skip_shapes(arch) == jconfigs.skip_shapes(arch)
+    assert tconfigs.cells() == jconfigs.cells()
+    assert tconfigs.cells(True) == jconfigs.cells(True)
+    assert len(tconfigs.cells(True)) == 4 * len(tconfigs.ARCH_IDS)
+
+
+def test_unknown_arch_raises_key_error():
+    for mod in (jconfigs, tconfigs):
+        with pytest.raises(KeyError, match="unknown arch"):
+            mod.get_config("llama-9000")
+        with pytest.raises(KeyError):
+            mod.skip_shapes("llama-9000")
+
+
+@pytest.mark.parametrize("arch", NOT_PORTED)
+def test_families_not_ported_raise_at_module_for(arch):
+    cfg = tconfigs.get_config(arch, smoke=True)
+    assert cfg.family != "dense"
+    with pytest.raises(NotImplementedError, match=repr(cfg.family)):
+        treg.module_for(cfg)
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_dense_param_counts_match_reference(arch):
+    t = tconfigs.get_config(arch)
+    j = jconfigs.get_config(arch)
+    assert t.family == "dense"
+    total = treg.count_params(t)
+    assert total == jreg.count_params(j)
+    assert treg.count_params(t, active_only=True) == jreg.count_params(
+        j, active_only=True) == total

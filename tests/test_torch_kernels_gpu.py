@@ -741,3 +741,62 @@ def test_mixed_step_rows_at_the_served_block_match_plain(cuda, m, kernel):
     assert got.dtype == dt and got.shape == want.shape
     assert float((got.float() - want.float()).abs().max()) <= _ulp_tol(
         dt, want), lp
+
+
+# the dense --arch models' shapes (configs/*.py, with_blast at TP = 16):
+# (d_model, d_ff, b_in, b_out) per model, and (kv heads, G, head dim,
+# scale, softcap) of its decode attention
+ARCH_MLP = {"stablelm-3b": (2560, 6912, 128, 16),
+            "stablelm-12b": (5120, 13824, 128, 32),
+            "qwen2-7b": (3584, 18944, 128, 32),
+            "gemma2-27b": (4608, 36864, 128, 128)}
+ARCH_ATTN = {"stablelm-3b": (32, 1, 80, 80 ** -0.5, 0.0),
+             "stablelm-12b": (8, 4, 160, 160 ** -0.5, 0.0),
+             "qwen2-7b": (4, 8, 128, 128 ** -0.5, 0.0),
+             "gemma2-27b": (16, 2, 128, 0.0625, 50.0)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [8, 64])
+@pytest.mark.parametrize("arch", sorted(ARCH_MLP))
+def test_arch_mlp_kernels_match_plain(cuda, arch, m):
+    """One full-width layer of each dense model in bf16 at s = 0.8: the
+    split GLU (gemma2's gelu) on the (d_model, d_ff) weights and ``bspmm``
+    on the down projection's swapped blocks, within ``_ulp_tol``."""
+    d, f, bi, bo = ARCH_MLP[arch]
+    act = "gelu" if arch == "gemma2-27b" else "silu"
+    dt = torch.bfloat16
+    gen = torch.Generator().manual_seed(m)
+    gate = _packed(1, d, f, bi, bo, 0.8, dt, cuda)
+    up = _packed(2, d, f, bi, bo, 0.8, dt, cuda)
+    down = _packed(3, f, d, bo, bi, 0.8, dt, cuda)
+    x = torch.randn(m, d, generator=gen).to(cuda, dt)
+    h = tops.fused_glu(x, gate, up, act=act)
+    want_h = tops.fused_glu_plain(x, gate, up, act)
+    y, want_y = tops.bspmm(want_h, down), tops.bspmm_plain(want_h, down)
+    torch.cuda.synchronize()
+    assert h.shape == (m, f) and y.shape == (m, d)
+    assert float((h.float() - want_h.float()).abs().max()) <= _ulp_tol(
+        dt, want_h)
+    assert float((y.float() - want_y.float()).abs().max()) <= _ulp_tol(
+        dt, want_y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", [1, 16])
+@pytest.mark.parametrize("arch", sorted(ARCH_ATTN))
+def test_arch_paged_decode_matches_plain(cuda, arch, r):
+    """Paged decode with each dense model's kv heads, G (qwen2-7b's padded
+    32 query heads over 4 kv heads give G = 8, the kernel's cap), head
+    dim (80 and 160 are not multiples of 64), scale and softcap."""
+    kvh, g, hd, scale, cap = ARCH_ATTN[arch]
+    gen = torch.Generator().manual_seed(r + hd)
+    q4, pk, pv, bt, bias = _decode_inputs(gen, 8, r, 16, hd, "bfloat16",
+                                          cuda, kvh=kvh, g=g)
+    got = tpa.paged_flash_decode(q4, pk, pv, bt, bias, scale=scale,
+                                 softcap=cap)
+    want = tpa.paged_flash_decode_plain(q4, pk, pv, bt, bias, scale=scale,
+                                        softcap=cap)
+    torch.cuda.synchronize()
+    assert got.shape == (8, kvh, g, hd) and not got[0].any()
+    assert float((got - want).abs().max()) <= _ulp_tol(torch.bfloat16, want)
