@@ -95,6 +95,19 @@ before the step's device work), also over 12 more steps at the loop's
 default ``log_every`` of 10, and holds two chaos children that train 4
 steps, one untraced and one traced, to bitwise-equal final states.
 
+The MoE family (``serve_moe``, after the dense ``--arch`` models):
+deepseek-moe-16b (8 of its 28 layers) and qwen3-moe-235b-a22b (2 of 94)
+at full width, packed at s = 0.8 through ``launch.serve.prune_and_pack``
+and served through ``launch.serve._serve`` (8 prompts of 64 tokens x 32
+new), phased, mixed and phased again: every MoE layer of every model
+call launches the expert-batched fused GLU and ``bspmm`` once for all
+its experts (once more for deepseek's shared experts), the repeated
+phased streams are bitwise equal, and the layer adds no synchronizing
+CUDA call (the same traffic with the MLP stubbed out makes as many).
+Then the expert-batched kernel lines of one layer at decode C = 1 and at
+a 128-token call's capacity, paged decode at qwen3-moe's G = 16 beside G
+= 8, and the packed model against its pruned-dense export on two layers.
+
 Prints JSON lines; the line before the last is a ``kernels`` summary and
 the last is ``{"ok": true, "device": {...}}``. Any failed phase raises
 and the script exits non-zero without that line. Needs one CUDA card.
@@ -182,6 +195,12 @@ ARCH_RUNS = {"qwen2-7b": None, "stablelm-3b": 4, "stablelm-12b": 4,
              "gemma2-27b": 4}
 ARCH_SPARSITY, ARCH_BATCH, ARCH_PROMPT, ARCH_TOKENS = 0.8, 8, 64, 32
 ARCH_M, ARCH_DECODE_B, ARCH_DECODE_R, ARCH_PARITY_PROMPTS = 8, 8, 16, 4
+# the two MoE --arch configurations at full width, packed at s = 0.8, each
+# depth cut so that one card holds its f32 init beside the export's masked
+# f32 copies (deepseek at its 28 layers is ~67.6 GB of f32 alone; qwen3-moe
+# at 3 layers peaks near 78 GB); the launcher's traffic of ARCH_*; the
+# kernel lines at every capacity C the served runs used
+MOE_RUNS = {"deepseek-moe-16b": 8, "qwen3-moe-235b-a22b": 2}
 SYNC_WARNING = "called a synchronizing CUDA operation"
 
 
@@ -1458,8 +1477,8 @@ def phase_e2e(torch, cfg, packed, dense, prompts):
         for i, h in enumerate(hs):
             lp = transformer._layer_view(packed["layers"], i % n)["mlp"]
             ld = transformer._layer_view(dense["layers"], i % n)["mlp"]
-            yp = transformer.mlp_forward(cfg, lp, h).float()
-            yd = transformer.mlp_forward(cfg, ld, h).float()
+            yp = transformer.mlp_forward(cfg, lp, h)[0].float()
+            yd = transformer.mlp_forward(cfg, ld, h)[0].float()
             check(bool(torch.isfinite(yp).all()), "non-finite packed MLP")
             tol = 2.0 ** -5 * float(yd.abs().max())
             err = float((yp - yd).abs().max())
@@ -2607,68 +2626,19 @@ def _mlp_of(cfg, tree, j):
     return transformer._layer_view(tree[stack], i)["mlp"]
 
 
-def phase_arch_kernels(torch, card, timer, cfg, packed, jgate, jup):
-    """The kernels at one full-width layer of ``cfg`` (layer 0, s = 0.8,
-    bf16): ``bspmm`` on the down projection, the split GLU with the
-    model's activation and the joint GLU at M = 8 rows, and paged decode
-    at B = 8 lanes over R = 16 pages of 16 with the model's kv heads, G,
-    head dim, scale, softcap and window (a pool of 256 pages), each held
-    against its plain version within ``ulp_tol``. The library yardsticks
-    are ``torch.matmul`` on the dense weight and SDPA on pre-gathered
-    pages (SDPA has no logit softcap: gemma2's is timed without it)."""
+def _paged_line(torch, card, timer, gen, phase, kvh, g, hd, attn_scale,
+                cap, window, **extra):
+    """Paged decode at B = ``ARCH_DECODE_B`` lanes over R =
+    ``ARCH_DECODE_R`` pages of 16 (a pool of 256 pages), ``kvh`` kv heads
+    of ``g`` query heads each, bf16, held against its plain version
+    within ``ulp_tol``; the library yardstick is SDPA on pre-gathered
+    pages (without the logit softcap, which SDPA lacks)."""
     import torch.nn.functional as F
-    from repro_torch.core.packing import unpack
-    from repro_torch.kernels import bspmm as kb, ops
     from repro_torch.kernels import paged_attention as pa
-    from repro_torch.models import attention
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
-    dt, es, m, act = torch.bfloat16, 2, ARCH_M, cfg.mlp_act
-    mlp0 = _mlp_of(cfg, packed, 0)
-    down, gate, up = mlp0["w_down"], mlp0["w_gate"], mlp0["w_up"]
-    h = torch.randn(m, down.kb * down.b_in, generator=gen,
-                    device=DEVICE).to(dt)
-    x = torch.randn(m, gate.kb * gate.b_in, generator=gen,
-                    device=DEVICE).to(dt)
-    wd = unpack(down)
-    wgu = torch.cat([unpack(gate), unpack(up)], dim=1)
-    wgu_j = torch.cat([unpack(jgate), unpack(jup)], dim=1)
-    n_ff = gate.nb * gate.b_out
-    blk = lambda p: p.blocks.numel() * es + p.idx.numel() * 4  # noqa: E731
-    rows = {
-        "bspmm": (lambda: kb.bspmm(h, down),
-                  lambda: ops.bspmm_plain(h, down),
-                  lambda: torch.matmul(h, wd),
-                  h.numel() * es + blk(down) + m * down.nb * down.b_out * es,
-                  ops.flops_bspmm(m, down), kb.launch_plan(h, down), down),
-        "fused_glu_split": (
-            lambda: kb.fused_glu(x, gate, up, act=act),
-            lambda: ops.fused_glu_plain(x, gate, up, act),
-            lambda: torch.matmul(x, wgu),
-            x.numel() * es + blk(gate) + blk(up) + m * n_ff * es,
-            ops.flops_bspmm(m, gate) + ops.flops_bspmm(m, up),
-            kb.launch_plan(x, gate, up), gate),
-        "fused_glu_joint": (
-            lambda: kb.fused_glu(x, jgate, jup, act=act),
-            lambda: ops.fused_glu_plain(x, jgate, jup, act),
-            lambda: torch.matmul(x, wgu_j),
-            x.numel() * es + jgate.blocks.numel() * es * 2
-            + jgate.idx.numel() * 4 + m * n_ff * es,
-            ops.flops_bspmm(m, jgate) * 2, kb.launch_plan(x, jgate, jup),
-            jgate),
-    }
-    out = {}
-    base = dict(arch=cfg.name, block=[cfg.blast.b_in, cfg.blast.b_out])
-    for name, (k_fn, p_fn, l_fn, nbytes, ops_, plan, p) in rows.items():
-        out[name] = _record(
-            torch, card, "arch_kernel", name, dt, [m], k_fn(), p_fn(),
-            timer.ms(k_fn), timer.ms(p_fn), timer.ms(l_fn), nbytes, ops_,
-            plan=plan.describe(), act=act, kb=p.kb, nb=p.nb, nnz=p.nnz,
-            **base)
-    hq, kvh = attention.eff_heads(cfg)
-    b, g, hd, r = ARCH_DECODE_B, hq // kvh, cfg.head_dim, ARCH_DECODE_R
+    dt, es = torch.bfloat16, 2
+    b, r = ARCH_DECODE_B, ARCH_DECODE_R
     ps, n_pages = ENGINE["page_size"], 256
-    scale = cfg.attn_scale or 1.0 / math.sqrt(hd)
-    cap = float(cfg.attn_logit_softcap or 0.0)
+    scale = attn_scale or 1.0 / math.sqrt(hd)
     pk_, pv_ = (torch.randn(n_pages, ps, kvh, hd, generator=gen,
                             device=DEVICE).to(dt) for _ in range(2))
     bt = torch.randperm(n_pages, generator=gen, device=DEVICE)[
@@ -2676,8 +2646,7 @@ def phase_arch_kernels(torch, card, timer, cfg, packed, jgate, jup):
     q4 = torch.randn(b, kvh, g, hd, generator=gen, device=DEVICE).to(dt)
     lens = torch.randint(1, r * ps + 1, (b,), generator=gen, device=DEVICE)
     slots = torch.arange(r * ps, device=DEVICE)[None].expand(b, -1)
-    bias = pa.mask_bias((lens - 1)[:, None], slots,
-                        cfg.sliding_window).contiguous()
+    bias = pa.mask_bias((lens - 1)[:, None], slots, window).contiguous()
     valid = int(lens.sum())
     k_fn = lambda: pa.paged_flash_decode(  # noqa: E731
         q4, pk_, pv_, bt, bias, scale=scale, softcap=cap)
@@ -2691,13 +2660,97 @@ def phase_arch_kernels(torch, card, timer, cfg, packed, jgate, jup):
         qs, gk, gv, attn_mask=am, scale=scale, enable_gqa=True)
     nbytes = (q4.numel() * es + valid * kvh * hd * es * 2 + bt.numel() * 4
               + bias.numel() * 4 + q4.numel() * 4)
-    out["paged_flash_decode"] = _record(
-        torch, card, "arch_kernel", "paged_flash_decode", dt, [b, r], k_fn(),
+    return _record(
+        torch, card, phase, "paged_flash_decode", dt, [b, r], k_fn(),
         p_fn(), timer.ms(k_fn), timer.ms(p_fn), timer.ms(l_fn), nbytes,
         4 * valid * kvh * g * hd, kv_heads=kvh, G=g, head_dim=hd,
-        scale=scale, softcap=cap, window=cfg.sliding_window,
+        scale=scale, softcap=cap, window=window,
         library_note="SDPA without the logit softcap" if cap else None,
-        **base)
+        **extra)
+
+
+def _dense_of(torch, p):
+    """The dense (K, N) weight of a pack, or (E, K, N) of an expert
+    batch."""
+    from repro_torch.core.packing import unpack
+    if p.idx.dim() == 2:
+        return unpack(p)
+    return torch.stack([unpack(p.layer(e)) for e in range(p.idx.shape[0])])
+
+
+def _mlp_lines(torch, card, timer, gen, phase, lead, m, down, gate, up,
+               jgate, jup, act, **base):
+    """``bspmm`` on the down projection, the split GLU and the joint GLU
+    (up taking gate's mask) at ``m`` rows in bf16 (``lead`` (E,): an
+    expert batch, m rows per expert, one launch each), each held against
+    its plain version within ``ulp_tol``. The library yardstick is
+    ``torch.matmul`` on the dense weights (``torch.bmm`` over an expert
+    batch; gate and up side by side for the GLUs). Bytes count every
+    packed block and idx entry once, X and Y once."""
+    from repro_torch.kernels import bspmm as kb, ops
+    dt, es = torch.bfloat16, 2
+    h = torch.randn(*lead, m, down.kb * down.b_in, generator=gen,
+                    device=DEVICE).to(dt)
+    x = torch.randn(*lead, m, gate.kb * gate.b_in, generator=gen,
+                    device=DEVICE).to(dt)
+    wd = _dense_of(torch, down)
+    wgu = torch.cat([_dense_of(torch, gate), _dense_of(torch, up)], dim=-1)
+    wgu_j = torch.cat([_dense_of(torch, jgate), _dense_of(torch, jup)],
+                      dim=-1)
+    rows_out = math.prod(lead) * m
+    n_ff = gate.nb * gate.b_out
+    blk = lambda p: p.blocks.numel() * es + p.idx.numel() * 4  # noqa: E731
+    rows = {
+        "bspmm": (lambda: kb.bspmm(h, down),
+                  lambda: ops.bspmm_plain(h, down),
+                  lambda: torch.matmul(h, wd),
+                  h.numel() * es + blk(down)
+                  + rows_out * down.nb * down.b_out * es,
+                  ops.flops_bspmm(m, down), kb.launch_plan(h, down), down),
+        "fused_glu_split": (
+            lambda: kb.fused_glu(x, gate, up, act=act),
+            lambda: ops.fused_glu_plain(x, gate, up, act),
+            lambda: torch.matmul(x, wgu),
+            x.numel() * es + blk(gate) + blk(up) + rows_out * n_ff * es,
+            ops.flops_bspmm(m, gate) + ops.flops_bspmm(m, up),
+            kb.launch_plan(x, gate, up), gate),
+        "fused_glu_joint": (
+            lambda: kb.fused_glu(x, jgate, jup, act=act),
+            lambda: ops.fused_glu_plain(x, jgate, jup, act),
+            lambda: torch.matmul(x, wgu_j),
+            x.numel() * es + jgate.blocks.numel() * es * 2
+            + jgate.idx.numel() * 4 + rows_out * n_ff * es,
+            ops.flops_bspmm(m, jgate) * 2, kb.launch_plan(x, jgate, jup),
+            jgate),
+    }
+    out = {}
+    for name, (k_fn, p_fn, l_fn, nbytes, ops_, plan, p) in rows.items():
+        out[name] = _record(
+            torch, card, phase, name, dt, [*lead, m], k_fn(), p_fn(),
+            timer.ms(k_fn), timer.ms(p_fn), timer.ms(l_fn), nbytes, ops_,
+            plan=plan.describe(), act=act, kb=p.kb, nb=p.nb, nnz=p.nnz,
+            **base)
+    return out
+
+
+def phase_arch_kernels(torch, card, timer, cfg, packed, jgate, jup):
+    """The kernels at one full-width layer of ``cfg`` (layer 0, s = 0.8,
+    bf16): ``bspmm``, the split GLU and the joint GLU at M = 8 rows
+    (``_mlp_lines``), and paged decode at B = 8 lanes over R = 16 pages of
+    16 with the model's kv heads, G, head dim, scale, softcap and window
+    (``_paged_line``)."""
+    from repro_torch.models import attention
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    mlp0 = _mlp_of(cfg, packed, 0)
+    base = dict(arch=cfg.name, block=[cfg.blast.b_in, cfg.blast.b_out])
+    out = _mlp_lines(torch, card, timer, gen, "arch_kernel", (), ARCH_M,
+                     mlp0["w_down"], mlp0["w_gate"], mlp0["w_up"], jgate,
+                     jup, cfg.mlp_act, **base)
+    hq, kvh = attention.eff_heads(cfg)
+    out["paged_flash_decode"] = _paged_line(
+        torch, card, timer, gen, "arch_kernel", kvh, hq // kvh,
+        cfg.head_dim, cfg.attn_scale, float(cfg.attn_logit_softcap or 0.0),
+        cfg.sliding_window, **base)
     return out
 
 
@@ -2727,9 +2780,10 @@ def _arch_parity(torch, cfg, packed, dense, prompts):
         for i, h in enumerate(hs):
             j = i % PARITY_DEPTH
             hold("mlp", transformer.mlp_forward(
-                     cfg2, _mlp_of(cfg2, p2, j), h).float(),
+                     cfg2, _mlp_of(cfg2, p2, j), h)[0].float(),
                  transformer.mlp_forward(
-                     cfg2, _mlp_of(cfg2, d2, j), h).float(), f"layer {j} MLP")
+                     cfg2, _mlp_of(cfg2, d2, j), h)[0].float(),
+                 f"layer {j} MLP")
     for p in prompts:
         hold("logits", _last_logits(torch, cfg2, p2, p),
              _last_logits(torch, cfg2, d2, p), "logits")
@@ -2853,6 +2907,230 @@ def phase_serve_arch(torch, card):
     return served
 
 
+def _moe_serve_run(torch, cfg, packed, args, sync=False):
+    """One ``launch.serve._serve`` run, the launch counters and the MoE
+    layer's ``CALLS`` reset just before and read just after. With ``sync``
+    the synchronizing CUDA calls are counted
+    (``set_sync_debug_mode("warn")``). Returns (tokens, stats, counts,
+    MoE layer calls by (tokens, C), sync calls, wall seconds)."""
+    import warnings
+    import repro_torch.launch.serve as launcher
+    from repro_torch.models import moe
+    torch.cuda.synchronize()
+    _reset_counts()
+    moe.CALLS.clear()
+    t0 = time.monotonic()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if sync:
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            tokens, stats = launcher._serve(cfg, packed, args, DEVICE)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    counts = _read_counts()
+    syncs = sum(SYNC_WARNING in str(w.message) for w in caught)
+    return (tokens, stats, counts, dict(moe.CALLS), syncs,
+            time.monotonic() - t0)
+
+
+def phase_moe_kernels(torch, card, timer, cfg, packed, joint1, caps):
+    """The kernels of one full-width MoE layer (layer 0's experts, s =
+    0.8, bf16): the expert-batched ``bspmm`` (down), split GLU and joint
+    GLU (``joint1``: up taking gate's mask) over all E experts in one
+    launch each, at every capacity C in ``caps`` (those the served runs
+    used: decode's and the prefill and mixed calls'; ``_mlp_lines``;
+    every expert is computed at capacity, so the bound counts every
+    expert's blocks); and, for a model with G > 8 query heads per kv
+    head, paged decode at its G beside G = 8 (``_paged_line``)."""
+    from repro_torch.models import attention, transformer
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    mlp0 = transformer._layer_view(packed["layers"], 0)["mlp"]
+    jm = transformer._layer_view(joint1["layers"], 0)["mlp"]
+    check(jm["w_gate"].joint and jm["w_up"].joint,
+          f"{cfg.name}: joint marking is wrong")
+    e = cfg.num_experts
+    base = dict(arch=cfg.name, block=[cfg.blast.b_in, cfg.blast.b_out])
+    out = {}
+    for c in caps:
+        out[c] = _mlp_lines(torch, card, timer, gen, "moe_kernel", (e,), c,
+                            mlp0["w_down"], mlp0["w_gate"], mlp0["w_up"],
+                            jm["w_gate"], jm["w_up"], cfg.mlp_act, C=c,
+                            experts=e, **base)
+    hq, kvh = attention.eff_heads(cfg)
+    if hq // kvh > 8:
+        for g in (hq // kvh, 8):
+            out[f"paged_G{g}"] = _paged_line(
+                torch, card, timer, gen, "moe_kernel", kvh, g, cfg.head_dim,
+                cfg.attn_scale, float(cfg.attn_logit_softcap or 0.0),
+                cfg.sliding_window, **base)
+    return out
+
+
+def phase_serve_moe(torch, card):
+    """The MoE family (``models/moe.py``) through the serving launcher:
+    each of ``MOE_RUNS`` at full width with its depth cut, packed at s =
+    0.8 by ``launch.serve.prune_and_pack`` (every layer pruned: dense_last
+    is not applied), serving the launcher's 8 prompts of 64 tokens x 32
+    new through ``launch.serve._serve`` on the paged engine, phased, then
+    ``--mixed``, then phased again. Per run the launch counters and the
+    MoE layer's calls by (tokens, C) (``moe.CALLS``) are reset just before
+    and read just after; every MoE layer of every model call
+    launches the fused GLU and ``bspmm`` once for all its experts (once
+    more for deepseek's shared experts), so launches per call do not grow
+    with E; the repeated phased run's streams equal the first's bitwise;
+    the repeated run makes as many synchronizing CUDA calls as the same
+    traffic with every MLP replaced by a zero stub (the MoE layer adds
+    none). Then the kernel lines of one MoE layer at every C the runs
+    used and, on the first two
+    layers, the packed model against its pruned-dense export (the
+    ``arch_parity`` check). Returns the runs' launch counts."""
+    import repro_torch.launch.serve as launcher
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry, transformer
+    from repro_torch.serving import export
+    t_phase = time.monotonic()
+    timer = Timer(torch)
+    rng = np.random.default_rng(SEED + 4)
+    served, mlp = [], transformer.mlp_forward
+    for arch, depth in MOE_RUNS.items():
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, num_layers=depth)
+        argv = ["--arch", arch, "--packed", "--batch", str(ARCH_BATCH),
+                "--prompt-len", str(ARCH_PROMPT), "--new-tokens",
+                str(ARCH_TOKENS)]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        stages = {}
+
+        def stage(name):
+            """Bytes allocated after a set-up stage, and its peak."""
+            torch.cuda.synchronize()
+            stages[name] = [torch.cuda.memory_allocated(),
+                            torch.cuda.max_memory_allocated()]
+            torch.cuda.reset_peak_memory_stats()
+
+        t0 = time.monotonic()
+        params = registry.init_params(cfg, SEED, DEVICE)
+        torch.cuda.synchronize()
+        times = {"init_s": time.monotonic() - t0}
+        stage("init")
+        packed = launcher.prune_and_pack(cfg, params, ARCH_SPARSITY, True,
+                                         times=times)
+        stage("prune_and_pack")
+        memory = export.memory_report(cfg, packed)
+        # the exports the checks need: joint (up taking gate's mask) on
+        # layer 0, pruned-dense on the first two layers
+        cfg2 = dataclasses.replace(cfg, num_layers=PARITY_DEPTH)
+        p2 = _first_layers(params, PARITY_DEPTH)
+        masks = launcher.one_shot_masks(cfg2, p2, ARCH_SPARSITY)
+        jmasks = {k: masks[k.replace("_up", "_gate")][:1] for k in masks}
+        joint1 = launcher.prune_and_pack(
+            dataclasses.replace(cfg, num_layers=1), _first_layers(params, 1),
+            ARCH_SPARSITY, True, masks=jmasks)
+        stage("joint_layer0")
+        dense = launcher.prune_and_pack(cfg2, p2, ARCH_SPARSITY, False,
+                                        masks=masks)
+        stage("dense_two_layers")
+        del params, p2, masks, jmasks
+        gc.collect()
+        torch.cuda.empty_cache()
+        stage("params_freed")
+
+        runs = {}
+        for name, extra, sync in (("phased", [], False),
+                                  ("mixed", ["--mixed"], False),
+                                  ("phased_repeat", [], True)):
+            args = launcher.build_parser().parse_args(argv + extra)
+            runs[name] = _moe_serve_run(torch, cfg, packed, args, sync)
+        # the same traffic with every MLP a zero stub: the engine's own
+        # synchronizing calls (eos is off, so the steps are the same)
+        transformer.mlp_forward = (
+            lambda cfg_, p, x, masks=None: (torch.zeros_like(x), 0.0))
+        try:
+            stub = _moe_serve_run(torch, cfg, packed, launcher.build_parser()
+                                  .parse_args(argv), True)
+        finally:
+            transformer.mlp_forward = mlp
+        stage("served")
+        per_call = 1 + bool(cfg.num_shared_experts)
+        for name, (tokens, st, counts, layer_calls, syncs, wall) in \
+                runs.items():
+            served.append(counts)
+            gl = counts["fused_glu_split"] + counts["fused_glu_joint"]
+            n_layer = sum(layer_calls.values())
+            cs = sorted(layer_calls)
+            emit(phase="serve_moe", arch=arch, run=name,
+                 layers=cfg.num_layers,
+                 reduced=[f"num_layers {full.num_layers} -> {depth}"],
+                 entry="launch.serve.prune_and_pack + _serve",
+                 d_model=full.d_model, moe_d_ff=full.moe_d_ff,
+                 experts=full.num_experts, top_k=full.top_k,
+                 shared_experts=full.num_shared_experts,
+                 capacity_factor=full.capacity_factor,
+                 q_heads=full.num_heads, kv_heads=full.num_kv_heads,
+                 G=full.num_heads // full.num_kv_heads,
+                 head_dim=full.head_dim, vocab=full.vocab_size,
+                 block=[full.blast.b_in, full.blast.b_out],
+                 sparsity=ARCH_SPARSITY, batch=ARCH_BATCH,
+                 prompt_len=ARCH_PROMPT, new_tokens=ARCH_TOKENS,
+                 tok_per_s=st["tok_per_s"], ttft_p50_s=st["ttft_p50_s"],
+                 ttft_p95_s=st["ttft_p95_s"],
+                 generated_tokens=st["generated_tokens"],
+                 decode_slabs=st["decode_slabs"],
+                 prefill_chunks=st["prefill_chunks"],
+                 mixed_steps=st["mixed_steps"],
+                 stalled_decode_steps=st["stalled_decode_steps"],
+                 weight_bytes=memory["bytes"],
+                 max_memory_allocated=max(v[1] for v in stages.values()),
+                 max_memory_allocated_packing=stages["prune_and_pack"][1],
+                 memory_stages=stages, **times,
+                 wall_s=wall, model_calls=n_layer // depth,
+                 moe_layer_calls=n_layer, launches=counts,
+                 moe_launches_per_layer_call=counts["bspmm"] / n_layer,
+                 capacity_by_tokens=cs,
+                 C_decode=[c for t, c in cs if t == ARCH_BATCH],
+                 C_prefill=[c for t, c in cs if t != ARCH_BATCH],
+                 sync_calls=syncs if name == "phased_repeat" else None,
+                 sync_calls_mlp_stub=stub[4] if name == "phased_repeat"
+                 else None)
+            check(len(tokens) == ARCH_BATCH and all(
+                t.size == ARCH_TOKENS and bool(((t >= 0)
+                                                & (t < full.vocab_size))
+                                               .all()) for t in tokens),
+                  f"{arch} {name}: a stream is short or leaves the "
+                  "vocabulary")
+            check(all(n % depth == 0 for n in layer_calls.values()),
+                  f"{arch} {name}: MoE layer calls {layer_calls} are not "
+                  f"whole model calls of {depth} layers")
+            check(counts["bspmm"] == gl == n_layer * per_call,
+                  f"{arch} {name}: {counts['bspmm']} bspmm and {gl} GLU "
+                  f"launches over {n_layer} MoE layer calls, expected "
+                  f"{per_call} each")
+            for k in ("bspmm", "fused_glu_split", "paged_flash_decode"):
+                check(counts[k] > 0, f"{arch} {name}: {k} never launched")
+        check(all(np.array_equal(a, b) for a, b in
+                  zip(runs["phased"][0], runs["phased_repeat"][0])),
+              f"{arch}: the repeated phased streams differ")
+        check(runs["phased_repeat"][4] == stub[4],
+              f"{arch}: {runs['phased_repeat'][4]} synchronizing calls, "
+              f"{stub[4]} with the MLP stubbed out")
+        prompts = [rng.integers(0, full.vocab_size, size=(int(n),))
+                   .astype(np.int32) for n in
+                   rng.integers(ARCH_PROMPT, 2 * ARCH_PROMPT + 1,
+                                size=ARCH_PARITY_PROMPTS)]
+        kern = phase_moe_kernels(
+            torch, card, timer, cfg, packed, joint1,
+            sorted({c for run in runs.values() for _, c in run[3]}))
+        emit(phase="moe_parity", arch=arch,
+             **_arch_parity(torch, cfg, packed, dense, prompts))
+        del packed, dense, joint1, kern
+    torch.cuda.empty_cache()
+    emit(phase="serve_moe_total", seconds=time.monotonic() - t_phase)
+    return served
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2901,6 +3179,7 @@ def main():
     del packed, joint, dense
     torch.cuda.empty_cache()
     served += phase_serve_arch(torch, card)
+    served += phase_serve_moe(torch, card)
 
     tcfg, opt, src, state = phase_train(torch, cfg)
     ft = phase_finetune_packed(torch, tcfg, state, src.batch(TRAIN_STEPS))

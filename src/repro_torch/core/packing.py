@@ -68,27 +68,33 @@ def max_nnz_per_col(block_mask: torch.Tensor) -> int:
 
 def pack(w: torch.Tensor, block_mask: torch.Tensor, b_in: int, b_out: int,
          nnz: int | None = None) -> PackedBCSC:
-    """Pack one masked weight (K, N) with block mask (Kb, Nb) into
-    balanced BCSC. ``nnz`` defaults to the max per-column count."""
-    k, n = w.shape
+    """Pack a masked weight (..., K, N) with block mask (..., Kb, Nb) into
+    balanced BCSC; leading axes (layers, experts) pack independently, in
+    one pass. ``nnz`` defaults to the max per-column count."""
+    *lead, k, n = w.shape
     kb, nb = k // b_in, n // b_out
-    if tuple(block_mask.shape) != (kb, nb):
-        raise ValueError(f"mask {tuple(block_mask.shape)} != grid {(kb, nb)}")
+    if tuple(block_mask.shape) != (*lead, kb, nb):
+        raise ValueError(f"mask {tuple(block_mask.shape)} != grid "
+                         f"{(*lead, kb, nb)}")
     if nnz is None:
         nnz = max_nnz_per_col(block_mask)
+    m = block_mask.reshape(-1, kb, nb)                     # (L, Kb, Nb)
     # kept blocks of each column first, in block-row order; the stable
     # sort fixes the idx order the reference produces
-    keyed = torch.where(block_mask, 0, 1)
-    order = torch.argsort(keyed, dim=0, stable=True)       # (Kb, Nb)
-    sel = order[:nnz].T.to(torch.int32)                    # (Nb, nnz)
-    valid = torch.gather(block_mask.T, 1, sel.long())      # (Nb, nnz)
+    keyed = torch.where(m, 0, 1)
+    order = torch.argsort(keyed, dim=1, stable=True)       # (L, Kb, Nb)
+    sel = order[:, :nnz].transpose(1, 2).to(torch.int32)   # (L, Nb, nnz)
+    valid = torch.gather(m.transpose(1, 2), 2, sel.long())  # (L, Nb, nnz)
     idx = torch.where(valid, sel, torch.zeros_like(sel))
-    wb = w.reshape(kb, b_in, nb, b_out).permute(2, 0, 1, 3)  # (Nb,Kb,bi,bo)
-    blocks = wb[torch.arange(nb, device=w.device)[:, None], idx.long()]
-    blocks = torch.where(valid[:, :, None, None], blocks,
-                         torch.zeros((), dtype=w.dtype, device=w.device))
-    return PackedBCSC(blocks=blocks.contiguous(), idx=idx.contiguous(),
-                      kb=kb)
+    wb = w.reshape(-1, kb, b_in, nb, b_out).permute(0, 3, 1, 2, 4)
+    dev = w.device
+    blocks = wb[torch.arange(wb.shape[0], device=dev)[:, None, None],
+                torch.arange(nb, device=dev)[None, :, None], idx.long()]
+    blocks = torch.where(valid[..., None, None], blocks,
+                         torch.zeros((), dtype=w.dtype, device=dev))
+    return PackedBCSC(
+        blocks=blocks.reshape(*lead, nb, nnz, b_in, b_out).contiguous(),
+        idx=idx.reshape(*lead, nb, nnz).contiguous(), kb=kb)
 
 
 def unpack(p: PackedBCSC) -> torch.Tensor:
@@ -100,23 +106,6 @@ def unpack(p: PackedBCSC) -> torch.Tensor:
     cols = torch.arange(nb, device=p.blocks.device)[:, None].expand(nb, nnz)
     dense.index_put_((cols, p.idx.long()), p.blocks, accumulate=True)
     return dense.permute(1, 2, 0, 3).reshape(p.kb * b_in, nb * b_out)
-
-
-def pack_stacked(w: torch.Tensor, block_mask: torch.Tensor, b_in: int,
-                 b_out: int, nnz: int) -> PackedBCSC:
-    """``pack`` over arbitrary leading dims (layers, experts), the
-    leading axes written out as a loop."""
-    lead = tuple(w.shape[:-2])
-    if not lead:
-        return pack(w, block_mask, b_in, b_out, nnz)
-    w2 = w.reshape(-1, *w.shape[-2:])
-    m2 = block_mask.reshape(-1, *block_mask.shape[-2:])
-    parts = [pack(w2[i], m2[i], b_in, b_out, nnz) for i in range(w2.shape[0])]
-    blocks = torch.stack([p.blocks for p in parts]).reshape(
-        *lead, *parts[0].blocks.shape)
-    idx = torch.stack([p.idx for p in parts]).reshape(
-        *lead, *parts[0].idx.shape)
-    return PackedBCSC(blocks=blocks, idx=idx, kb=w.shape[-2] // b_in)
 
 
 def pad_nnz(p: PackedBCSC, nnz: int) -> PackedBCSC:

@@ -130,15 +130,18 @@ def get_path(tree: Params, path: str):
 
 
 def set_path(tree: Params, path: str, value) -> Params:
-    """Functional set (copies the dicts along the path)."""
-    keys = path.split("/")
-
-    def rec(node, i):
-        node = dict(node)
-        node[keys[i]] = value if i == len(keys) - 1 else rec(node[keys[i]],
-                                                               i + 1)
-        return node
-    return rec(tree, 0)
+    """Functional set (copies the dicts along the path). A loop, not a
+    recursive closure: a closure that refers to itself is a reference
+    cycle holding ``value``, which only the garbage collector frees, so
+    the leaves an export replaces (masked f32 copies, GBs each) would
+    outlive it."""
+    *head, last = path.split("/")
+    out = node = dict(tree)
+    for k in head:
+        node[k] = dict(node[k])
+        node = node[k]
+    node[last] = value
+    return out
 
 
 def _dense_flag_mask(new_mask: torch.Tensor, dense_flags, path: str = ""):

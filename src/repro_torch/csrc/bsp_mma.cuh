@@ -18,7 +18,8 @@
 // Visit lists are split across the CTAs of a thread-block cluster. The
 // host (kernels/split_plan.py) cuts every list into S <= 8 contiguous
 // chunks (bounds (n_lists, S + 1), offsets into the visit array), and the
-// grid is (S, n_lists * n_split, ceil(M / BM)) with cluster (S, 1, 1): the
+// grid is (S, n_lists * n_split, batch * ceil(M / BM)) with cluster
+// (S, 1, 1) (batch > 1: the expert-batched forward, Args::batch): the
 // S CTAs of one output tile form one cluster, each sums its chunk in f32
 // registers, parks the partial tile in its shared memory, and after a
 // cluster barrier every CTA sums a slice of the tile over the S partials
@@ -96,6 +97,13 @@ struct Args {
   const void* w2 = nullptr;
   const int* idx2 = nullptr;
   int act = 0;
+  // the expert-batched forward: `batch` products in one launch, X (batch,
+  // M, K), blocks (batch, Nb, nnz, b_in, b_out), idx (batch, Nb, nnz) and
+  // Y (batch, M, N), each contiguous. Matrix e's rows are e * M + [0, M)
+  // of X and Y seen as (batch * M)-row matrices, and its slots e * Nb *
+  // nnz + [0, Nb * nnz) of blocks and idx seen as one pack of batch * Nb
+  // columns, so one set of chunk bounds serves every matrix.
+  int batch = 1;
 };
 
 // The forward product's GLU mode (kernels/split_plan.py: glu, joint).
@@ -196,6 +204,27 @@ __device__ __forceinline__ const TW* w_block(const Args& a, int slot,
          static_cast<size_t>(slot) * a.b_in * a.b_out;
 }
 
+// The first row tile of this CTA, and with BAT (the expert-batched launch,
+// batch > 1) the matrix it works on: grid z then runs over batch * ceil(M
+// / bm) tiles, matrix by matrix, and row0 = e * M is matrix e's first row
+// of X and Y, sbase = e * Nb * nnz its first slot (FWD only: bspmm_t has
+// batch 1). A single matrix takes the BAT = false instantiation, whose
+// code is the unbatched kernel's: the batch costs it nothing.
+template <bool BAT>
+__device__ __forceinline__ void batch_tile(const Args& a, int bm, int& m0,
+                                           int& row0, int& sbase) {
+  if constexpr (BAT) {
+    const int mt = (a.M + bm - 1) / bm;
+    const int e = static_cast<int>(blockIdx.z) / mt;
+    m0 = (static_cast<int>(blockIdx.z) % mt) * bm;
+    row0 = e * a.M;
+    sbase = e * (a.ldo / a.b_out) * a.nnz;
+  } else {
+    m0 = static_cast<int>(blockIdx.z) * bm;
+    row0 = sbase = 0;
+  }
+}
+
 // ------------------------------------------------------------ epilogue
 // red: this CTA's (BM x BN) f32 partial, row stride ldr, in shared memory
 // (GLU: the gate partial, then the up partial bm * ldr further on). Every
@@ -206,7 +235,8 @@ template <typename TO, int VW, bool GLU>
 __device__ __forceinline__ void cluster_reduce_store(const Args& a, float* red,
                                                      int ldr, int bm, int bn,
                                                      int tile_col, int m0,
-                                                     int tid, int nt) {
+                                                     int row0, int tid,
+                                                     int nt) {
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();  // every partial is in place
   const int S = static_cast<int>(cluster.num_blocks());
@@ -219,7 +249,7 @@ __device__ __forceinline__ void cluster_reduce_store(const Args& a, float* red,
   for (int g = rank * G / S + tid; g < g1; g += nt) {
     const int r = g / per_row, c = (g % per_row) * VW, row = m0 + r;
     if (row >= a.M) continue;
-    TO* dst = out + static_cast<size_t>(row) * a.ldo + tile_col + c;
+    TO* dst = out + static_cast<size_t>(row0 + row) * a.ldo + tile_col + c;
     if constexpr (VW == 4) {
       float4 s = make_float4(0.f, 0.f, 0.f, 0.f), u = s;
       for (int q = 0; q < S; ++q) {
@@ -278,7 +308,8 @@ struct Tc {
   static_assert(SMEM <= MAX_SMEM, "shared memory of one CTA");
 };
 
-template <int BM, int BN, int BK, int WM, int WN, int STAGES, bool FWD, Glu G>
+template <int BM, int BN, int BK, int WM, int WN, int STAGES, bool FWD, Glu G,
+          bool BAT>
 __global__ void __launch_bounds__(WM * WN * 32)
     tc_kernel(const Args a) {
   using T = Tc<BM, BN, BK, WM, WN, STAGES, FWD, G>;
@@ -290,13 +321,15 @@ __global__ void __launch_bounds__(WM * WN * 32)
   const int S = gridDim.x, rank = blockIdx.x;
   const int list = blockIdx.y / a.n_split;
   const int n0 = (blockIdx.y % a.n_split) * BN;
-  const int m0 = blockIdx.z * BM;
-  const int vb = __ldg(a.bounds + list * (S + 1) + rank);
-  const int ve = __ldg(a.bounds + list * (S + 1) + rank + 1);
+  int m0, row0, sbase;
+  batch_tile<BAT>(a, BM, m0, row0, sbase);
+  const int vb = __ldg(a.bounds + list * (S + 1) + rank) + sbase;
+  const int ve = __ldg(a.bounds + list * (S + 1) + rank + 1) + sbase;
   const int k_t = FWD ? a.b_in : a.b_out;
   const int ksteps = k_t / BK;
   const int total = (ve - vb) * ksteps;
-  const bf16* A = static_cast<const bf16*>(a.a);
+  const bf16* A = static_cast<const bf16*>(a.a) +
+                  static_cast<size_t>(row0) * a.lda;
 
   auto load_stage = [&](int it, int buf) {
     const int v = vb + it / ksteps, kc = (it % ksteps) * BK;
@@ -409,7 +442,8 @@ __global__ void __launch_bounds__(WM * WN * 32)
       }
   const int n_t = FWD ? a.b_out : a.b_in;
   cluster_reduce_store<bf16, 4, G != NO_GLU>(a, red, T::LDR, BM, BN,
-                                             list * n_t + n0, m0, tid, T::NT);
+                                             list * n_t + n0, m0, row0, tid,
+                                             T::NT);
 }
 
 // ------------------------------------------------------------ f32 FMAs
@@ -439,7 +473,7 @@ struct Fma {   // the stage layout of Tc, in bytes
   static_assert(SMEM <= MAX_SMEM, "shared memory of one CTA");
 };
 
-template <typename TA, typename TW, bool FWD, Glu G, bool VEC>
+template <typename TA, typename TW, bool FWD, Glu G, bool VEC, bool BAT>
 __global__ void __launch_bounds__(F_NT) fma_kernel(const Args a) {
   using F = Fma<TA, TW, FWD, G>;
   constexpr int STAGES = F::STAGES;
@@ -450,13 +484,14 @@ __global__ void __launch_bounds__(F_NT) fma_kernel(const Args a) {
   const int list = blockIdx.y / a.n_split;
   const int bn = a.bn, bk = a.bk;
   const int n0 = (blockIdx.y % a.n_split) * bn;
-  const int m0 = blockIdx.z * F_BM;
-  const int vb = __ldg(a.bounds + list * (S + 1) + rank);
-  const int ve = __ldg(a.bounds + list * (S + 1) + rank + 1);
+  int m0, row0, sbase;
+  batch_tile<BAT>(a, F_BM, m0, row0, sbase);
+  const int vb = __ldg(a.bounds + list * (S + 1) + rank) + sbase;
+  const int ve = __ldg(a.bounds + list * (S + 1) + rank + 1) + sbase;
   const int k_t = FWD ? a.b_in : a.b_out;
   const int ksteps = (k_t + bk - 1) / bk;
   const int total = (ve - vb) * ksteps;
-  const TA* A = static_cast<const TA*>(a.a);
+  const TA* A = static_cast<const TA*>(a.a) + static_cast<size_t>(row0) * a.lda;
   // warps whose 8 rows all lie past M skip the arithmetic
   const bool busy = m0 + (tid / 32) * 8 < a.M;
 
@@ -596,7 +631,8 @@ __global__ void __launch_bounds__(F_NT) fma_kernel(const Args a) {
               acc[op][i][j];
   const int n_t = FWD ? a.b_out : a.b_in;
   cluster_reduce_store<TA, 1, G != NO_GLU>(a, red, F::LDR, F_BM, bn,
-                                           list * n_t + n0, m0, tid, F_NT);
+                                           list * n_t + n0, m0, row0, tid,
+                                           F_NT);
 }
 
 // ------------------------------------------------------------ host side
@@ -634,8 +670,14 @@ int launch_tc(const Args& a, int n_lists, int n_t, int splits,
   const int k_t = FWD ? a.b_in : a.b_out;
   if (n_t % BN != 0 || k_t % BK != 0 || a.n_split != n_t / BN)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(splits, n_lists * a.n_split, (a.M + BM - 1) / BM);
-  return launch_cluster(tc_kernel<BM, BN, BK, WM, WN, STAGES, FWD, G>,
+  const dim3 grid(splits, n_lists * a.n_split,
+                  a.batch * ((a.M + BM - 1) / BM));
+  if constexpr (FWD) {
+    if (a.batch > 1)
+      return launch_cluster(tc_kernel<BM, BN, BK, WM, WN, STAGES, FWD, G, true>,
+                            grid, T::NT, T::SMEM, stream, a);
+  }
+  return launch_cluster(tc_kernel<BM, BN, BK, WM, WN, STAGES, FWD, G, false>,
                         grid, T::NT, T::SMEM, stream, a);
 }
 
@@ -650,9 +692,15 @@ int launch_fma(const Args& a, int n_lists, int n_t, int splits, bool vec,
   if (vec && (k_t % a.bk != 0 || (a.bk * sizeof(TA)) % 16 != 0 ||
               (a.bk * sizeof(TW)) % 16 != 0 || (a.bn * sizeof(TW)) % 16 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(splits, n_lists * a.n_split, (a.M + F_BM - 1) / F_BM);
-  auto* k = vec ? fma_kernel<TA, TW, FWD, G, true>
-                : fma_kernel<TA, TW, FWD, G, false>;
+  const dim3 grid(splits, n_lists * a.n_split,
+                  a.batch * ((a.M + F_BM - 1) / F_BM));
+  auto* k = vec ? fma_kernel<TA, TW, FWD, G, true, false>
+                : fma_kernel<TA, TW, FWD, G, false, false>;
+  if constexpr (FWD) {
+    if (a.batch > 1)
+      k = vec ? fma_kernel<TA, TW, FWD, G, true, true>
+              : fma_kernel<TA, TW, FWD, G, false, true>;
+  }
   return launch_cluster(k, grid, F_NT, F::SMEM, stream, a);
 }
 
@@ -669,7 +717,9 @@ int run(const Args& a, int n_lists, int kernel, int splits, int a_dtype,
         int w_dtype, int device, void* stream_ptr) {
   const int n_t = FWD ? a.b_out : a.b_in;
   if (splits < 1 || splits > MAX_SPLITS || n_lists < 1 || a.M < 1 ||
-      a.b_in < 1 || a.b_out < 1 || a.n_split < 1 ||
+      a.b_in < 1 || a.b_out < 1 || a.n_split < 1 || a.batch < 1 ||
+      (!FWD && a.batch != 1) ||
+      static_cast<long long>(a.batch) * ((a.M + 15) / 16) > 65535 ||
       (G && a.w2 == nullptr) || (G == SPLIT_GLU && a.idx2 == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);

@@ -46,6 +46,16 @@
 // per visit saves 10% of a stage at decode (a 16-row X tile is small
 // beside two weight tiles) and 26% at the 128-row prefill chunk (128 x
 // 128 x 64 tile), where an X tile is as large as a weight tile.
+//
+// Expert-batched launch (the MoE layer, models/moe.py; the TPU kernels run
+// under vmap there, which adds a grid axis): with batch = E > 1 all three
+// take X (E, M, K), blocks (E, Nb, nnz, b_in, b_out), idx (E, Nb, nnz) and
+// write Y (E, M, N), every expert in one launch. The grid's z axis runs
+// over the E experts' row tiles, and a CTA offsets its X and Y rows and its
+// slots by its expert's (Args::batch). A balanced pack has the same nnz in
+// every column of every expert, so one set of chunk bounds serves all E.
+// The batch is an instantiation of its own (bsp_mma.cuh, BAT), so a single
+// matrix runs the code it ran before the batch existed.
 #include <cuda_runtime.h>
 
 #include "bsp_mma.cuh"
@@ -54,16 +64,18 @@ extern "C" {
 
 // Each returns cudaGetLastError() after the launch (0 = launched).
 // bounds: (Nb, splits + 1) int32 chunk starts into the flat slots
-// j * nnz + k (kernels/split_plan.py); kernel: the id of bsp::run; bn, bk:
-// the FMA loop's tile width and K chunk (ignored by the tensor-core ones).
+// j * nnz + k (kernels/split_plan.py); batch: the experts of a batched
+// launch (1: one matrix); kernel: the id of bsp::run; bn, bk: the FMA
+// loop's tile width and K chunk (ignored by the tensor-core ones).
 int bspmm_launch(const void* x, const void* blocks, const void* idx,
-                 const void* bounds, void* y, int M, int K, int nb, int nnz,
-                 int b_in, int b_out, int n_split, int splits, int kernel,
-                 int bn, int bk, int x_dtype, int w_dtype, int device,
-                 void* stream) {
+                 const void* bounds, void* y, int batch, int M, int K, int nb,
+                 int nnz, int b_in, int b_out, int n_split, int splits,
+                 int kernel, int bn, int bk, int x_dtype, int w_dtype,
+                 int device, void* stream) {
   bsp::Args a{x, blocks, static_cast<const int*>(idx), nullptr,
               static_cast<const int*>(bounds), y, M, K, nb * b_out, nnz,
               b_in, b_out, n_split, bn, bk};
+  a.batch = batch;
   return bsp::run<true>(a, nb, kernel, splits, x_dtype, w_dtype, device,
                         stream);
 }
@@ -73,14 +85,14 @@ int bspmm_launch(const void* x, const void* blocks, const void* idx,
 int fused_glu_split_launch(const void* x, const void* w_gate,
                            const void* idx_gate, const void* w_up,
                            const void* idx_up, const void* bounds, void* y,
-                           int M, int K, int nb, int nnz, int b_in, int b_out,
-                           int n_split, int splits, int kernel, int bn, int bk,
-                           int act, int x_dtype, int w_dtype, int device,
-                           void* stream) {
+                           int batch, int M, int K, int nb, int nnz, int b_in,
+                           int b_out, int n_split, int splits, int kernel,
+                           int bn, int bk, int act, int x_dtype, int w_dtype,
+                           int device, void* stream) {
   bsp::Args a{x, w_gate, static_cast<const int*>(idx_gate), nullptr,
               static_cast<const int*>(bounds), y, M, K, nb * b_out, nnz,
               b_in, b_out, n_split, bn, bk, w_up,
-              static_cast<const int*>(idx_up), act};
+              static_cast<const int*>(idx_up), act, batch};
   return bsp::run<true, bsp::SPLIT_GLU>(a, nb, kernel, splits, x_dtype,
                                         w_dtype, device, stream);
 }
@@ -89,13 +101,13 @@ int fused_glu_split_launch(const void* x, const void* w_gate,
 // (gate and up share idx).
 int fused_glu_joint_launch(const void* x, const void* w_gate, const void* idx,
                            const void* w_up, const void* bounds, void* y,
-                           int M, int K, int nb, int nnz, int b_in, int b_out,
-                           int n_split, int splits, int kernel, int bn, int bk,
-                           int act, int x_dtype, int w_dtype, int device,
-                           void* stream) {
+                           int batch, int M, int K, int nb, int nnz, int b_in,
+                           int b_out, int n_split, int splits, int kernel,
+                           int bn, int bk, int act, int x_dtype, int w_dtype,
+                           int device, void* stream) {
   bsp::Args a{x, w_gate, static_cast<const int*>(idx), nullptr,
               static_cast<const int*>(bounds), y, M, K, nb * b_out, nnz,
-              b_in, b_out, n_split, bn, bk, w_up, nullptr, act};
+              b_in, b_out, n_split, bn, bk, w_up, nullptr, act, batch};
   return bsp::run<true, bsp::JOINT_GLU>(a, nb, kernel, splits, x_dtype,
                                         w_dtype, device, stream);
 }

@@ -40,6 +40,12 @@
 //    maxima (m is the same on every lane), so the dependent chain runs once
 //    a page, not once a step; each lane keeps P V for its 8 elements and
 //    its slot group in registers.
+//  * Up to 16 query rows. A lane keeps up to 8 rows of q and acc in
+//    registers; for 8 < G <= 16 (qwen3-moe: 64 query heads over 4 kv
+//    heads) two teams of LPS lanes score the same slot, one for rows 0-7
+//    and one for rows 8-15, so a warp step covers half as many slots and
+//    no lane holds more than 8 rows (16 would not fit its 255 registers).
+//    This takes LPS <= 16, so hd <= 128 there.
 //  * One merge. The warps' (m, l, acc) meet in shared memory, then the
 //    CTAs' through distributed shared memory in rank order: m* = max m_c,
 //    l = sum l_c e^(m_c - m*), acc = sum acc_c e^(m_c - m*), out =
@@ -139,19 +145,28 @@ __device__ __forceinline__ float round_to(float v, const bf16*) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// LPS: lanes per slot (8 elements each, so hd <= 8 LPS); GM: query rows
-// held in registers (G <= GM; rows past G compute on zeros, unstored).
-template <typename TQ, typename TKV, int LPS, int GM>
+// LPS: lanes per slot (8 elements each, so hd <= 8 LPS); GR: query rows a
+// lane holds in registers; RG: row groups of a warp step, so the CTA holds
+// GM = GR * RG query rows (G <= GM; rows past G compute on zeros,
+// unstored). A lane is (slot group sg, row group rg, element lane): with
+// RG = 2 the two halves of a LPS * 2 lane team score the same slot for rows
+// [0, GR) and [GR, 2 GR), each with GR rows of q and acc in registers (16
+// rows in one lane's registers would not fit 255 of them), at the cost of
+// half as many slots per warp step.
+template <typename TQ, typename TKV, int LPS, int GR, int RG>
 __global__ void __launch_bounds__(NT) paged_decode_kernel(const DecodeArgs a) {
-  constexpr int SG = 32 / LPS;  // slots of one warp step
+  constexpr int GM = GR * RG;        // query rows of the CTA
+  constexpr int SG = 32 / (LPS * RG);  // slots of one warp step
   constexpr int UNR = 4;        // warp steps per softmax update
+  static_assert(SG >= 1, "a warp holds LPS * RG lanes");
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int S = gridDim.x, c = blockIdx.x;
   const int bh = blockIdx.y, b = bh / a.KV, h = bh % a.KV;
   const int G = a.G, hd = a.hd, hdp = a.hdp, ps = a.ps;
-  const int sg = lane / LPS, d0 = (lane % LPS) * 8;
+  const int sg = lane / (LPS * RG), d0 = (lane % LPS) * 8;
+  const int g0 = (lane / LPS) % RG * GR;  // this lane's first query row
   const bool dlive = d0 < hd;
 
   // this CTA's pages [j0, j1); this warp's are j0 + warp + NW * t
@@ -164,12 +179,13 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(const DecodeArgs a) {
   };
 
   const TQ* qp = static_cast<const TQ*>(a.q) + static_cast<size_t>(bh) * G * hd;
-  float q[GM][8];
+  float q[GR][8];
 #pragma unroll
-  for (int g = 0; g < GM; ++g)
+  for (int g = 0; g < GR; ++g)
 #pragma unroll
     for (int e = 0; e < 8; ++e)
-      q[g][e] = (g < G && d0 + e < hd) ? bsp::to_f(qp[g * hd + d0 + e]) : 0.f;
+      q[g][e] = (g0 + g < G && d0 + e < hd)
+                    ? bsp::to_f(qp[(g0 + g) * hd + d0 + e]) : 0.f;
 
   const TKV* pk = static_cast<const TKV*>(a.pk);
   const TKV* pv = static_cast<const TKV*>(a.pv);
@@ -210,9 +226,9 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(const DecodeArgs a) {
     bsp::cp_async_commit();
   };
 
-  float m[GM], l[GM], acc[GM][8];
+  float m[GR], l[GR], acc[GR][8];
 #pragma unroll
-  for (int g = 0; g < GM; ++g) {
+  for (int g = 0; g < GR; ++g) {
     m[g] = NEG_INF, l[g] = 0.f;
 #pragma unroll
     for (int e = 0; e < 8; ++e) acc[g][e] = 0.f;
@@ -230,7 +246,7 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(const DecodeArgs a) {
     const float* sb = reinterpret_cast<const float*>(sv + ps * hdp);
     for (int s0 = 0; s0 < ps; s0 += UNR * SG) {
       // UNR warp steps of scores, then one online-softmax update
-      float sc[UNR][GM];
+      float sc[UNR][GR];
       bool valid[UNR];
 #pragma unroll
       for (int u = 0; u < UNR; ++u) {
@@ -243,7 +259,7 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(const DecodeArgs a) {
           for (int e = 0; e < 8; ++e) kv[e] = 0.f;
         }
 #pragma unroll
-        for (int g = 0; g < GM; ++g) {
+        for (int g = 0; g < GR; ++g) {
           float dot = 0.f;
 #pragma unroll
           for (int e = 0; e < 8; ++e) dot = fmaf(q[g][e], kv[e], dot);
@@ -256,27 +272,27 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(const DecodeArgs a) {
 #pragma unroll
         for (int u = 0; u < UNR; ++u)
 #pragma unroll
-          for (int g = 0; g < GM; ++g)
+          for (int g = 0; g < GR; ++g)
             sc[u][g] += __shfl_xor_sync(FULL, sc[u][g], off);
-      float mx[GM];
+      float mx[GR];
 #pragma unroll
-      for (int g = 0; g < GM; ++g) mx[g] = NEG_INF;
+      for (int g = 0; g < GR; ++g) mx[g] = NEG_INF;
 #pragma unroll
       for (int u = 0; u < UNR; ++u)
 #pragma unroll
-        for (int g = 0; g < GM; ++g) {
+        for (int g = 0; g < GR; ++g) {
           float x = sc[u][g] * a.scale;
           if (a.softcap > 0.f) x = tanhf(x / a.softcap) * a.softcap;
           sc[u][g] = valid[u] ? x : NEG_INF;
           mx[g] = fmaxf(mx[g], sc[u][g]);
         }
 #pragma unroll
-      for (int off = LPS; off < 32; off *= 2)
+      for (int off = LPS * RG; off < 32; off *= 2)
 #pragma unroll
-        for (int g = 0; g < GM; ++g)
+        for (int g = 0; g < GR; ++g)
           mx[g] = fmaxf(mx[g], __shfl_xor_sync(FULL, mx[g], off));
 #pragma unroll
-      for (int g = 0; g < GM; ++g) {
+      for (int g = 0; g < GR; ++g) {
         const float m_new = fmaxf(m[g], mx[g]);
         const float alpha = expf(m[g] - m_new);
         float psum = 0.f;
@@ -298,7 +314,7 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(const DecodeArgs a) {
           float vv[8];
           load8(vv, sv + s * hdp + d0);
 #pragma unroll
-          for (int g = 0; g < GM; ++g)
+          for (int g = 0; g < GR; ++g)
 #pragma unroll
             for (int e = 0; e < 8; ++e) acc[g][e] = fmaf(sc[u][g], vv[e], acc[g][e]);
         }
@@ -308,11 +324,12 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(const DecodeArgs a) {
     if (t + a.ring < n_mine) issue(t + a.ring);
   }
 
-  // the warp's slot groups: sum l and acc (m is the same on every lane)
+  // the warp's slot groups: sum l and acc (m is the same on every lane of
+  // a row group)
 #pragma unroll
-  for (int off = LPS; off < 32; off *= 2)
+  for (int off = LPS * RG; off < 32; off *= 2)
 #pragma unroll
-    for (int g = 0; g < GM; ++g) {
+    for (int g = 0; g < GR; ++g) {
       l[g] += __shfl_xor_sync(FULL, l[g], off);
 #pragma unroll
       for (int e = 0; e < 8; ++e) acc[g][e] += __shfl_xor_sync(FULL, acc[g][e], off);
@@ -329,11 +346,12 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(const DecodeArgs a) {
   float* cacc = cl + GM;
   if (sg == 0) {
 #pragma unroll
-    for (int g = 0; g < GM; ++g) {
-      if (lane == 0) wm[warp * GM + g] = m[g], wl[warp * GM + g] = l[g];
+    for (int g = 0; g < GR; ++g) {
+      const int row = warp * GM + g0 + g;
+      if (d0 == 0) wm[row] = m[g], wl[row] = l[g];
 #pragma unroll
       for (int e = 0; e < 8; ++e)
-        if (d0 + e < hdp) wacc[(warp * GM + g) * hdp + d0 + e] = acc[g][e];
+        if (d0 + e < hdp) wacc[row * hdp + d0 + e] = acc[g][e];
     }
   }
   __syncthreads();
@@ -369,25 +387,30 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(const DecodeArgs a) {
   cluster.sync();  // no CTA leaves while another reads its partial
 }
 
-template <typename TQ, typename TKV, int LPS, int GM>
+template <typename TQ, typename TKV, int LPS, int GR, int RG>
 int launch(const DecodeArgs& a, int B, int splits, cudaStream_t st) {
+  constexpr int GM = GR * RG;
   const size_t parts = sizeof(float) * (2 * NW * GM + NW * GM * a.hdp +
                                         2 * GM + GM * a.hdp);
   const size_t smem = static_cast<size_t>(NW) * a.ring * a.slot_bytes + parts;
   if (smem > bsp::MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
-  return bsp::launch_cluster(paged_decode_kernel<TQ, TKV, LPS, GM>,
+  return bsp::launch_cluster(paged_decode_kernel<TQ, TKV, LPS, GR, RG>,
                              dim3(splits, B * a.KV), NT, smem, st, a);
 }
 
 template <typename TQ, typename TKV>
 int pick_tile(const DecodeArgs& a, int B, int splits, cudaStream_t st) {
   const int lps = a.hdp <= 32 ? 4 : a.hdp <= 64 ? 8 : a.hdp <= 128 ? 16 : 32;
-  const int gm = a.G <= 2 ? 2 : a.G <= 4 ? 4 : 8;
-#define PAGED_CASE(L, M)                                 \
-  if (lps == L && gm == M) return launch<TQ, TKV, L, M>(a, B, splits, st);
-  PAGED_CASE(4, 2) PAGED_CASE(4, 4) PAGED_CASE(4, 8)
-  PAGED_CASE(8, 2) PAGED_CASE(8, 4) PAGED_CASE(8, 8)
-  PAGED_CASE(16, 2) PAGED_CASE(16, 4) PAGED_CASE(16, 8)
+  // G <= 8: one row group of GM in {2, 4, 8} rows; 8 < G <= 16: two row
+  // groups of 8 (LPS <= 16, so hd <= 128)
+  const int gm = a.G <= 2 ? 2 : a.G <= 4 ? 4 : a.G <= 8 ? 8 : 16;
+#define PAGED_CASE(L, M)                                                  \
+  if (lps == L && gm == M)                                                \
+    return launch<TQ, TKV, L, M <= 8 ? M : 8, M <= 8 ? 1 : 2>(a, B, splits, \
+                                                              st);
+  PAGED_CASE(4, 2) PAGED_CASE(4, 4) PAGED_CASE(4, 8) PAGED_CASE(4, 16)
+  PAGED_CASE(8, 2) PAGED_CASE(8, 4) PAGED_CASE(8, 8) PAGED_CASE(8, 16)
+  PAGED_CASE(16, 2) PAGED_CASE(16, 4) PAGED_CASE(16, 8) PAGED_CASE(16, 16)
   PAGED_CASE(32, 2) PAGED_CASE(32, 4) PAGED_CASE(32, 8)
 #undef PAGED_CASE
   return static_cast<int>(cudaErrorInvalidValue);
@@ -398,8 +421,9 @@ int pick_tile(const DecodeArgs& a, int B, int splits, cudaStream_t st) {
 extern "C" {
 
 // splits: CTAs per (lane, kv head), one cluster (split_plan.decode_splits);
-// dtype codes: 0 = float32, 1 = bfloat16. Takes hd <= 256 and G <= 8.
-// Returns cudaGetLastError() after the launch (0 = launched).
+// dtype codes: 0 = float32, 1 = bfloat16. Takes hd <= 256 at G <= 8 and
+// hd <= 128 at G <= 16. Returns cudaGetLastError() after the launch (0 =
+// launched).
 int paged_flash_decode_launch(const void* q, const void* pool_k,
                               const void* pool_v, const void* block_tables,
                               int bt_stride, const void* bias, void* out, int B,
@@ -407,7 +431,8 @@ int paged_flash_decode_launch(const void* q, const void* pool_k,
                               float scale, float softcap, int splits,
                               int q_dtype, int kv_dtype, int device,
                               void* stream) {
-  if (B < 1 || KV < 1 || G < 1 || G > 8 || hd < 1 || hd > 256 || ps < 1 ||
+  if (B < 1 || KV < 1 || G < 1 || G > 16 || hd < 1 || hd > 256 ||
+      (G > 8 && hd > 128) || ps < 1 ||
       R < 1 || splits < 1 || splits > bsp::MAX_SPLITS || splits > R)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);

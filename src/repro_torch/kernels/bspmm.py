@@ -14,6 +14,11 @@ a balanced pack is a run of nnz consecutive slots, so the chunk bounds of
 a (Nb, nnz, splits) are built once and cached on the device, never per
 call, and the kernel and split are chosen once per (M, shape, dtype,
 GLU mode).
+
+Each also takes an expert batch (the MoE layer, ``models/moe.py``): X
+(E, M, K), packs with blocks (E, Nb, nnz, b_in, b_out) and idx (E, Nb,
+nnz), Y (E, M, N), all E experts in ONE launch (the counterpart of the
+reference's ``vmap`` of a ``pallas_call``), counted once.
 """
 from __future__ import annotations
 
@@ -33,9 +38,9 @@ ACT_IDS = {"silu": 0, "gelu": 1, "relu": 2}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    "bspmm_launch": [_P] * 5 + [_I] * 14 + [_P],
-    "fused_glu_split_launch": [_P] * 7 + [_I] * 15 + [_P],
-    "fused_glu_joint_launch": [_P] * 6 + [_I] * 15 + [_P],
+    "bspmm_launch": [_P] * 5 + [_I] * 15 + [_P],
+    "fused_glu_split_launch": [_P] * 7 + [_I] * 16 + [_P],
+    "fused_glu_joint_launch": [_P] * 6 + [_I] * 16 + [_P],
 }
 
 
@@ -48,17 +53,24 @@ def _fn(name: str):
 
 
 def _check_operands(x: torch.Tensor, packs: list[PackedBCSC]) -> None:
+    """One matrix: x (M, K), blocks (Nb, nnz, b_in, b_out), idx (Nb,
+    nnz); or an expert batch: the same with a leading E on each."""
     if x.device.type != "cuda":
         raise ValueError(f"CUDA kernel given a tensor on {x.device}")
-    if x.dim() != 2 or not x.is_contiguous():
-        raise ValueError(f"x must be a contiguous (M, K) matrix, got "
-                         f"{tuple(x.shape)} strides {x.stride()}")
+    if x.dim() not in (2, 3) or not x.is_contiguous():
+        raise ValueError(f"x must be a contiguous (M, K) matrix or (E, M, "
+                         f"K) batch, got {tuple(x.shape)} strides "
+                         f"{x.stride()}")
     if x.dtype not in DTYPE_CODES:
         raise TypeError(f"x dtype {x.dtype} not supported (f32 or bf16)")
+    lead = tuple(x.shape[:-2])
     for p in packs:
         b, i = p.blocks, p.idx
-        if b.dim() != 4 or i.dim() != 2 or tuple(i.shape) != tuple(b.shape[:2]):
-            raise ValueError(f"packed operand must be one matrix: blocks "
+        if (b.dim() != 4 + len(lead) or i.dim() != 2 + len(lead)
+                or tuple(i.shape) != tuple(b.shape[:-2])
+                or tuple(i.shape[:-2]) != lead):
+            raise ValueError(f"packed operand must be one matrix, or one "
+                             f"per row of x {tuple(x.shape)}: blocks "
                              f"{tuple(b.shape)}, idx {tuple(i.shape)}")
         if b.device != x.device or i.device != x.device:
             raise ValueError("operands on different devices")
@@ -70,8 +82,8 @@ def _check_operands(x: torch.Tensor, packs: list[PackedBCSC]) -> None:
                                        and b.dtype == torch.bfloat16)):
             raise TypeError(f"weights {b.dtype} with x {x.dtype} not "
                             "supported")
-        if p.kb * p.b_in != x.shape[1]:
-            raise ValueError(f"x has K={x.shape[1]}, weight has "
+        if p.kb * p.b_in != x.shape[-1]:
+            raise ValueError(f"x has K={x.shape[-1]}, weight has "
                              f"{p.kb} x {p.b_in} rows")
         if p.b_out > split_plan.FMA_BN and p.b_out % split_plan.FMA_BN:
             raise ValueError(f"b_out={p.b_out} must be at most "
@@ -81,10 +93,12 @@ def _check_operands(x: torch.Tensor, packs: list[PackedBCSC]) -> None:
 def _common(x: torch.Tensor, p: PackedBCSC):
     dev = device_index(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    nb, nnz, b_in, b_out = p.blocks.shape
-    out = torch.empty((x.shape[0], nb * b_out), dtype=x.dtype,
+    nb, nnz, b_in, b_out = p.blocks.shape[-4:]
+    *lead, m, k = x.shape
+    out = torch.empty((*lead, m, nb * b_out), dtype=x.dtype,
                       device=x.device)
-    return out, dev, stream, (x.shape[0], x.shape[1], nb, nnz, b_in, b_out)
+    return out, dev, stream, (lead[0] if lead else 1, m, k, nb, nnz, b_in,
+                              b_out)
 
 
 def _raise_on(rc: int, name: str) -> None:
@@ -112,14 +126,15 @@ def launch_plan(x: torch.Tensor, packed: PackedBCSC,
     """The kernel and split ``bspmm`` takes for these operands, or, with
     ``p_up``, ``fused_glu`` (``packed`` its gate; the joint GLU when both
     carry the ``joint`` promise)."""
-    nb, nnz, b_in, b_out = packed.blocks.shape
+    nb, nnz, b_in, b_out = packed.blocks.shape[-4:]
+    lists = nb * (x.shape[0] if x.dim() == 3 else 1)   # every expert's
     ea, ew = x.element_size(), packed.blocks.element_size()
     ptrs = [x.data_ptr(), packed.blocks.data_ptr()]
     if p_up is not None:
         ptrs.append(p_up.blocks.data_ptr())
-    ok = aligned16(*ptrs, x.shape[1] * ea, b_in * ea, b_out * ew)
+    ok = aligned16(*ptrs, x.shape[-1] * ea, b_in * ea, b_out * ew)
     return split_plan.choose(
-        x.shape[0], b_in, b_out, nb, nnz, nb * nnz,
+        x.shape[-2], b_in, b_out, lists, nnz, lists * nnz,
         bf16=x.dtype == packed.blocks.dtype == torch.bfloat16, a_size=ea,
         w_size=ew, aligned=ok, n_sm=n_sms(device_index(x)),
         glu=p_up is not None,
@@ -137,7 +152,8 @@ def column_bounds(device: str, nb: int, nnz: int,
 
 def bspmm(x: torch.Tensor, packed: PackedBCSC) -> torch.Tensor:
     """Y = X @ W with W packed balanced BCSC; (M, K) -> (M, Nb*b_out) in
-    X's dtype, f32 accumulation, one rounding."""
+    X's dtype, f32 accumulation, one rounding; (E, M, K) with E packs ->
+    (E, M, Nb*b_out) in one launch."""
     _check_operands(x, [packed])
     out, dev, stream, dims = _common(x, packed)
     lp = launch_plan(x, packed)

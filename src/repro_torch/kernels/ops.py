@@ -7,8 +7,12 @@ CUDA tensor and use the ``*_plain`` versions for a CPU tensor. The plain
 versions copy the reference's XLA twins (gather + einsum, f32
 accumulation, gate and up rounded to the input dtype before the
 activation); tests and ``chip_smoke.py`` call them directly as the
-kernels' oracle. ``make_bspmm_trainable`` is the packed matmul with a
-sparse backward (the fine-tuning stage at fixed masks).
+kernels' oracle. ``bspmm``, ``fused_glu`` and ``sparse_mlp_apply`` (and
+their plain versions) also take an expert batch, X (E, M, K) with packs
+stacked on a leading E (the reference ``vmap``s them over the experts of
+an MoE layer): the kernels run it as one launch, the plain versions as
+one batched gather and einsum. ``make_bspmm_trainable`` is the packed
+matmul with a sparse backward (the fine-tuning stage at fixed masks).
 """
 from __future__ import annotations
 
@@ -21,18 +25,22 @@ from repro_torch.kernels import bspmm_t as _kt
 
 def _contract_gathered(xg: torch.Tensor, blocks: torch.Tensor,
                        out_dtype) -> torch.Tensor:
-    """(M, Nb, nnz, b_in) gathered X tiles @ (Nb, nnz, b_in, b_out) blocks
-    -> (M, N), summed in f32 (the products of bf16 values are exact in
-    f32, as under preferred_element_type=f32)."""
-    m = xg.shape[0]
-    nb, _, _, b_out = blocks.shape
-    y = torch.einsum("mjnb,jnbo->mjo", xg.float(), blocks.float())
-    return y.reshape(m, nb * b_out).to(out_dtype)
+    """([E,] M, Nb, nnz, b_in) gathered X tiles @ ([E,] Nb, nnz, b_in,
+    b_out) blocks -> ([E,] M, N), summed in f32 (the products of bf16
+    values are exact in f32, as under preferred_element_type=f32)."""
+    nb, _, _, b_out = blocks.shape[-4:]
+    y = torch.einsum("...mjnb,...jnbo->...mjo", xg.float(), blocks.float())
+    return y.reshape(*xg.shape[:-3], nb * b_out).to(out_dtype)
 
 
 def _gather(x: torch.Tensor, p: PackedBCSC) -> torch.Tensor:
-    m = x.shape[0]
-    return x.reshape(m, p.kb, p.b_in)[:, p.idx.long()]   # (M, Nb, nnz, bi)
+    """([E,] M, Nb, nnz, b_in): the X tile each kept block multiplies
+    (expert e's rows by expert e's idx table)."""
+    xr = x.reshape(*x.shape[:-1], p.kb, p.b_in)
+    if x.dim() == 2:
+        return xr[:, p.idx.long()]
+    e = torch.arange(x.shape[0], device=x.device)[:, None, None]
+    return xr[e, :, p.idx.long()].permute(0, 3, 1, 2, 4)
 
 
 def bspmm_plain(x: torch.Tensor, packed: PackedBCSC) -> torch.Tensor:
@@ -152,9 +160,9 @@ def make_bspmm_trainable(idx: torch.Tensor, kb: int):
 
 
 def flops_bspmm(m: int, packed: PackedBCSC) -> int:
-    """True sparse FLOPs of one BSpMM call."""
-    nb, nnz, b_in, b_out = packed.blocks.shape[-4:]
-    return 2 * m * nb * nnz * b_in * b_out
+    """True sparse FLOPs of one BSpMM call (all experts of a batch, M
+    rows each)."""
+    return 2 * m * packed.blocks.numel()
 
 
 def flops_dense(m: int, k: int, n: int) -> int:

@@ -25,7 +25,9 @@ from repro_torch.kernels.bspmm import DTYPE_CODES, device_index, n_sms
 NEG_INF = -1e30
 
 LAUNCHES = {"paged_flash_decode": 0}
-MAX_G, MAX_HD = 8, 256    # what the kernel holds in registers
+# what the kernel holds in registers: hd <= 256 at G <= 8 query heads per
+# kv head, hd <= 128 at G <= 16 (two row groups of 8)
+MAX_G, MAX_HD, MAX_HD_G16 = 16, 256, 128
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -96,9 +98,10 @@ def _check(q4, pool_k, pool_v, block_tables, bias) -> None:
     if pool_k.shape[2] != kvh or pool_k.shape[3] != hd:
         raise ValueError(f"pool {tuple(pool_k.shape)} does not match q4 "
                          f"{tuple(q4.shape)}")
-    if g > MAX_G or hd > MAX_HD:
+    if g > MAX_G or hd > MAX_HD or (g > 8 and hd > MAX_HD_G16):
         raise ValueError(f"the kernel takes G <= {MAX_G} query heads per "
-                         f"kv head and hd <= {MAX_HD}, got G={g}, hd={hd}")
+                         f"kv head and hd <= {MAX_HD} (hd <= {MAX_HD_G16} "
+                         f"at G > 8), got G={g}, hd={hd}")
     if q4.dtype not in DTYPE_CODES or pool_k.dtype != pool_v.dtype or not (
             pool_k.dtype == q4.dtype or (q4.dtype == torch.float32
                                          and pool_k.dtype == torch.bfloat16)):

@@ -1,7 +1,7 @@
 """Model registry (port of ``repro/models/registry.py``): family ->
 implementation module and the generic entry points the training loop
-and the serving path call. Only the dense transformer family is
-ported."""
+and the serving path call. The dense and MoE families are ported (both
+run ``models/transformer.py``)."""
 from __future__ import annotations
 
 import math
@@ -11,7 +11,7 @@ from repro_torch.models import transformer
 
 
 def module_for(cfg):
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return transformer
     raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
 
@@ -50,7 +50,7 @@ def forward(cfg, params, tokens, **kw):
 def count_params(cfg, active_only: bool = False) -> int:
     """Parameter count from the spec tree (no allocation). With
     ``active_only`` an expert stack counts only its top_k experts (the
-    N_active of 6·N_active·D); the dense family has none, so both counts
+    N_active of 6·N_active·D); a dense model has none, so both counts
     agree there."""
     total = 0
     for _, s in pmod._leaves(param_specs(cfg)):

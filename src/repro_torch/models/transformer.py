@@ -1,6 +1,8 @@
-"""Decoder-only transformer LM, dense family (port of the dense part of
-``repro/models/transformer.py``): the training forward and the serving
-steps over the contiguous cache and the paged pool.
+"""Decoder-only transformer LM, dense and MoE families (port of
+``repro/models/transformer.py``, single device): the training forward
+and the serving steps over the contiguous cache and the paged pool. An
+MoE model's MLP is ``models/moe.py``; its load-balance aux term is summed
+over the layers of the training forward.
 
 Params are nested dicts whose layer leaves are stacked on a leading
 layer axis, exactly as in the reference; the reference's ``lax.scan``
@@ -24,6 +26,7 @@ import torch.utils.checkpoint
 from repro_torch.core import sparse_mlp as sm
 from repro_torch.core.packing import PackedBCSC
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import norm, softcap
 from repro_torch.models.params import DTYPES, ParamSpec
 
@@ -41,7 +44,7 @@ def _norm_specs(cfg, name):
 
 def mlp_param_specs(cfg) -> dict:
     if cfg.is_moe:
-        raise NotImplementedError("MoE is not ported yet")
+        return moe_mod.moe_param_specs(cfg)
     d, f = cfg.d_model, cfg.d_ff
     down_scale = 1.0 / math.sqrt(2 * cfg.num_layers)
     if cfg.mlp_kind == "glu":
@@ -114,8 +117,12 @@ def sparse_paths(cfg) -> list[str]:
     """Param-tree paths of the BLaST-sparsified (stacked) weights."""
     stacks = (["layers_local", "layers_global"]
               if cfg.layer_pattern == "local_global" else ["layers"])
-    leaves = (["mlp/w_gate", "mlp/w_up", "mlp/w_down"]
-              if cfg.mlp_kind == "glu" else ["mlp/w_in", "mlp/w_out"])
+    if cfg.mlp_kind == "glu" or cfg.is_moe:
+        leaves = ["mlp/w_gate", "mlp/w_up", "mlp/w_down"]
+        if cfg.is_moe and cfg.num_shared_experts:
+            leaves += ["mlp/ws_gate", "mlp/ws_up", "mlp/ws_down"]
+    else:
+        leaves = ["mlp/w_in", "mlp/w_out"]
     return [f"{s}/{leaf}" for s in stacks for leaf in leaves]
 
 
@@ -164,20 +171,28 @@ def _layer_masks(masks: dict | None, stack: str) -> dict | None:
 
 
 def mlp_forward(cfg, p, x, masks=None):
+    """-> (MLP output, aux loss: the MoE layer's, else 0.0)."""
+    if cfg.is_moe:
+        return moe_mod.moe_forward(cfg, p, x, masks=masks)
     if cfg.mlp_kind == "glu":
-        return sm.glu_mlp(x, p["w_gate"], p["w_up"], p["w_down"],
-                          act=cfg.mlp_act, masks=masks, spec=cfg.blast)
-    return sm.mlp2(x, p["w_in"], p["w_out"], p.get("b_in"), p.get("b_out"),
-                   act=cfg.mlp_act, masks=masks, spec=cfg.blast)
+        y = sm.glu_mlp(x, p["w_gate"], p["w_up"], p["w_down"],
+                       act=cfg.mlp_act, masks=masks, spec=cfg.blast)
+    else:
+        y = sm.mlp2(x, p["w_in"], p["w_out"], p.get("b_in"),
+                    p.get("b_out"), act=cfg.mlp_act, masks=masks,
+                    spec=cfg.blast)
+    return y, 0.0
 
 
 def _block(cfg, p, x, positions, masks, window):
-    """One pre-norm transformer block (full causal attention)."""
+    """One pre-norm transformer block (full causal attention) -> (x,
+    aux)."""
     h = norm(cfg.norm_kind, x, p["ln_attn_scale"], p.get("ln_attn_bias"))
     x = x + attn.multihead_attention(cfg, p["attn"], h, positions,
                                      causal=True, window=window)[0]
     h = norm(cfg.norm_kind, x, p["ln_mlp_scale"], p.get("ln_mlp_bias"))
-    return x + mlp_forward(cfg, p["mlp"], h, masks)
+    m, aux = mlp_forward(cfg, p["mlp"], h, masks)
+    return x + m, aux
 
 
 def forward(cfg, params, tokens, *, masks=None):
@@ -196,20 +211,23 @@ def forward(cfg, params, tokens, *, masks=None):
                 use_reentrant=False)
         return _block(cfg, p_l, x, positions, m_l, window)
 
+    aux = 0.0
     if cfg.layer_pattern == "local_global":
         loc = _unbind(params["layers_local"])
         glb = _unbind(params["layers_global"])
         m_loc = _unbind(_layer_masks(masks, "layers_local"), len(loc))
         m_glb = _unbind(_layer_masks(masks, "layers_global"), len(glb))
         for p_l, m_l, p_g, m_g in zip(loc, m_loc, glb, m_glb):
-            x = layer(p_l, m_l, x, cfg.sliding_window)
-            x = layer(p_g, m_g, x, 0)
+            x, a1 = layer(p_l, m_l, x, cfg.sliding_window)
+            x, a2 = layer(p_g, m_g, x, 0)
+            aux = aux + a1 + a2
     else:
         lay = _unbind(params["layers"])
         for p_l, m_l in zip(lay, _unbind(_layer_masks(masks, "layers"),
                                          len(lay))):
-            x = layer(p_l, m_l, x, cfg.sliding_window)
-    return logits_from_hidden(cfg, params, x), 0.0
+            x, a = layer(p_l, m_l, x, cfg.sliding_window)
+            aux = aux + a
+    return logits_from_hidden(cfg, params, x), aux
 
 
 def embed_inputs(cfg, params, tokens):
@@ -261,7 +279,7 @@ def _run_stack(cfg, params, cache, x, attn_fn):
                         window)
         h = norm(cfg.norm_kind, x, p_l["ln_mlp_scale"],
                  p_l.get("ln_mlp_bias"))
-        return x + mlp_forward(cfg, p_l["mlp"], h)
+        return x + mlp_forward(cfg, p_l["mlp"], h)[0]
 
     ns, _ = n_stacks(cfg)
     for i in range(ns):

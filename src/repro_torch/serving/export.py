@@ -66,7 +66,7 @@ def pack_params(cfg, params, masks, dtype=torch.bfloat16,
                 raise ValueError(msg)
             if unbalanced == "warn":
                 warnings.warn(msg, UnbalancedMaskWarning, stacklevel=2)
-        out = sm.set_path(out, path, packing.pack_stacked(w, m, bi, bo, nnz))
+        out = sm.set_path(out, path, packing.pack(w, m, bi, bo, nnz))
     for gpath in masks:
         leaf = gpath.split("/")[-1]
         if leaf not in ("w_gate", "ws_gate"):

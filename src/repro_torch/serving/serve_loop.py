@@ -1,7 +1,9 @@
 """Batched serving loop, the greedy oracle (port of
 ``repro/serving/serve_loop.py``): prefill a batch of equal-length prompts
 token by token into the contiguous cache (the decode step's own numerics),
-then decode one token per step. Dense family only.
+then decode one token per step. The dense and MoE families (an MoE
+model's capacity follows the batch of each step, so its streams may
+differ from the engine's, as in the reference).
 """
 from __future__ import annotations
 

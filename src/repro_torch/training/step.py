@@ -50,6 +50,8 @@ def loss_fn(cfg, params, masks, batch, teacher_logits=None, kd_alpha=1.0,
                                    masks=masks or None)
     loss = distill.distill_loss(logits, batch["labels"], teacher_logits,
                                 alpha=kd_alpha, beta=kd_beta)
+    if cfg.is_moe:
+        loss = loss + 0.01 * aux
     return loss, (logits, aux)
 
 
@@ -134,8 +136,14 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, kd_alpha=1.0,
             loss, aux = loss / n, aux / n
 
         gnorm = adamw.global_norm(dense_grads)
-        # the step's one host read: loss and norm together
-        loss_h, gnorm_h = torch.stack([loss.float(), gnorm]).tolist()
+        # the step's one host read: loss and norm together, and an MoE
+        # model's aux (a dense model's is the host float 0.0)
+        if torch.is_tensor(aux):
+            loss_h, gnorm_h, aux_h = torch.stack(
+                [loss.float(), gnorm, aux.detach().float()]).tolist()
+        else:
+            loss_h, gnorm_h = torch.stack([loss.float(), gnorm]).tolist()
+            aux_h = float(aux)
         anomaly = False
         if guard:
             ok = math.isfinite(loss_h) and math.isfinite(gnorm_h)
@@ -166,7 +174,7 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, kd_alpha=1.0,
 
         metrics = {"loss": float(np.float32(loss_h)
                                  + np.float32(poison["loss_poison"])),
-                   "aux": float(aux),
+                   "aux": aux_h,
                    "sparsity": (sm.tree_sparsity(masks) if spec.enabled
                                 else loss.new_zeros(())),
                    "grad_norm": gnorm_h,

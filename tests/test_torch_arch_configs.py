@@ -2,8 +2,9 @@
 ten configs and its smoke variant field by field (the BLaST spec and its
 derived block shape included), the ids, shapes, skips and dry-run cells,
 the errors on an unknown id and on the families the port does not run,
-and the parameter counts of the four dense models at full size (from the
-spec trees, nothing allocated)."""
+and the parameter counts of the four dense and the two MoE models at full
+size (from the spec trees, nothing allocated), with the MoE family's
+module and serving flags."""
 import dataclasses
 
 import pytest
@@ -19,8 +20,9 @@ from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.models import registry as treg  # noqa: E402
 
 DENSE = ("stablelm-3b", "stablelm-12b", "qwen2-7b", "gemma2-27b")
-NOT_PORTED = ("qwen3-moe-235b-a22b", "deepseek-moe-16b", "rwkv6-3b",
-              "whisper-large-v3", "zamba2-1.2b", "internvl2-2b")
+MOE = ("qwen3-moe-235b-a22b", "deepseek-moe-16b")
+NOT_PORTED = ("rwkv6-3b", "whisper-large-v3", "zamba2-1.2b",
+              "internvl2-2b")
 
 
 @pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
@@ -55,7 +57,7 @@ def test_unknown_arch_raises_key_error():
 @pytest.mark.parametrize("arch", NOT_PORTED)
 def test_families_not_ported_raise_at_module_for(arch):
     cfg = tconfigs.get_config(arch, smoke=True)
-    assert cfg.family != "dense"
+    assert cfg.family not in ("dense", "moe")
     with pytest.raises(NotImplementedError, match=repr(cfg.family)):
         treg.module_for(cfg)
 
@@ -69,3 +71,28 @@ def test_dense_param_counts_match_reference(arch):
     assert total == jreg.count_params(j)
     assert treg.count_params(t, active_only=True) == jreg.count_params(
         j, active_only=True) == total
+
+
+@pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_family_is_ported(arch, smoke):
+    """``module_for`` answers for the MoE ids, and the serving flags are
+    the reference's."""
+    t = tconfigs.get_config(arch, smoke=smoke)
+    j = jconfigs.get_config(arch, smoke=smoke)
+    assert t.family == "moe"
+    assert treg.module_for(t).__name__ == "repro_torch.models.transformer"
+    for fn in ("supports_prefill_chunk", "supports_paged",
+               "supports_mixed"):
+        assert getattr(treg, fn)(t) == getattr(jreg, fn)(j), fn
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_param_counts_match_reference(arch):
+    """Total and active (top_k of the experts) counts at full size."""
+    t = tconfigs.get_config(arch)
+    j = jconfigs.get_config(arch)
+    for active in (False, True):
+        assert treg.count_params(t, active_only=active) == jreg.count_params(
+            j, active_only=active)
+    assert treg.count_params(t, active_only=True) < treg.count_params(t)

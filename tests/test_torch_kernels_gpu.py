@@ -13,7 +13,9 @@ decode and the split GLU on the shared loops hold the kernels at
 ``chip_smoke.py``'s ``ulp_tol`` (``_ulp_tol``): bf16 two ulps of the
 output's magnitude, since the plain GLU rounds gate and up before a
 steep activation (gelu, silu) and the kernel does not, and decode
-rounds probabilities against another running max.
+rounds probabilities against another running max. The expert-batched
+launches (the MoE layer: all E experts in one launch) and paged decode at
+9 to 16 query heads per kv head are held to it too.
 """
 import math
 
@@ -32,7 +34,6 @@ from repro_torch.kernels import bspmm as tbs, ops as tops  # noqa: E402
 from repro_torch.kernels import bspmm_t as tbt  # noqa: E402
 from repro_torch.kernels import paged_attention as tpa  # noqa: E402
 from repro_torch.kernels import split_plan  # noqa: E402
-from repro_torch.core.packing import pack_stacked  # noqa: E402
 
 DTYPES = ["float32", "bfloat16"]
 
@@ -345,7 +346,7 @@ def test_kernels_take_stacked_layer_views_and_unaligned_rows(cuda, dtype):
     masks = torch.stack([initial_mask(spec, w[i]) for i in range(n_l)])
     wm = torch.stack([topk.apply_block_mask(w[i], masks[i], b, b)
                       for i in range(n_l)])
-    ps = pack_stacked(wm, masks, b, b, nnz=int(masks.sum(-2).max()))
+    ps = pack(wm, masks, b, b, nnz=int(masks.sum(-2).max()))
     ps = PackedBCSC(ps.blocks.to(cuda, dt), ps.idx.to(cuda), ps.kb)
     x = torch.randn(m, k, generator=gen).to(cuda, dt)
     dy = torch.randn(m, n, generator=gen).to(cuda, dt)
@@ -524,7 +525,7 @@ def test_fused_glu_split_takes_stacked_layer_views_and_unaligned_rows(
         masks = torch.stack([initial_mask(spec, w[i]) for i in range(n_l)])
         wm = torch.stack([topk.apply_block_mask(w[i], masks[i], b, b)
                           for i in range(n_l)])
-        ps = pack_stacked(wm, masks, b, b, nnz=int(masks.sum(-2).max()))
+        ps = pack(wm, masks, b, b, nnz=int(masks.sum(-2).max()))
         stacks.append(PackedBCSC(ps.blocks.to(cuda, dt), ps.idx.to(cuda),
                                  ps.kb))
     x = torch.randn(m, k, generator=gen).to(cuda, dt)
@@ -637,7 +638,7 @@ def test_fused_glu_joint_takes_stacked_layer_views_and_unaligned_rows(
     for g in range(2):
         wm = torch.stack([topk.apply_block_mask(w[g, i], masks[i], b, b)
                           for i in range(n_l)])
-        ps = pack_stacked(wm, masks, b, b, nnz=int(masks.sum(-2).max()))
+        ps = pack(wm, masks, b, b, nnz=int(masks.sum(-2).max()))
         stacks.append(PackedBCSC(ps.blocks.to(cuda, dt), ps.idx.to(cuda),
                                  ps.kb, joint=True))
     assert torch.equal(stacks[0].idx, stacks[1].idx)
@@ -800,3 +801,143 @@ def test_arch_paged_decode_matches_plain(cuda, arch, r):
     torch.cuda.synchronize()
     assert got.shape == (8, kvh, g, hd) and not got[0].any()
     assert float((got - want).abs().max()) <= _ulp_tol(torch.bfloat16, want)
+
+
+def _expert_packs(gen, e, k, n, keep, dt, dev, b=128):
+    """(E, Nb, keep, b, b) random balanced packs of E experts' (K, N)
+    weights: keep kept blocks in every block-column."""
+    kb, nb = k // b, n // b
+    idx = torch.stack([torch.stack([torch.randperm(kb, generator=gen)[:keep]
+                                    .sort().values for _ in range(nb)])
+                       for _ in range(e)]).to(torch.int32)
+    blocks = torch.randn(e, nb, keep, b, b, generator=gen) / (keep * b) ** .5
+    return PackedBCSC(blocks.to(dev, dt).contiguous(), idx.to(dev), kb)
+
+
+# the MoE --arch shapes at full width: E experts, d_model, moe_d_ff, kept
+# blocks per column of the gate/up and of the down projection at s = 0.8
+MOE_SHAPES = {"deepseek": (64, 2048, 1408, 3, 2),
+              "qwen3": (128, 4096, 1536, 6, 2)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [1, 5, 8, 10, 15])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("arch", sorted(MOE_SHAPES))
+def test_expert_batched_kernels_match_plain(cuda, arch, dtype, c):
+    """The expert-batched ``bspmm``, split GLU and joint GLU at the MoE
+    shapes, C rows per expert (decode C = 1; the launcher's 64-token
+    prefill and mixed calls, C = 5 and 8; 128-token calls, C = 10 and
+    15): one
+    launch each for all E experts, within ``_ulp_tol`` of the batched
+    plain version, and bitwise repeatable."""
+    e, d, f, keep_d, keep_f = MOE_SHAPES[arch]
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(c)
+    gate = _expert_packs(gen, e, d, f, keep_d, dt, cuda)
+    up = _expert_packs(gen, e, d, f, keep_d, dt, cuda)
+    down = _expert_packs(gen, e, f, d, keep_f, dt, cuda)
+    jg = PackedBCSC(gate.blocks, gate.idx, gate.kb, joint=True)
+    ju = PackedBCSC(up.blocks, gate.idx, up.kb, joint=True)
+    x = torch.randn(e, c, d, generator=gen).to(cuda, dt)
+    h = torch.randn(e, c, f, generator=gen).to(cuda, dt)
+    cases = {"bspmm": (lambda: tbs.bspmm(h, down),
+                       lambda: tops.bspmm_plain(h, down), (e, c, d)),
+             "fused_glu_split": (lambda: tbs.fused_glu(x, gate, up),
+                                 lambda: tops.fused_glu_plain(x, gate, up),
+                                 (e, c, f)),
+             "fused_glu_joint": (lambda: tbs.fused_glu(x, jg, ju),
+                                 lambda: tops.fused_glu_plain(x, jg, ju),
+                                 (e, c, f))}
+    for name, (k_fn, p_fn, shape) in cases.items():
+        before = tbs.LAUNCHES[name]
+        got, again = k_fn(), k_fn()
+        want = p_fn()
+        torch.cuda.synchronize()
+        assert tbs.LAUNCHES[name] == before + 2, name
+        assert got.shape == shape and got.dtype == dt
+        assert torch.equal(got, again), name
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= _ulp_tol(dt, want), (name, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("block", [(32, 16), (8, 8)])
+def test_expert_batched_kernels_small_blocks(cuda, dtype, block):
+    """The FMA loops (block sides that the tensor cores do not take) run
+    the expert batch too; each expert's rows equal its own plain
+    product."""
+    dt = getattr(torch, dtype)
+    bi, bo = block
+    e, c, k, n = 5, 3, 4 * bi, 8 * bo
+    gen = torch.Generator().manual_seed(7)
+    ps = [pack(*_random_mask_pair(gen, e, k, n, bi, bo), bi, bo, 2)
+          for _ in range(2)]
+    g, u = (PackedBCSC(p.blocks.to(cuda, dt), p.idx.to(cuda), p.kb)
+            for p in ps)
+    x = torch.randn(e, c, k, generator=gen).to(cuda, dt)
+    y, hh = tbs.bspmm(x, g), tbs.fused_glu(x, g, u)
+    for i in range(e):
+        yi = tops.bspmm_plain(x[i], g.layer(i))
+        hi = tops.fused_glu_plain(x[i], g.layer(i), u.layer(i))
+        assert float((y[i].float() - yi.float()).abs().max()) <= _ulp_tol(
+            dt, yi)
+        assert float((hh[i].float() - hi.float()).abs().max()) <= _ulp_tol(
+            dt, hi)
+
+
+def _random_mask_pair(gen, e, k, n, bi, bo):
+    w = torch.randn(e, k, n, generator=gen) / k ** 0.5
+    m = topk.topk_mask_per_col(torch.rand(e, k // bi, n // bo,
+                                          generator=gen), 2)
+    return topk.apply_block_mask(w, m, bi, bo), m
+
+
+@pytest.mark.gpu
+def test_expert_batched_launchers_check_their_operands(cuda):
+    gen = torch.Generator().manual_seed(1)
+    p = _expert_packs(gen, 4, 256, 256, 1, torch.bfloat16, cuda)
+    x = torch.randn(3, 2, 256, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="one per row"):
+        tbs.bspmm(x, p)                       # 3 rows of x, 4 experts
+    with pytest.raises(ValueError, match="one per row"):
+        tbs.bspmm(x[0].contiguous(), p)       # one matrix, 4 experts
+    with pytest.raises(ValueError, match="contiguous"):
+        tbs.bspmm(torch.randn(4, 2, 512, device=cuda,
+                              dtype=torch.bfloat16)[..., ::2], p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g", list(range(9, 17)))
+@pytest.mark.parametrize("qkv", ["bfloat16", "float32", "f32_over_bf16"])
+@pytest.mark.parametrize("page", [(16, 128), (8, 64)])
+def test_paged_flash_decode_up_to_16_query_heads(cuda, g, qkv, page):
+    """G in 9..16 query heads per kv head (qwen3-moe: 64 over 4, G = 16)
+    on the two-row-group layout, against the plain version, bitwise
+    repeatable, masked lane zero."""
+    ps, hd = page
+    gen = torch.Generator().manual_seed(g)
+    q4, pk, pv, bt, bias = _decode_inputs(gen, 8, 16, ps, hd, qkv, cuda,
+                                          kvh=4, g=g)
+    got = tpa.paged_flash_decode(q4, pk, pv, bt, bias, scale=hd ** -0.5)
+    again = tpa.paged_flash_decode(q4, pk, pv, bt, bias, scale=hd ** -0.5)
+    want = tpa.paged_flash_decode_plain(q4, pk, pv, bt, bias,
+                                        scale=hd ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and not got[0].any()
+    assert float((got - want).abs().max()) <= _ulp_tol(q4.dtype, want)
+
+
+@pytest.mark.gpu
+def test_paged_flash_decode_refuses_what_it_does_not_hold(cuda):
+    """G > 16, and G > 8 at hd > 128, raise rather than compute."""
+    gen = torch.Generator().manual_seed(0)
+    for g, hd in ((17, 128), (32, 64), (9, 256)):
+        q4, pk, pv, bt, bias = _decode_inputs(gen, 2, 2, 16, hd, "bfloat16",
+                                              cuda, kvh=2, g=g)
+        with pytest.raises(ValueError, match="G <= 16"):
+            tpa.paged_flash_decode(q4, pk, pv, bt, bias, scale=0.1)
+    q4, pk, pv, bt, bias = _decode_inputs(gen, 2, 2, 16, 256, "bfloat16",
+                                          cuda, kvh=2, g=8)
+    tpa.paged_flash_decode(q4, pk, pv, bt, bias, scale=0.1)   # G 8 holds

@@ -248,6 +248,5 @@ def test_default_device_without_a_gpu_raises(monkeypatch):
 
 @pytest.mark.parametrize("mod", [serve, train], ids=["serve", "train"])
 def test_families_not_ported_raise(mod):
-    with pytest.raises(NotImplementedError, match="'moe'"):
-        mod.main(["--arch", "deepseek-moe-16b", "--smoke", "--device",
-                  "cpu"])
+    with pytest.raises(NotImplementedError, match="'ssm'"):
+        mod.main(["--arch", "rwkv6-3b", "--smoke", "--device", "cpu"])

@@ -109,7 +109,7 @@ def test_pack_stacked_pad_nnz_bitwise():
     m = jnp.stack([p[1] for p in parts])
     nnz = jpk.max_nnz_per_col(m)
     jp = jpk.pack_stacked(wm, m, 16, 16, nnz)
-    tp = tpk.pack_stacked(*_port(wm, m), 16, 16, nnz)
+    tp = tpk.pack(*_port(wm, m), 16, 16, nnz)
     np.testing.assert_array_equal(tp.idx.numpy(), np.asarray(jp.idx))
     np.testing.assert_array_equal(interop.array(tp.blocks),
                                   np.asarray(jp.blocks))

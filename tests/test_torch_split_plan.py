@@ -117,6 +117,18 @@ def test_served_shapes_take_the_tensor_core_tiles(m, kid):
     assert tiles * lp.splits >= 132 or lp.splits == 8
 
 
+@pytest.mark.parametrize("e,nb,nnz", [(64, 11, 3), (64, 16, 4),
+                                       (128, 12, 3), (128, 32, 7)])
+def test_expert_batches_count_every_experts_lists(e, nb, nnz):
+    """An expert-batched launch plans over all E * Nb column lists
+    (``bspmm.launch_plan``): the MoE shapes' lists already give every SM
+    a CTA, so they take no split, where one expert's Nb lists would."""
+    batched = _choose(1, 128, 128, e * nb, nnz, e * nb * nnz)
+    single = _choose(1, 128, 128, nb, nnz, nb * nnz)
+    assert batched.kernel.kid == single.kernel.kid == 3
+    assert batched.splits == 1 and single.splits > 1
+
+
 def test_other_cases_take_the_fma_loop_and_long_lists_split():
     assert _choose(8, 128, 128, 16, 13, 208, "f32").kernel.kid == 1
     assert _choose(8, 8, 8, 16, 3, 40).kernel.kid == 1        # b = 8
