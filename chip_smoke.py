@@ -108,6 +108,18 @@ Then the expert-batched kernel lines of one layer at decode C = 1 and at
 a 128-token call's capacity, paged decode at qwen3-moe's G = 16 beside G
 = 8, and the packed model against its pruned-dense export on two layers.
 
+The recurrent families (``serve_ssm``, after the MoE models):
+rwkv6-3b (``ssm``: the chunked linear scan, its channel-mix through
+``bspmm`` at 128 x 16 and 16 x 128 blocks) and zamba2-1.2b (``hybrid``:
+Mamba2 layers and one shared attention + GLU block, the GLU an unstacked
+2-D pack through the split fused GLU and ``bspmm``), each whole at full
+width and depth through ``launch.serve.main`` and ``serve_loop.generate``
+(8 prompts of 64 tokens x 32 new, token-by-token prefill into the
+per-lane recurrent state); then, on a two-layer cut, the kernel lines of
+layer 0, the chunked forward against 64 decode steps in f32
+(``ssm_scan``) and the packed export against the pruned-dense one
+(``ssm_parity``).
+
 Prints JSON lines; the line before the last is a ``kernels`` summary and
 the last is ``{"ok": true, "device": {...}}``. Any failed phase raises
 and the script exits non-zero without that line. Needs one CUDA card.
@@ -202,6 +214,14 @@ ARCH_M, ARCH_DECODE_B, ARCH_DECODE_R, ARCH_PARITY_PROMPTS = 8, 8, 16, 4
 # kernel lines at every capacity C the served runs used
 MOE_RUNS = {"deepseek-moe-16b": 8, "qwen3-moe-235b-a22b": 2}
 SYNC_WARNING = "called a synchronizing CUDA operation"
+# the recurrent --arch families (rwkv6 ssm, zamba2 hybrid), whole (full
+# width and depth) through launch.serve.main with the launcher's traffic
+# of ARCH_*; the scan check's lanes x tokens (one chunk of 64) in f32;
+# its tolerance and the packed-vs-dense logits' (1e-3 of the logits'
+# magnitude: two layers, f32 sums in other orders) beside the MLP's
+# (ulp_tol's f32 1e-4)
+SSM_RUNS = ("rwkv6-3b", "zamba2-1.2b")
+SSM_SCAN_B, SSM_SCAN_S, SSM_LOGIT_TOL = 2, 64, 1e-3
 
 
 def emit(**obj):
@@ -3131,6 +3151,247 @@ def phase_serve_moe(torch, card):
     return served
 
 
+# ------------------------------------------------ the recurrent families
+def _bspmm_line(torch, card, timer, gen, phase, p, m, **base):
+    """``bspmm`` of ``m`` bf16 rows against one pack, held against its
+    plain version within ``ulp_tol``; the library yardstick is
+    ``torch.matmul`` on the dense weight. Bytes count every packed block
+    and idx entry once, X and Y once."""
+    from repro_torch.kernels import bspmm as kb, ops
+    dt, es = torch.bfloat16, 2
+    x = torch.randn(m, p.kb * p.b_in, generator=gen, device=DEVICE).to(dt)
+    w = _dense_of(torch, p)
+    k_fn = lambda: kb.bspmm(x, p)  # noqa: E731
+    p_fn = lambda: ops.bspmm_plain(x, p)  # noqa: E731
+    l_fn = lambda: torch.matmul(x, w)  # noqa: E731
+    nbytes = (x.numel() * es + p.blocks.numel() * es + p.idx.numel() * 4
+              + m * p.nb * p.b_out * es)
+    return _record(
+        torch, card, phase, "bspmm", dt, [m], k_fn(), p_fn(),
+        timer.ms(k_fn), timer.ms(p_fn), timer.ms(l_fn), nbytes,
+        ops.flops_bspmm(m, p), plan=kb.launch_plan(x, p).describe(),
+        kb=p.kb, nb=p.nb, nnz=p.nnz, block=[p.b_in, p.b_out], **base)
+
+
+def _ssm_scan(torch, cfg2, params):
+    """``registry.forward`` (chunked: one chunk of ``SSM_SCAN_S``) against
+    ``SSM_SCAN_S`` ``decode_step``s on the same tokens, in f32 with an f32
+    cache: the reference's decode-consistency check on the card."""
+    from repro_torch.models import registry
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+    toks = torch.randint(0, cfg2.vocab_size, (SSM_SCAN_B, SSM_SCAN_S),
+                         generator=gen, device=DEVICE)
+    with torch.inference_mode():
+        full, _ = registry.forward(cfg2, params, toks)
+        cache = registry.init_cache(cfg2, SSM_SCAN_B, SSM_SCAN_S,
+                                    dtype=torch.float32, device=DEVICE)
+        steps = []
+        for t in range(SSM_SCAN_S):
+            lg, cache = registry.decode_step(cfg2, params, cache,
+                                             toks[:, t:t + 1], t)
+            steps.append(lg[:, 0])
+    got = torch.stack(steps, dim=1)
+    check(bool(torch.isfinite(full).all() and torch.isfinite(got).all()),
+          f"{cfg2.name}: non-finite scan logits")
+    tol = SSM_LOGIT_TOL * float(full.abs().max())
+    err = float((got - full).abs().max())
+    check(err <= tol, f"{cfg2.name}: decode vs chunked forward differ by "
+                      f"{err} > {tol}")
+    return {"lanes": SSM_SCAN_B, "tokens": SSM_SCAN_S,
+            "chunk": cfg2.chunk_size, "max_abs_err": err, "tol": tol,
+            "err_over_tol": err / tol}
+
+
+def _ssm_parity(torch, cfg2, packed, dense):
+    """On a two-layer cut in f32: on the inputs the pruned-dense model
+    feeds each sparse MLP (rwkv6's channel-mix ``mlp2``, zamba's shared
+    GLU, recorded from a chunked forward of 4 x 64 tokens), the packed MLP
+    (``bspmm``, the fused GLU) against the dense one within ``ulp_tol``'s
+    f32 1e-4 of the output's magnitude; then every position's logits
+    within ``SSM_LOGIT_TOL`` of theirs."""
+    from repro_torch.core import sparse_mlp as sm
+    from repro_torch.models import registry, transformer
+    name = "mlp2" if cfg2.family == "ssm" else "glu_mlp"
+    orig = getattr(sm, name)
+    seen = []
+
+    def recording(x, *a, **kw):
+        seen.append(x.clone())
+        return orig(x, *a, **kw)
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 8)
+    toks = torch.randint(0, cfg2.vocab_size, (4, SSM_SCAN_S),
+                         generator=gen, device=DEVICE)
+    worst = {"mlp": 0.0, "logits": 0.0}
+
+    def hold(kind, got, want, rel, where):
+        check(bool(torch.isfinite(got).all()),
+              f"{cfg2.name}: non-finite packed {where}")
+        tol = rel * float(want.abs().max())
+        err = float((got.float() - want.float()).abs().max())
+        worst[kind] = max(worst[kind], err / tol)
+        check(err <= tol, f"{cfg2.name} {where}: packed vs dense differ by "
+                          f"{err} > {tol}")
+
+    with torch.inference_mode():
+        setattr(sm, name, recording)
+        try:
+            want, _ = registry.forward(cfg2, dense, toks)
+        finally:
+            setattr(sm, name, orig)
+        got, _ = registry.forward(cfg2, packed, toks)
+        for i, x in enumerate(seen):   # one call per layer or application
+            if cfg2.family == "ssm":
+                pm, dm = (transformer._layer_view(t["layers"], i)["mlp"]
+                          for t in (packed, dense))
+                y_p, y_d = (sm.mlp2(x, t["w_in"], t["w_out"], act="relu",
+                                    square=True) for t in (pm, dm))
+            else:
+                y_p, y_d = (sm.glu_mlp(x, t["w_gate"], t["w_up"],
+                                       t["w_down"], act=cfg2.mlp_act)
+                            for t in (packed["shared"]["mlp"],
+                                      dense["shared"]["mlp"]))
+            hold("mlp", y_p, y_d, 1e-4, f"MLP call {i}")
+        hold("logits", got, want, SSM_LOGIT_TOL, "logits")
+    return {"depth": cfg2.num_layers, "prompts": toks.shape[0],
+            "tokens": toks.shape[1], "mlps_checked": len(seen),
+            "mlp_max_err_over_tol": worst["mlp"],
+            "logits_max_err_over_tol": worst["logits"],
+            "mlp_tol_fraction": 1e-4, "logits_tol_fraction": SSM_LOGIT_TOL}
+
+
+def phase_serve_ssm(torch, card):
+    """The recurrent families (``models/rwkv6.py``, ``models/zamba.py``
+    over ``models/linear_scan.py``) whole, at full width and depth,
+    through ``launch.serve.main`` (the launcher's one-shot prune at s =
+    0.8, packed; 8 prompts of 64 tokens x 32 new through
+    ``serve_loop.generate``, token-by-token prefill into the per-lane
+    recurrent state), the launch counters reset just before and read just
+    after: ``bspmm`` must launch for both (rwkv6's channel-mix, zamba's
+    shared down projection) and the split fused GLU for zamba. Peak
+    device memory is read through packing (f32 init included) and, from
+    the start of serving (the f32 params dropped), through serving. Then, on a fresh two-layer cut of each: the kernel lines of
+    layer 0 at M = 8 bf16 rows (rwkv6: ``bspmm`` on ``w_in``'s 128 x 16
+    and ``w_out``'s 16 x 128 blocks; zamba: the split and joint GLU and
+    ``bspmm`` on the unstacked shared MLP), the chunked forward against
+    the decode steps (``ssm_scan``) and the packed export against the
+    pruned-dense one (``ssm_parity``). Returns the serving runs'
+    counts."""
+    import repro_torch.launch.serve as launcher
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    from repro_torch.models import transformer
+    t_phase = time.monotonic()
+    timer = Timer(torch)
+    served = []
+    for arch in SSM_RUNS:
+        full = get_config(arch)
+        argv = ["--arch", arch, "--packed", "--batch", str(ARCH_BATCH),
+                "--prompt-len", str(ARCH_PROMPT), "--new-tokens",
+                str(ARCH_TOKENS)]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        # the peak through init, prune and pack; then, from the start of
+        # serving (main has dropped the f32 params by then), the peak of
+        # serving and what it started from
+        peaks = {}
+        pack, serve = launcher.prune_and_pack, launcher._serve
+
+        def packing(*a, **kw):
+            out = pack(*a, **kw)
+            torch.cuda.synchronize()
+            peaks["packing"] = torch.cuda.max_memory_allocated()
+            return out
+
+        def serving(*a, **kw):
+            torch.cuda.synchronize()
+            peaks["serving_from"] = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            return serve(*a, **kw)
+
+        t0 = time.monotonic()
+        launcher.prune_and_pack, launcher._serve = packing, serving
+        _reset_counts()
+        try:
+            res = launcher.main(argv)
+        finally:
+            launcher.prune_and_pack, launcher._serve = pack, serve
+        counts = _read_counts()
+        wall = time.monotonic() - t0
+        peaks["serving"] = torch.cuda.max_memory_allocated()
+        served.append(counts)
+        tokens, stats = res["tokens"], res["stats"]
+        emit(phase="serve_ssm", arch=arch, family=full.family,
+             layers=full.num_layers, reduced=None,
+             entry="launch.serve.main -> serve_loop.generate",
+             d_model=full.d_model, d_ff=full.d_ff, vocab=full.vocab_size,
+             heads=full.num_heads, pad_heads_to=full.pad_heads_to,
+             head_dim=full.head_dim, ssm_heads=full.ssm_heads,
+             ssm_state=full.ssm_state, attn_every=full.attn_every,
+             block=[full.blast.b_in, full.blast.b_out], act=full.mlp_act,
+             sparsity=ARCH_SPARSITY, batch=ARCH_BATCH,
+             prompt_len=ARCH_PROMPT, new_tokens=ARCH_TOKENS,
+             tok_per_s=stats["tok_per_s"], decode_s=stats["decode_s"],
+             weight_bytes=res["memory"]["bytes"],
+             max_memory_allocated_packing=peaks["packing"],
+             max_memory_allocated_serving=peaks["serving"],
+             allocated_serving_start=peaks["serving_from"],
+             **res["seconds"], wall_s=wall, launches=counts)
+        check(len(tokens) == ARCH_BATCH and all(
+            t.size == ARCH_TOKENS and bool(((t >= 0)
+                                            & (t < full.vocab_size)).all())
+            for t in tokens), f"{arch}: a stream is short or leaves the "
+                              "vocabulary")
+        must = ("bspmm",) + (("fused_glu_split",) if full.family == "hybrid"
+                             else ())
+        for k in must:
+            check(counts[k] > 0, f"{arch}: kernel {k} never launched")
+        del res, tokens
+
+        # a two-layer cut: the kernel lines, the scan and the parity
+        cfg2 = dataclasses.replace(full, num_layers=PARITY_DEPTH)
+        params = registry.init_params(cfg2, SEED, DEVICE)
+        masks = launcher.one_shot_masks(cfg2, params, ARCH_SPARSITY)
+        packed = launcher.prune_and_pack(cfg2, params, ARCH_SPARSITY, True,
+                                         masks=masks)
+        dense = launcher.prune_and_pack(cfg2, params, ARCH_SPARSITY, False,
+                                        masks=masks)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+        base = dict(arch=arch)
+        if full.family == "ssm":
+            mlp0 = transformer._layer_view(packed["layers"], 0)["mlp"]
+            kern = {w: _bspmm_line(torch, card, timer, gen, "ssm_kernel",
+                                   mlp0[w], ARCH_M, weight=w, **base)
+                    for w in ("w_in", "w_out")}
+        else:
+            joint = launcher.prune_and_pack(
+                cfg2, params, ARCH_SPARSITY, True,
+                masks={k: masks[k.replace("w_up", "w_gate")]
+                       for k in masks})
+            jm, m0 = joint["shared"]["mlp"], packed["shared"]["mlp"]
+            check(jm["w_gate"].joint and not m0["w_gate"].joint
+                  and m0["w_gate"].idx.dim() == 2,
+                  f"{arch}: the shared GLU's pack or joint marking is wrong")
+            kern = _mlp_lines(torch, card, timer, gen, "ssm_kernel", (),
+                              ARCH_M, m0["w_down"], m0["w_gate"],
+                              m0["w_up"], jm["w_gate"], jm["w_up"],
+                              full.mlp_act, block=[full.blast.b_in,
+                                                   full.blast.b_out], **base)
+            del joint, jm
+        f32 = dataclasses.replace(cfg2, compute_dtype="float32")
+        emit(phase="ssm_scan", arch=arch, depth=PARITY_DEPTH,
+             **_ssm_scan(torch, f32, params))
+        emit(phase="ssm_parity", arch=arch,
+             **_ssm_parity(torch, f32, packed, dense),
+             kernels={k: {f: v[f] for f in ("ms", "bound_ms", "library_ms")}
+                      for k, v in kern.items()})
+        del params, masks, packed, dense, kern
+    torch.cuda.empty_cache()
+    emit(phase="serve_ssm_total", seconds=time.monotonic() - t_phase)
+    return served
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3180,6 +3441,7 @@ def main():
     torch.cuda.empty_cache()
     served += phase_serve_arch(torch, card)
     served += phase_serve_moe(torch, card)
+    served += phase_serve_ssm(torch, card)
 
     tcfg, opt, src, state = phase_train(torch, cfg)
     ft = phase_finetune_packed(torch, tcfg, state, src.batch(TRAIN_STEPS))

@@ -2,7 +2,9 @@
 a model, prune and pack it per BLaST, and serve greedy generation through
 the continuous-batching engine (``serving/engine.py``): ragged prompt
 lengths, FIFO admission, lane reuse. ``--oracle`` takes the token-by-token
-``serve_loop.generate`` parity path instead.
+``serve_loop.generate`` parity path instead; the recurrent families
+(rwkv6 ``ssm``, zamba2 ``hybrid``), which have no chunked prefill, always
+take it, and ``--frontdoor`` refuses them, as in the reference.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \
         --packed --batch 8 --prompt-len 64 --new-tokens 32

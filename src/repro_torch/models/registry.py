@@ -1,18 +1,22 @@
 """Model registry (port of ``repro/models/registry.py``): family ->
 implementation module and the generic entry points the training loop
-and the serving path call. The dense and MoE families are ported (both
-run ``models/transformer.py``)."""
+and the serving path call. The dense and MoE families run
+``models/transformer.py``, ``ssm`` runs ``models/rwkv6.py`` and
+``hybrid`` ``models/zamba.py``; ``audio`` and ``vlm`` are not ported."""
 from __future__ import annotations
 
 import math
 
 from repro_torch.models import params as pmod
-from repro_torch.models import transformer
+from repro_torch.models import rwkv6, transformer, zamba
+
+_MODULES = {"dense": transformer, "moe": transformer, "ssm": rwkv6,
+            "hybrid": zamba}
 
 
 def module_for(cfg):
-    if cfg.family in ("dense", "moe"):
-        return transformer
+    if cfg.family in _MODULES:
+        return _MODULES[cfg.family]
     raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
 
 
@@ -21,8 +25,9 @@ def param_specs(cfg):
 
 
 def init_params(cfg, seed: int = 0, device="cuda"):
-    """Seeded f32 parameters on ``device``; the query heads that
-    ``pad_heads_to`` adds start at zero (models/attention.py)."""
+    """Seeded f32 parameters on ``device``; the heads that
+    ``pad_heads_to`` adds start at zero (each module's
+    ``zero_padded_heads``)."""
     mod = module_for(cfg)
     params = pmod.init_params(mod.param_specs(cfg), seed, device)
     mod.zero_padded_heads(cfg, params)
@@ -70,7 +75,9 @@ def init_masks(cfg, params):
 
 
 def init_cache(cfg, batch, max_len, **kw):
-    """Contiguous KV cache (layers, batch, max_len, KV, hd)."""
+    """The decode cache of ``serve_loop`` (``dtype``, ``device``): the
+    contiguous KV cache (layers, batch, max_len, KV, hd) of a transformer,
+    the recurrent state of the ``ssm`` and ``hybrid`` families."""
     return module_for(cfg).init_cache(cfg, batch, max_len, **kw)
 
 

@@ -4,6 +4,8 @@
     blocks) and cast f32 leaves to bf16: the dense serving layout;
   * ``pack_params``  — replace every sparse weight with its balanced-BCSC
     ``PackedBCSC``, marking gate/up pairs with one idx table ``joint``;
+    layer-stacked leaves pack per layer in one pass, and a 2-D leaf (zamba's
+    one shared MLP) packs as a single matrix;
   * ``memory_report`` — bytes of the serving weights.
 """
 from __future__ import annotations

@@ -3,7 +3,11 @@
 token by token into the contiguous cache (the decode step's own numerics),
 then decode one token per step. The dense and MoE families (an MoE
 model's capacity follows the batch of each step, so its streams may
-differ from the engine's, as in the reference).
+differ from the engine's, as in the reference), and the recurrent
+``ssm`` and ``hybrid`` families, which the engine does not serve (no
+chunked prefill, as in the reference): their cache is the per-lane
+recurrent state of ``registry.init_cache``. Whisper (``audio``) is not
+ported.
 """
 from __future__ import annotations
 

@@ -83,7 +83,9 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, kd_alpha=1.0,
     device scalar made after the update (0 without BLaST), so that its
     read waits for the whole step on the device."""
     spec = cfg.blast
-    flags = {"cpu": registry.dense_layer_flags(cfg)} if spec.enabled else None
+    # None: every layer may be pruned (zamba's one shared MLP)
+    cpu_flags = registry.dense_layer_flags(cfg) if spec.enabled else None
+    flags = None if cpu_flags is None else {"cpu": cpu_flags}
 
     def dense_flags(device):
         if flags is None:

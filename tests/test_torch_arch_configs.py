@@ -2,9 +2,9 @@
 ten configs and its smoke variant field by field (the BLaST spec and its
 derived block shape included), the ids, shapes, skips and dry-run cells,
 the errors on an unknown id and on the families the port does not run,
-and the parameter counts of the four dense and the two MoE models at full
-size (from the spec trees, nothing allocated), with the MoE family's
-module and serving flags."""
+and the parameter counts of the four dense, the two recurrent and the two
+MoE models at full size (from the spec trees, nothing allocated), with
+the MoE and recurrent families' modules and serving flags."""
 import dataclasses
 
 import pytest
@@ -21,8 +21,8 @@ from repro_torch.models import registry as treg  # noqa: E402
 
 DENSE = ("stablelm-3b", "stablelm-12b", "qwen2-7b", "gemma2-27b")
 MOE = ("qwen3-moe-235b-a22b", "deepseek-moe-16b")
-NOT_PORTED = ("rwkv6-3b", "whisper-large-v3", "zamba2-1.2b",
-              "internvl2-2b")
+RECURRENT = ("rwkv6-3b", "zamba2-1.2b")
+NOT_PORTED = ("whisper-large-v3", "internvl2-2b")
 
 
 @pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
@@ -57,16 +57,30 @@ def test_unknown_arch_raises_key_error():
 @pytest.mark.parametrize("arch", NOT_PORTED)
 def test_families_not_ported_raise_at_module_for(arch):
     cfg = tconfigs.get_config(arch, smoke=True)
-    assert cfg.family not in ("dense", "moe")
+    assert cfg.family in ("audio", "vlm")
     with pytest.raises(NotImplementedError, match=repr(cfg.family)):
         treg.module_for(cfg)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_families_are_ported(arch):
+    """``module_for`` answers rwkv6 for ``ssm`` and zamba for ``hybrid``;
+    neither is servable by the engine, as in the reference."""
+    for smoke in (False, True):
+        t = tconfigs.get_config(arch, smoke=smoke)
+        j = jconfigs.get_config(arch, smoke=smoke)
+        mod = {"ssm": "rwkv6", "hybrid": "zamba"}[t.family]
+        assert treg.module_for(t).__name__ == f"repro_torch.models.{mod}"
+        for fn in ("supports_prefill_chunk", "supports_paged",
+                   "supports_mixed"):
+            assert getattr(treg, fn)(t) == getattr(jreg, fn)(j) is False
+
+
+@pytest.mark.parametrize("arch", DENSE + RECURRENT)
 def test_dense_param_counts_match_reference(arch):
     t = tconfigs.get_config(arch)
     j = jconfigs.get_config(arch)
-    assert t.family == "dense"
+    assert t.family in ("dense", "ssm", "hybrid")
     total = treg.count_params(t)
     assert total == jreg.count_params(j)
     assert treg.count_params(t, active_only=True) == jreg.count_params(

@@ -941,3 +941,67 @@ def test_paged_flash_decode_refuses_what_it_does_not_hold(cuda):
     q4, pk, pv, bt, bias = _decode_inputs(gen, 2, 2, 16, 256, "bfloat16",
                                           cuda, kvh=2, g=8)
     tpa.paged_flash_decode(q4, pk, pv, bt, bias, scale=0.1)   # G 8 holds
+
+
+# the recurrent families' sparse MLPs at full width (configs/*.py,
+# with_blast at TP = 16): rwkv6-3b's channel-mix (K, N, b_in, b_out) of
+# w_in and w_out, and zamba2-1.2b's shared GLU (d_model, d_ff, block),
+# one 2-D (unstacked) matrix each
+RWKV6_MLP = {"w_in": (2560, 8960, 128, 16), "w_out": (8960, 2560, 16, 128)}
+ZAMBA2_GLU = (2048, 8192, 128)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 5, 8])
+@pytest.mark.parametrize("weight", sorted(RWKV6_MLP))
+def test_bspmm_at_the_rwkv6_channel_mix_blocks(cuda, weight, m):
+    """``bspmm`` on rwkv6-3b's 128 x 16 (``w_in``) and 16 x 128
+    (``w_out``) blocks at s = 0.8 in bf16, decode rows, within
+    ``_ulp_tol``; one launch each."""
+    k, n, bi, bo = RWKV6_MLP[weight]
+    dt = torch.bfloat16
+    p = _packed(5, k, n, bi, bo, 0.8, dt, cuda)
+    x = torch.randn(m, k, generator=torch.Generator().manual_seed(m)).to(
+        cuda, dt)
+    before = tbs.LAUNCHES["bspmm"]
+    got, want = tbs.bspmm(x, p), tops.bspmm_plain(x, p)
+    torch.cuda.synchronize()
+    assert tbs.LAUNCHES["bspmm"] == before + 1
+    assert got.dtype == dt and got.shape == (m, n)
+    assert float((got.float() - want.float()).abs().max()) <= _ulp_tol(
+        dt, want), tbs.launch_plan(x, p).describe()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 5, 8])
+@pytest.mark.parametrize("mode", ["split", "joint"])
+def test_zamba2_shared_glu_and_down_match_plain(cuda, mode, m):
+    """zamba2-1.2b's unstacked shared GLU (gelu) at s = 0.8 in bf16: the
+    split GLU (gate and up masks differ) or the joint one (up on gate's
+    idx table), then ``bspmm`` on the down projection, within
+    ``_ulp_tol``."""
+    d, f, b = ZAMBA2_GLU
+    dt = torch.bfloat16
+    gate = _packed(6, d, f, b, b, 0.8, dt, cuda)
+    if mode == "joint":
+        gate = PackedBCSC(gate.blocks, gate.idx, gate.kb, joint=True)
+        up = _packed(7, d, f, b, b, 0.8, dt, cuda, idx=gate.idx.cpu())
+    else:
+        up = _packed(7, d, f, b, b, 0.8, dt, cuda)
+    down = _packed(8, f, d, b, b, 0.8, dt, cuda)
+    assert gate.idx.dim() == 2 and down.idx.dim() == 2
+    x = torch.randn(m, d, generator=torch.Generator().manual_seed(m)).to(
+        cuda, dt)
+    before = dict(tbs.LAUNCHES)
+    h = tbs.fused_glu(x, gate, up, act="gelu")
+    want_h = tops.fused_glu_plain(x, gate, up, "gelu")
+    y, want_y = tbs.bspmm(want_h, down), tops.bspmm_plain(want_h, down)
+    torch.cuda.synchronize()
+    assert {k: tbs.LAUNCHES[k] - before[k] for k in before} == {
+        "bspmm": 1, "fused_glu_split": int(mode == "split"),
+        "fused_glu_joint": int(mode == "joint")}
+    assert h.shape == (m, f) and y.shape == (m, d)
+    assert float((h.float() - want_h.float()).abs().max()) <= _ulp_tol(
+        dt, want_h)
+    assert float((y.float() - want_y.float()).abs().max()) <= _ulp_tol(
+        dt, want_y)

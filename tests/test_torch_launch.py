@@ -248,5 +248,6 @@ def test_default_device_without_a_gpu_raises(monkeypatch):
 
 @pytest.mark.parametrize("mod", [serve, train], ids=["serve", "train"])
 def test_families_not_ported_raise(mod):
-    with pytest.raises(NotImplementedError, match="'ssm'"):
-        mod.main(["--arch", "rwkv6-3b", "--smoke", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="'audio'"):
+        mod.main(["--arch", "whisper-large-v3", "--smoke", "--device",
+                  "cpu"])
