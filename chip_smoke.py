@@ -222,9 +222,26 @@ SYNC_WARNING = "called a synchronizing CUDA operation"
 # (ulp_tol's f32 1e-4)
 SSM_RUNS = ("rwkv6-3b", "zamba2-1.2b")
 SSM_SCAN_B, SSM_SCAN_S, SSM_LOGIT_TOL = 2, 64, 1e-3
+# the last two --arch families, whole: whisper-large-v3 (audio) through
+# prune_and_pack + serve_loop.generate(frames=) (the launcher makes no
+# frames) on ARCH_BATCH lanes of AUDIO_FRAMES frames (its published
+# max_source_positions; seeded normals x 0.02), and internvl2-2b (vlm)
+# through launch.serve.main (text prompts through the engine, as the
+# reference serves it), both with the launcher's traffic of ARCH_*; the
+# two-layer parities' lanes and decoder tokens (the VLM adds its 256
+# patches in front)
+AUDIO_VLM_RUNS = ("whisper-large-v3", "internvl2-2b")
+AUDIO_FRAMES, AV_PARITY_B, AV_PARITY_TOKENS = 1500, 4, 64
+
+
+T0 = time.monotonic()
 
 
 def emit(**obj):
+    """One JSON line; a phase's line also carries ``t``, the seconds since
+    the script started, which time the phases."""
+    if "phase" in obj:
+        obj["t"] = time.monotonic() - T0
     print(json.dumps(obj), flush=True)
 
 
@@ -3260,6 +3277,49 @@ def _ssm_parity(torch, cfg2, packed, dense):
             "mlp_tol_fraction": 1e-4, "logits_tol_fraction": SSM_LOGIT_TOL}
 
 
+def _launcher_run(torch, arch):
+    """``launch.serve.main`` on ``arch`` whole (the one-shot prune at s =
+    0.8, packed; the launcher's 8 prompts of 64 tokens x 32 new), the
+    launch counters reset just before and read just after. Peak device
+    memory is read through init, prune and pack (the f32 params
+    included) and, from the start of serving (``main`` has dropped the
+    f32 params by then), through serving, beside what serving started
+    from. Returns (main's summary, launches, peaks, wall seconds)."""
+    import repro_torch.launch.serve as launcher
+    argv = ["--arch", arch, "--packed", "--batch", str(ARCH_BATCH),
+            "--prompt-len", str(ARCH_PROMPT), "--new-tokens",
+            str(ARCH_TOKENS)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    peaks = {}
+    pack, serve = launcher.prune_and_pack, launcher._serve
+
+    def packing(*a, **kw):
+        out = pack(*a, **kw)
+        torch.cuda.synchronize()
+        peaks["packing"] = torch.cuda.max_memory_allocated()
+        return out
+
+    def serving(*a, **kw):
+        torch.cuda.synchronize()
+        peaks["serving_from"] = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        return serve(*a, **kw)
+
+    t0 = time.monotonic()
+    launcher.prune_and_pack, launcher._serve = packing, serving
+    _reset_counts()
+    try:
+        res = launcher.main(argv)
+    finally:
+        launcher.prune_and_pack, launcher._serve = pack, serve
+    counts = _read_counts()
+    wall = time.monotonic() - t0
+    peaks["serving"] = torch.cuda.max_memory_allocated()
+    return res, counts, peaks, wall
+
+
 def phase_serve_ssm(torch, card):
     """The recurrent families (``models/rwkv6.py``, ``models/zamba.py``
     over ``models/linear_scan.py``) whole, at full width and depth,
@@ -3267,11 +3327,11 @@ def phase_serve_ssm(torch, card):
     0.8, packed; 8 prompts of 64 tokens x 32 new through
     ``serve_loop.generate``, token-by-token prefill into the per-lane
     recurrent state), the launch counters reset just before and read just
-    after: ``bspmm`` must launch for both (rwkv6's channel-mix, zamba's
-    shared down projection) and the split fused GLU for zamba. Peak
-    device memory is read through packing (f32 init included) and, from
-    the start of serving (the f32 params dropped), through serving. Then, on a fresh two-layer cut of each: the kernel lines of
-    layer 0 at M = 8 bf16 rows (rwkv6: ``bspmm`` on ``w_in``'s 128 x 16
+    after (``_launcher_run``, with the peaks while packing and while
+    serving): ``bspmm`` must launch for both (rwkv6's channel-mix,
+    zamba's shared down projection) and the split fused GLU for zamba.
+    Then, on a fresh two-layer cut of each: the kernel lines of layer 0
+    at M = 8 bf16 rows (rwkv6: ``bspmm`` on ``w_in``'s 128 x 16
     and ``w_out``'s 16 x 128 blocks; zamba: the split and joint GLU and
     ``bspmm`` on the unstacked shared MLP), the chunked forward against
     the decode steps (``ssm_scan``) and the packed export against the
@@ -3286,40 +3346,7 @@ def phase_serve_ssm(torch, card):
     served = []
     for arch in SSM_RUNS:
         full = get_config(arch)
-        argv = ["--arch", arch, "--packed", "--batch", str(ARCH_BATCH),
-                "--prompt-len", str(ARCH_PROMPT), "--new-tokens",
-                str(ARCH_TOKENS)]
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        # the peak through init, prune and pack; then, from the start of
-        # serving (main has dropped the f32 params by then), the peak of
-        # serving and what it started from
-        peaks = {}
-        pack, serve = launcher.prune_and_pack, launcher._serve
-
-        def packing(*a, **kw):
-            out = pack(*a, **kw)
-            torch.cuda.synchronize()
-            peaks["packing"] = torch.cuda.max_memory_allocated()
-            return out
-
-        def serving(*a, **kw):
-            torch.cuda.synchronize()
-            peaks["serving_from"] = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            return serve(*a, **kw)
-
-        t0 = time.monotonic()
-        launcher.prune_and_pack, launcher._serve = packing, serving
-        _reset_counts()
-        try:
-            res = launcher.main(argv)
-        finally:
-            launcher.prune_and_pack, launcher._serve = pack, serve
-        counts = _read_counts()
-        wall = time.monotonic() - t0
-        peaks["serving"] = torch.cuda.max_memory_allocated()
+        res, counts, peaks, wall = _launcher_run(torch, arch)
         served.append(counts)
         tokens, stats = res["tokens"], res["stats"]
         emit(phase="serve_ssm", arch=arch, family=full.family,
@@ -3392,6 +3419,272 @@ def phase_serve_ssm(torch, card):
     return served
 
 
+def _whisper_serve(torch, full):
+    """whisper-large-v3 whole: seeded f32 init, the launcher's one-shot
+    prune at s = 0.8 packed (``launch.serve.prune_and_pack``), then
+    ``serve_loop.generate(frames=)``: ``ARCH_BATCH`` lanes of
+    ``AUDIO_FRAMES`` frames through the encoder once (``prefill_cross``,
+    timed apart), the 64-token prompts prefilled token by token, 32 new
+    tokens. The launch counters are reset just before serving and read
+    just after. Returns (the line's fields, launches)."""
+    import repro_torch.launch.serve as launcher
+    from repro_torch.models import attention, registry, whisper
+    from repro_torch.serving import export, serve_loop
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = registry.init_params(full, SEED, DEVICE)
+    torch.cuda.synchronize()
+    times = {"init_s": time.monotonic() - t0}
+    packed = launcher.prune_and_pack(full, params, ARCH_SPARSITY, True,
+                                     times=times)
+    peak_packing = torch.cuda.max_memory_allocated()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
+    frames = torch.randn(ARCH_BATCH, AUDIO_FRAMES, full.d_model,
+                         generator=gen, device=DEVICE) * 0.02
+    prompts = np.random.default_rng(SEED + 9).integers(
+        0, full.vocab_size, (ARCH_BATCH, ARCH_PROMPT)).astype(np.int32)
+    enc = {}
+    cross = whisper.prefill_cross
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        ck, cv = cross(*a, **kw)
+        torch.cuda.synchronize()
+        enc.update(encoder_s=time.monotonic() - t, cross_cache_shape=list(
+            ck.shape), cross_cache_bytes=2 * ck.numel() * ck.element_size())
+        return ck, cv
+
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    whisper.prefill_cross = timed
+    _reset_counts()
+    t0 = time.monotonic()
+    try:
+        toks, stats = serve_loop.generate(
+            full, packed, prompts, max_new_tokens=ARCH_TOKENS,
+            frames=frames, device=DEVICE)
+    finally:
+        whisper.prefill_cross = cross
+    counts = _read_counts()
+    wall = time.monotonic() - t0
+    peak_serving = torch.cuda.max_memory_allocated()
+    gen_toks = toks[:, ARCH_PROMPT:]
+    check(toks.shape == (ARCH_BATCH, ARCH_PROMPT + ARCH_TOKENS)
+          and bool(((gen_toks >= 0) & (gen_toks < full.vocab_size)).all()),
+          "whisper: a stream is short or leaves the vocabulary")
+    _, kv = attention.eff_heads(full)
+    want_bytes = (2 * full.num_layers * ARCH_BATCH * AUDIO_FRAMES * kv
+                  * full.head_dim * 2)
+    check(enc.get("cross_cache_bytes") == want_bytes,
+          f"whisper: cross cache {enc} != {want_bytes} bytes")
+    steps = ARCH_PROMPT + ARCH_TOKENS - 1
+    want_bspmm = 2 * (full.num_encoder_layers + full.num_layers * steps)
+    check(counts["bspmm"] == want_bspmm,
+          f"whisper: {counts['bspmm']} bspmm launches, {want_bspmm} "
+          "expected (2 a layer: the encoder once, the decoder each step)")
+    for k in ("fused_glu_split", "fused_glu_joint", "paged_flash_decode",
+              "bspmm_t"):
+        check(counts[k] == 0, f"whisper: kernel {k} launched")
+    line = dict(
+        entry="prune_and_pack -> serve_loop.generate(frames=)",
+        encoder_layers=full.num_encoder_layers, frames=AUDIO_FRAMES,
+        tok_per_s=stats["tok_per_s"], decode_s=stats["decode_s"],
+        prompt_prefill_s=wall - enc["encoder_s"] - stats["decode_s"],
+        weight_bytes=export.memory_report(full, packed)["bytes"],
+        max_memory_allocated_packing=peak_packing,
+        max_memory_allocated_serving=peak_serving,
+        allocated_serving_start=start, **times, **enc, wall_s=wall)
+    del packed, toks
+    return line, counts
+
+
+def _av_parity(torch, card, timer, full):
+    """On a two-layer cut of ``full`` (two encoder and two decoder layers
+    for whisper) at full width: whisper's kernel lines (``bspmm`` on
+    encoder layer 0's ``w_in`` and ``w_out`` at M = ARCH_BATCH x
+    AUDIO_FRAMES rows, the encoder's call, and on decoder layer 0's at
+    M = ARCH_M, a decode step's), then in f32 the packed export against
+    the pruned-dense one: every sparse MLP call on the inputs the dense
+    model feeds it within 1e-4 of its magnitude, and the logits of
+    ``forward(frames=)`` / ``forward(patch_embeds=)`` within
+    ``SSM_LOGIT_TOL``; whisper's teacher-forced ``decode_step``s over
+    ``prefill_cross`` against its forward, and the patches moving every
+    position of the VLM's logits."""
+    import repro_torch.launch.serve as launcher
+    from repro_torch.core import sparse_mlp as sm
+    from repro_torch.models import registry, transformer, whisper
+    audio = full.family == "audio"
+    cfg2 = dataclasses.replace(full, num_layers=PARITY_DEPTH,
+                               num_encoder_layers=min(
+                                   full.num_encoder_layers, PARITY_DEPTH))
+    params = registry.init_params(cfg2, SEED, DEVICE)
+    masks = launcher.one_shot_masks(cfg2, params, ARCH_SPARSITY)
+    packed = launcher.prune_and_pack(cfg2, params, ARCH_SPARSITY, True,
+                                     masks=masks)
+    dense = launcher.prune_and_pack(cfg2, params, ARCH_SPARSITY, False,
+                                    masks=masks)
+    del params, masks
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
+    kern = {}
+    if audio:
+        for stack, m in (("encoder", ARCH_BATCH * AUDIO_FRAMES),
+                         ("decoder", ARCH_M)):
+            mlp0 = transformer._layer_view(packed[stack], 0)["mlp"]
+            for w in ("w_in", "w_out"):
+                kern[f"{stack}/{w}"] = _bspmm_line(
+                    torch, card, timer, gen, "audio_kernel", mlp0[w], m,
+                    arch=full.name, weight=f"{stack}/mlp/{w}")
+    f32 = dataclasses.replace(cfg2, compute_dtype="float32")
+    b, t = AV_PARITY_B, AV_PARITY_TOKENS
+    if audio:
+        extra = {"frames": torch.randn(b, AUDIO_FRAMES, full.d_model,
+                                       generator=gen, device=DEVICE) * 0.02}
+        calls = [(s, i) for s in ("encoder", "decoder")
+                 for i in range(PARITY_DEPTH)]
+        name = "mlp2"
+    else:
+        extra = {"patch_embeds": torch.randn(
+            b, full.num_patches, full.d_model, generator=gen,
+            device=DEVICE) * 0.02}
+        t += full.num_patches
+        calls = [("layers", i) for i in range(PARITY_DEPTH)]
+        name = "glu_mlp"
+    toks = torch.randint(0, full.vocab_size, (b, t), generator=gen,
+                         device=DEVICE)
+    orig, seen = getattr(sm, name), []
+
+    def recording(x, *a, **kw):
+        seen.append(x.clone())
+        return orig(x, *a, **kw)
+
+    worst = {}
+
+    def hold(kind, got, want, rel, where):
+        check(bool(torch.isfinite(got).all()),
+              f"{full.name}: non-finite {where}")
+        tol = rel * float(want.abs().max())
+        err = float((got.float() - want.float()).abs().max())
+        worst[kind] = max(worst.get(kind, 0.0), err / tol)
+        check(err <= tol, f"{full.name} {where}: {err} > {tol}")
+
+    def mlp(p, x):
+        if audio:
+            return sm.mlp2(x, p["w_in"], p["w_out"], p["b_in"], p["b_out"],
+                           act=full.mlp_act)
+        return sm.glu_mlp(x, p["w_gate"], p["w_up"], p["w_down"],
+                          act=full.mlp_act)
+
+    with torch.inference_mode():
+        setattr(sm, name, recording)
+        try:
+            want, _ = registry.forward(f32, dense, toks, **extra)
+        finally:
+            setattr(sm, name, orig)
+        got, _ = registry.forward(f32, packed, toks, **extra)
+        check(len(seen) == len(calls), f"{full.name}: {len(seen)} MLP "
+                                       f"calls, {len(calls)} expected")
+        for (stack, i), x in zip(calls, seen):
+            views = [transformer._layer_view(tr[stack], i)["mlp"]
+                     for tr in (packed, dense)]
+            hold("mlp", mlp(views[0], x), mlp(views[1], x), 1e-4,
+                 f"{stack} layer {i} MLP")
+        hold("logits", got, want, SSM_LOGIT_TOL, "logits")
+        if audio:
+            cache = registry.init_cache(f32, b, t, dtype=torch.float32,
+                                        device=DEVICE)
+            cache["ck"], cache["cv"] = whisper.prefill_cross(
+                f32, packed, extra["frames"], dtype=torch.float32)
+            steps = []
+            for j in range(t):
+                lg, cache = registry.decode_step(f32, packed, cache,
+                                                 toks[:, j:j + 1], j)
+                steps.append(lg[:, 0])
+            hold("decode", torch.stack(steps, dim=1), got, SSM_LOGIT_TOL,
+                 "decode vs forward")
+            del cache
+        else:
+            text, _ = registry.forward(f32, packed, toks)
+            moved = (got - text).abs().amax(dim=-1)
+            worst["patch_move_min_over_magnitude"] = float(
+                moved.min()) / float(text.abs().max())
+            check(bool((moved > 1e-3 * text.abs().max()).all()),
+                  f"{full.name}: the patches leave a position's logits")
+    return dict(depth=PARITY_DEPTH, encoder_depth=cfg2.num_encoder_layers,
+                lanes=b, tokens=t, mlps_checked=len(seen),
+                **{f"{k}_max_err_over_tol" if k in ("mlp", "logits",
+                                                    "decode") else k: v
+                   for k, v in worst.items()},
+                mlp_tol_fraction=1e-4, logits_tol_fraction=SSM_LOGIT_TOL), \
+        kern
+
+
+def phase_serve_audio_vlm(torch, card):
+    """The last two families whole, at full width and depth: whisper-large-v3
+    (``models/whisper.py``: 32 encoder and 32 decoder layers, heads padded
+    20 -> 32) through ``_whisper_serve`` (``bspmm`` must launch, exactly
+    twice per layer call, and no GLU, paged decode or ``bspmm_t``), and
+    internvl2-2b (the transformer with patch embeddings; the engine
+    serves text) through ``launch.serve.main`` (``_launcher_run``:
+    ``bspmm``, the split GLU and paged decode must launch). Then each on
+    a two-layer cut (``_av_parity``): whisper's ``audio_kernel`` lines at
+    M = 12000 and 8, and the packed-vs-dense parities. Returns the
+    serving runs' counts."""
+    from repro_torch.configs import get_config
+    t_phase = time.monotonic()
+    timer = Timer(torch)
+    served = []
+    for arch in AUDIO_VLM_RUNS:
+        full = get_config(arch)
+        if full.family == "audio":
+            line, counts = _whisper_serve(torch, full)
+        else:
+            res, counts, peaks, wall = _launcher_run(torch, arch)
+            toks = res["tokens"]
+            check(len(toks) == ARCH_BATCH and all(
+                x.size == ARCH_TOKENS
+                and bool(((x >= 0) & (x < full.vocab_size)).all())
+                for x in toks), f"{arch}: a stream is short or leaves "
+                                "the vocabulary")
+            for k in PAGED:
+                check(counts[k] > 0, f"{arch}: kernel {k} never launched")
+            line = dict(entry="launch.serve.main -> engine (paged)",
+                        tok_per_s=res["stats"]["tok_per_s"],
+                        ttft_p50_s=res["stats"]["ttft_p50_s"],
+                        weight_bytes=res["memory"]["bytes"],
+                        max_memory_allocated_packing=peaks["packing"],
+                        max_memory_allocated_serving=peaks["serving"],
+                        allocated_serving_start=peaks["serving_from"],
+                        **res["seconds"], wall_s=wall)
+            del res, toks
+        served.append(counts)
+        emit(phase="serve_audio_vlm", arch=arch, family=full.family,
+             layers=full.num_layers, reduced=None, d_model=full.d_model,
+             d_ff=full.d_ff, vocab=full.vocab_size, heads=full.num_heads,
+             kv_heads=full.num_kv_heads, pad_heads_to=full.pad_heads_to,
+             head_dim=full.head_dim,
+             block=[full.blast.b_in, full.blast.b_out], act=full.mlp_act,
+             sparsity=ARCH_SPARSITY, batch=ARCH_BATCH,
+             prompt_len=ARCH_PROMPT, new_tokens=ARCH_TOKENS, **line,
+             launches=counts)
+        gc.collect()
+        torch.cuda.empty_cache()
+        parity, kern = _av_parity(torch, card, timer, full)
+        emit(phase="audio_vlm_parity", arch=arch, **parity,
+             kernels={k: {f: v[f] for f in ("ms", "bound_ms", "library_ms",
+                                            "plan")}
+                      for k, v in kern.items()})
+        torch.cuda.empty_cache()
+    emit(phase="serve_audio_vlm_total", seconds=time.monotonic() - t_phase)
+    return served
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3442,6 +3735,7 @@ def main():
     served += phase_serve_arch(torch, card)
     served += phase_serve_moe(torch, card)
     served += phase_serve_ssm(torch, card)
+    served += phase_serve_audio_vlm(torch, card)
 
     tcfg, opt, src, state = phase_train(torch, cfg)
     ft = phase_finetune_packed(torch, tcfg, state, src.batch(TRAIN_STEPS))

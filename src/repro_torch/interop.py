@@ -6,8 +6,10 @@ of arrays into the port's tree, with any packed leaf (an object carrying
 ``blocks``, ``idx``, ``kb`` and ``joint``) becoming a ``PackedBCSC``.
 ``to_numpy`` is the reverse. Decode caches are nested dicts of arrays
 too (a transformer's ``k``/``v``; rwkv6's ``state``/``x_tmix``/``x_cmix``;
-zamba's ``ssm``/``conv``/``k``/``v``), so both packages can start from
-one cache. bfloat16 arrays cross as their 16-bit
+zamba's ``ssm``/``conv``/``k``/``v``; whisper's ``k``/``v``/``ck``/``cv``),
+so both packages can start from one cache; whisper's params nest their
+``encoder`` and ``decoder`` stacks one level deeper, which the walk
+takes as it takes any dict. bfloat16 arrays cross as their 16-bit
 pattern, so values are bit-exact both ways; ``to_numpy`` returns them
 with numpy's ``bfloat16`` dtype, which exists once ``ml_dtypes`` has been
 imported by the caller (JAX does so). ``train_state`` carries a

@@ -4,7 +4,12 @@ the continuous-batching engine (``serving/engine.py``): ragged prompt
 lengths, FIFO admission, lane reuse. ``--oracle`` takes the token-by-token
 ``serve_loop.generate`` parity path instead; the recurrent families
 (rwkv6 ``ssm``, zamba2 ``hybrid``), which have no chunked prefill, always
-take it, and ``--frontdoor`` refuses them, as in the reference.
+take it, and ``--frontdoor`` refuses them, as in the reference. A VLM
+(internvl2-2b) serves text-only prompts, as the dense family does.
+Whisper (``audio``) needs encoder frames, which the launcher does not
+make: ``--arch whisper-large-v3`` exits before any weight is built (the
+reference fails on its missing frames after building the model); serve
+it through ``serve_loop.generate(frames=...)``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \
         --packed --batch 8 --prompt-len 64 --new-tokens 32
@@ -182,7 +187,11 @@ def main(argv=None):
     from repro_torch.serving import export
 
     cfg = get_config(args.arch, smoke=args.smoke)
-    registry.module_for(cfg)          # the families not ported raise here
+    if cfg.family == "audio":
+        raise SystemExit(
+            f"{cfg.name} ({cfg.family!r}) needs encoder frames, which this "
+            "launcher does not make: serve it through "
+            "repro_torch.serving.serve_loop.generate(frames=...)")
     if args.validate_only and not args.artifact:
         raise SystemExit("--validate-only requires --artifact")
     if args.seal and not args.packed:

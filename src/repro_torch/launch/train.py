@@ -9,7 +9,11 @@ raises rather than fall back. Only ``--mesh none`` runs: the port has no
 multi-device path yet, so ``--mesh single|multi`` and a nonzero
 ``--devices`` (the reference's forced host device count) exit non-zero.
 With ``--ckpt-dir`` the run checkpoints every ``max(steps // 5, 10)``
-steps and a second call resumes at the newest intact checkpoint.
+steps and a second call resumes at the newest intact checkpoint. The
+``audio`` and ``vlm`` families exit before any weight is built: their
+forward needs an input (encoder frames, patch embeddings) that the token
+sources (``data/pipeline.py``) do not make; the reference fails on the
+missing key at its first step.
 """
 from __future__ import annotations
 
@@ -20,6 +24,8 @@ from repro_torch.launch.serve import resolve_device
 
 MULTI_DEVICE = ("needs the port's multi-device slice (distributed/*, "
                 "launch/mesh.py), which is not ported yet; use --mesh none")
+# the input each family's forward needs beyond tokens
+EXTRA_INPUT = {"audio": "frames", "vlm": "patch_embeds"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -59,12 +65,15 @@ def main(argv=None):
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.pipeline import make_source
-    from repro_torch.models import registry
     from repro_torch.optim import adamw
     from repro_torch.training import train_loop
 
     cfg = get_config(args.arch, smoke=args.smoke)
-    registry.module_for(cfg)          # the families not ported raise here
+    if cfg.family in EXTRA_INPUT:
+        raise SystemExit(
+            f"{cfg.name} ({cfg.family!r}) trains on batches with "
+            f"{EXTRA_INPUT[cfg.family]!r}, which the token sources "
+            "(SyntheticLM, MemmapTokens) do not make")
     device = resolve_device(args.device)
     overrides = {}
     if args.s_max is not None:

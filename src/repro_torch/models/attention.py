@@ -1,7 +1,8 @@
 """GQA attention (port of ``repro/models/attention.py``): the
-full-sequence causal or windowed attention of training, and attention
-over the serving caches: the contiguous ``(B, Smax, KV, hd)`` slab and
-the paged KV pool.
+full-sequence causal or windowed attention of training, whisper's
+bidirectional encoder attention and its cross-attention into the encoder
+memory, and attention over the serving caches: the contiguous
+``(B, Smax, KV, hd)`` slab and the paged KV pool.
 
 The pool ``(n_pages, page_size, KV, hd)`` is shared by every lane; lane
 b's logical cache slot ``s`` lives at pool page ``block_tables[b, s //
@@ -60,8 +61,10 @@ def zero_padded_heads(cfg, p) -> None:
             p["wo"][..., cfg.num_heads:, :, :].zero_()
 
 
-def attn_param_specs(cfg) -> dict:
-    """ParamSpec dict for one attention block (stacked by the caller)."""
+def attn_param_specs(cfg, cross: bool = False) -> dict:
+    """ParamSpec dict for one attention block (stacked by the caller). A
+    cross-attention block (``cross``) has the same four projections: K
+    and V project the encoder memory instead of the block's input."""
     d, hd = cfg.d_model, cfg.head_dim
     h, kv = eff_heads(cfg)
     specs = {
@@ -87,20 +90,30 @@ def attn_param_specs(cfg) -> dict:
     return specs
 
 
-def _project_qkv(cfg, p, x):
-    """-> q (B,S,H,hd), k, v (B,S,KV,hd)."""
-    dt = x.dtype
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(dt))
+def _project_q(cfg, p, x):
+    """-> q (B,S,H,hd), with its bias and norm where the config has
+    them."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
     if cfg.qkv_bias:
-        q = q + p["bq"].to(dt)
+        q = q + p["bq"].to(x.dtype)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"])
+    return q
+
+
+def _project_qkv(cfg, p, x, kv_src=None):
+    """-> q (B,S,H,hd), k, v (B,Skv,KV,hd); K and V project ``kv_src``
+    (B,Skv,D) when given (cross-attention), else ``x``."""
+    dt = x.dtype
+    kv_src = x if kv_src is None else kv_src
+    k = torch.einsum("bsd,dhk->bshk", kv_src, p["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bshk", kv_src, p["wv"].to(dt))
+    if cfg.qkv_bias:
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
     if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"])
         k = rmsnorm(k, p["k_norm"])
-    return q, k, v
+    return _project_q(cfg, p, x), k, v
 
 
 def _out_proj(p, out):
@@ -119,12 +132,16 @@ def _scores_to_out(cfg, q, k, v, q_pos, k_pos, causal, window):
     qg = q.reshape(b, sq, kv, g, hd)
     logits = torch.einsum("bqhgk,bshk->bhgqs", qg.float(), k.float()) * scale
     logits = softcap(logits, cfg.attn_logit_softcap)
-    mask = torch.ones((b, sq, k.shape[1]), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= q_pos[:, :, None] >= k_pos[:, None, :]
-    if window:
-        mask &= q_pos[:, :, None] - k_pos[:, None, :] < window
-    logits = torch.where(mask[:, None, None], logits, NEG_INF)
+    if causal or window:
+        # unmasked (bidirectional, cross) attention skips the all-True
+        # mask: one (B, KV, G, Sq, Sk) f32 copy less, the same numbers
+        mask = torch.ones((b, sq, k.shape[1]), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask &= q_pos[:, :, None] >= k_pos[:, None, :]
+        if window:
+            mask &= q_pos[:, :, None] - k_pos[:, None, :] < window
+        logits = torch.where(mask[:, None, None], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqs,bshk->bqhgk", probs.to(v.dtype).float(),
                        v.float())
@@ -132,24 +149,27 @@ def _scores_to_out(cfg, q, k, v, q_pos, k_pos, causal, window):
 
 
 def multihead_attention(cfg, p, x, positions, *, causal=True, window=0,
-                        q_chunk=1024):
-    """Full-sequence (training) self-attention. x (B,S,D); positions
-    (B,S). Queries run in chunks of ``q_chunk`` when S is a multiple of
-    it, which bounds the score transient to (q_chunk, S).
+                        q_chunk=1024, kv_src=None, kv_positions=None):
+    """Full-sequence attention: training and prefill self-attention,
+    whisper's encoder (``causal=False``) and its cross-attention (K and V
+    from ``kv_src`` (B,Skv,D), key positions ``kv_positions`` (B,Skv);
+    no rope there, as in the reference). x (B,S,D); positions (B,S).
+    Queries run in chunks of ``q_chunk`` when S is a multiple of it,
+    which bounds the score transient to (q_chunk, Skv).
 
     Returns (out (B,S,D), (k, v))."""
-    q, k, v = _project_qkv(cfg, p, x)
-    if cfg.rope_theta > 0:
+    q, k, v = _project_qkv(cfg, p, x, kv_src)
+    kpos = positions if kv_positions is None else kv_positions
+    if cfg.rope_theta > 0 and kv_src is None:
         q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        k = apply_rope(k, kpos, cfg.rope_theta)
     s = q.shape[1]
     if s <= q_chunk or s % q_chunk:
-        out = _scores_to_out(cfg, q, k, v, positions, positions, causal,
-                             window)
+        out = _scores_to_out(cfg, q, k, v, positions, kpos, causal, window)
     else:
         out = torch.cat([
             _scores_to_out(cfg, q[:, i:i + q_chunk], k, v,
-                           positions[:, i:i + q_chunk], positions, causal,
+                           positions[:, i:i + q_chunk], kpos, causal,
                            window) for i in range(0, s, q_chunk)], dim=1)
     return _out_proj(p, out), (k, v)
 
@@ -165,14 +185,16 @@ def _cache_positions(smax: int, offsets: torch.Tensor) -> torch.Tensor:
 
 
 def decode_attention(cfg, p, x, cache_k, cache_v, pos, *, window=0,
-                     offsets=None):
+                     cross=False, offsets=None):
     """One-token decode over the contiguous cache. x (B,1,D); cache_k/v
     (B,Smax,KV,hd); ``pos`` the new token's cache slot: an int (every
     lane writes the same slot, ``serve_loop``) or a (B,) tensor (per-lane
     frontiers; a slot >= Smax, where the engine parks finished lanes,
     drops the write). With ``offsets`` (B,) lane b's logical position is
-    ``pos[b] - offsets[b]``. Returns (out, cache_k, cache_v), the caches
-    updated in place."""
+    ``pos[b] - offsets[b]``. With ``cross`` the caches are the static
+    projected encoder memory: only Q is projected, nothing is written,
+    and every slot is attended (no causal mask). Returns (out, cache_k,
+    cache_v), the caches updated in place."""
     b = x.shape[0]
     smax = cache_k.shape[1]
     per_lane = torch.is_tensor(pos) and pos.dim() > 0
@@ -180,25 +202,28 @@ def decode_attention(cfg, p, x, cache_k, cache_v, pos, *, window=0,
             torch.full((b,), int(pos), dtype=torch.int32, device=x.device))
     posb = (posv if offsets is None
             else posv - offsets.to(torch.int32))[:, None]
-    q, k, v = _project_qkv(cfg, p, x)
-    if cfg.rope_theta > 0:
-        q = apply_rope(q, posb, cfg.rope_theta)
-        k = apply_rope(k, posb, cfg.rope_theta)
-    if per_lane:
-        # each lane owns its row: clamp the slot and write the row's own
-        # value back where the reference drops the write
-        lanes = torch.arange(b, device=x.device)
-        ok = (posv >= 0) & (posv < smax)
-        slot = posv.clamp(0, smax - 1).long()
-        for cache, new in ((cache_k, k), (cache_v, v)):
-            cur = cache[lanes, slot]
-            cache[lanes, slot] = torch.where(ok[:, None, None],
-                                             new[:, 0].to(cache.dtype), cur)
+    if cross:
+        q = _project_q(cfg, p, x)
     else:
-        # the reference's dynamic_update_slice clamps the start slot
-        s0 = min(max(int(pos), 0), smax - 1)
-        cache_k[:, s0] = k[:, 0].to(cache_k.dtype)
-        cache_v[:, s0] = v[:, 0].to(cache_v.dtype)
+        q, k, v = _project_qkv(cfg, p, x)
+        if cfg.rope_theta > 0:
+            q = apply_rope(q, posb, cfg.rope_theta)
+            k = apply_rope(k, posb, cfg.rope_theta)
+        if per_lane:
+            # each lane owns its row: clamp the slot and write the row's
+            # own value back where the reference drops the write
+            lanes = torch.arange(b, device=x.device)
+            ok = (posv >= 0) & (posv < smax)
+            slot = posv.clamp(0, smax - 1).long()
+            for cache, new in ((cache_k, k), (cache_v, v)):
+                cur = cache[lanes, slot]
+                cache[lanes, slot] = torch.where(
+                    ok[:, None, None], new[:, 0].to(cache.dtype), cur)
+        else:
+            # the reference's dynamic_update_slice clamps the start slot
+            s0 = min(max(int(pos), 0), smax - 1)
+            cache_k[:, s0] = k[:, 0].to(cache_k.dtype)
+            cache_v[:, s0] = v[:, 0].to(cache_v.dtype)
     if offsets is None:
         kpos = torch.arange(smax, dtype=torch.int32,
                             device=x.device)[None].expand(b, smax)
@@ -207,7 +232,7 @@ def decode_attention(cfg, p, x, cache_k, cache_v, pos, *, window=0,
     # the causal mask at the query's position also hides the garbage
     # cache tail
     out = _scores_to_out(cfg, q, cache_k.to(q.dtype), cache_v.to(q.dtype),
-                         posb, kpos, causal=True, window=window)
+                         posb, kpos, causal=not cross, window=window)
     return _out_proj(p, out), cache_k, cache_v
 
 

@@ -1,23 +1,21 @@
 """Model registry (port of ``repro/models/registry.py``): family ->
 implementation module and the generic entry points the training loop
-and the serving path call. The dense and MoE families run
-``models/transformer.py``, ``ssm`` runs ``models/rwkv6.py`` and
-``hybrid`` ``models/zamba.py``; ``audio`` and ``vlm`` are not ported."""
+and the serving path call. The dense, MoE and ``vlm`` families run
+``models/transformer.py``, ``ssm`` runs ``models/rwkv6.py``, ``hybrid``
+``models/zamba.py`` and ``audio`` ``models/whisper.py``."""
 from __future__ import annotations
 
 import math
 
 from repro_torch.models import params as pmod
-from repro_torch.models import rwkv6, transformer, zamba
+from repro_torch.models import rwkv6, transformer, whisper, zamba
 
-_MODULES = {"dense": transformer, "moe": transformer, "ssm": rwkv6,
-            "hybrid": zamba}
+_MODULES = {"dense": transformer, "moe": transformer, "vlm": transformer,
+            "ssm": rwkv6, "hybrid": zamba, "audio": whisper}
 
 
 def module_for(cfg):
-    if cfg.family in _MODULES:
-        return _MODULES[cfg.family]
-    raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    return _MODULES[cfg.family]
 
 
 def param_specs(cfg):
@@ -77,7 +75,9 @@ def init_masks(cfg, params):
 def init_cache(cfg, batch, max_len, **kw):
     """The decode cache of ``serve_loop`` (``dtype``, ``device``): the
     contiguous KV cache (layers, batch, max_len, KV, hd) of a transformer,
-    the recurrent state of the ``ssm`` and ``hybrid`` families."""
+    the recurrent state of the ``ssm`` and ``hybrid`` families, and
+    whisper's self-attention cache (its encoder memory is
+    ``whisper.prefill_cross``'s)."""
     return module_for(cfg).init_cache(cfg, batch, max_len, **kw)
 
 

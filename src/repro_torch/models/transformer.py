@@ -1,8 +1,11 @@
-"""Decoder-only transformer LM, dense and MoE families (port of
+"""Decoder-only transformer LM, the dense, MoE and VLM families (port of
 ``repro/models/transformer.py``, single device): the training forward
 and the serving steps over the contiguous cache and the paged pool. An
 MoE model's MLP is ``models/moe.py``; its load-balance aux term is summed
-over the layers of the training forward.
+over the layers of the training forward. A VLM's training forward takes
+precomputed patch embeddings (the stub vision frontend) in place of its
+first ``num_patches`` token embeddings; decode and the engine stay
+text-only, as in the reference.
 
 Params are nested dicts whose layer leaves are stacked on a leading
 layer axis, exactly as in the reference; the reference's ``lax.scan``
@@ -195,11 +198,13 @@ def _block(cfg, p, x, positions, masks, window):
     return x + m, aux
 
 
-def forward(cfg, params, tokens, *, masks=None):
+def forward(cfg, params, tokens, *, masks=None, patch_embeds=None):
     """Training/prefill forward: tokens (B,S) int -> (logits (B,S,V) f32,
-    aux loss). ``masks`` is the BLaST mask tree (None: dense)."""
+    aux loss). ``masks`` is the BLaST mask tree (None: dense);
+    ``patch_embeds`` (B, num_patches, D) replace a VLM's first token
+    embeddings (``embed_inputs``)."""
     b, s = tokens.shape
-    x = embed_inputs(cfg, params, tokens)
+    x = embed_inputs(cfg, params, tokens, patch_embeds)
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device)[None].expand(b, s)
     remat = cfg.remat and torch.is_grad_enabled()
@@ -230,10 +235,16 @@ def forward(cfg, params, tokens, *, masks=None):
     return logits_from_hidden(cfg, params, x), aux
 
 
-def embed_inputs(cfg, params, tokens):
+def embed_inputs(cfg, params, tokens, patch_embeds=None):
+    """Token embeddings (B,S,D) in the compute dtype; with
+    ``patch_embeds`` (B, num_patches, D) and a config that has patches,
+    the first ``num_patches`` positions are the patches instead."""
     x = params["embed"][tokens.long()].to(DTYPES[cfg.compute_dtype])
     if cfg.scale_embeddings:
         x = x * math.sqrt(cfg.d_model)
+    if patch_embeds is not None and cfg.num_patches:
+        x = torch.cat([patch_embeds.to(x.dtype), x[:, cfg.num_patches:]],
+                      dim=1)
     return x
 
 

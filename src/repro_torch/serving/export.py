@@ -7,6 +7,10 @@
     layer-stacked leaves pack per layer in one pass, and a 2-D leaf (zamba's
     one shared MLP) packs as a single matrix;
   * ``memory_report`` — bytes of the serving weights.
+
+Every function walks the tree by its sparse paths and dicts alone, so
+whisper's nested stacks (``encoder/mlp/w_in`` ... ``decoder/mlp/w_out``)
+take the same walk as a transformer's ``layers``.
 """
 from __future__ import annotations
 

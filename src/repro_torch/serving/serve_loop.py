@@ -6,8 +6,9 @@ model's capacity follows the batch of each step, so its streams may
 differ from the engine's, as in the reference), and the recurrent
 ``ssm`` and ``hybrid`` families, which the engine does not serve (no
 chunked prefill, as in the reference): their cache is the per-lane
-recurrent state of ``registry.init_cache``. Whisper (``audio``) is not
-ported.
+recurrent state of ``registry.init_cache``; and whisper (``audio``),
+whose encoder frames fill the cross-attention memory (``prefill_cross``)
+before the prompt is prefilled.
 """
 from __future__ import annotations
 
@@ -20,22 +21,26 @@ from repro_torch.models import registry
 from repro_torch.serving.step import make_decode_step
 
 
-def _no_frames(cfg, frames) -> None:
-    if frames is not None or cfg.family == "audio":
-        raise NotImplementedError(
-            "whisper serving (encoder frames) is not ported yet")
-
-
 @torch.inference_mode()
 def prefill_with_decode(cfg, params, prompts, max_len: int, frames=None,
                         device="cuda"):
     """Seed a contiguous cache by running the decode step over the prompt
-    tokens. ``prompts`` (B, plen) ints. Returns (last logits (B, V) f32,
-    cache)."""
-    _no_frames(cfg, frames)
+    tokens. ``prompts`` (B, plen) ints. For whisper, ``frames`` (B,
+    S_enc, d_model), a numpy array or a tensor, seed the cross-attention
+    memory first (required; ignored by the other families, as in the
+    reference). Returns (last logits (B, V) f32, cache)."""
     prompts = torch.as_tensor(np.asarray(prompts, np.int32), device=device)
     b, plen = prompts.shape
+    if cfg.family == "audio" and frames is None:
+        raise ValueError("whisper serving needs frames (B, S_enc, d_model): "
+                         "pass generate(frames=...)")
     cache = registry.init_cache(cfg, b, max_len, device=device)
+    if cfg.family == "audio":
+        from repro_torch.models import whisper
+        if not torch.is_tensor(frames):
+            frames = torch.from_numpy(np.asarray(frames))
+        cache["ck"], cache["cv"] = whisper.prefill_cross(
+            cfg, params, frames.to(device), dtype=cache["k"].dtype)
     logits = None
     for i in range(plen):
         logits, cache = registry.decode_step(cfg, params, cache,

@@ -46,8 +46,16 @@ def init_state(cfg, seed: int = 0, device="cuda") -> TrainState:
 
 def loss_fn(cfg, params, masks, batch, teacher_logits=None, kd_alpha=1.0,
             kd_beta=0.0):
+    """The distillation loss (plus an MoE model's aux term) of one batch;
+    whisper's forward also takes ``batch["frames"]`` and a VLM's
+    ``batch["patch_embeds"]``."""
+    kw = {}
+    if cfg.family == "audio":
+        kw["frames"] = batch["frames"]
+    if cfg.family == "vlm":
+        kw["patch_embeds"] = batch["patch_embeds"]
     logits, aux = registry.forward(cfg, params, batch["tokens"],
-                                   masks=masks or None)
+                                   masks=masks or None, **kw)
     loss = distill.distill_loss(logits, batch["labels"], teacher_logits,
                                 alpha=kd_alpha, beta=kd_beta)
     if cfg.is_moe:
@@ -83,7 +91,8 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, kd_alpha=1.0,
     device scalar made after the update (0 without BLaST), so that its
     read waits for the whole step on the device."""
     spec = cfg.blast
-    # None: every layer may be pruned (zamba's one shared MLP)
+    # None: every layer may be pruned (zamba's one shared MLP); a dict:
+    # flags per stack (whisper's encoder and decoder)
     cpu_flags = registry.dense_layer_flags(cfg) if spec.enabled else None
     flags = None if cpu_flags is None else {"cpu": cpu_flags}
 
@@ -91,7 +100,10 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, kd_alpha=1.0,
         if flags is None:
             return None
         if str(device) not in flags:
-            flags[str(device)] = flags["cpu"].to(device)
+            cpu = flags["cpu"]
+            flags[str(device)] = ({k: v.to(device) for k, v in cpu.items()}
+                                  if isinstance(cpu, dict)
+                                  else cpu.to(device))
         return flags[str(device)]
 
     def grads_of(state, b, tl, poison):

@@ -1,10 +1,10 @@
 """The port's ``--arch`` registry equals the reference's: every one of the
 ten configs and its smoke variant field by field (the BLaST spec and its
 derived block shape included), the ids, shapes, skips and dry-run cells,
-the errors on an unknown id and on the families the port does not run,
-and the parameter counts of the four dense, the two recurrent and the two
-MoE models at full size (from the spec trees, nothing allocated), with
-the MoE and recurrent families' modules and serving flags."""
+the error on an unknown id, and the parameter counts of the four dense,
+the two recurrent and the two MoE models at full size (from the spec
+trees, nothing allocated), with the modules and serving flags of the MoE,
+recurrent, ``audio`` and ``vlm`` families."""
 import dataclasses
 
 import pytest
@@ -22,7 +22,7 @@ from repro_torch.models import registry as treg  # noqa: E402
 DENSE = ("stablelm-3b", "stablelm-12b", "qwen2-7b", "gemma2-27b")
 MOE = ("qwen3-moe-235b-a22b", "deepseek-moe-16b")
 RECURRENT = ("rwkv6-3b", "zamba2-1.2b")
-NOT_PORTED = ("whisper-large-v3", "internvl2-2b")
+AUDIO_VLM = ("whisper-large-v3", "internvl2-2b")
 
 
 @pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
@@ -54,12 +54,21 @@ def test_unknown_arch_raises_key_error():
             mod.skip_shapes("llama-9000")
 
 
-@pytest.mark.parametrize("arch", NOT_PORTED)
+@pytest.mark.parametrize("arch", AUDIO_VLM)
 def test_families_not_ported_raise_at_module_for(arch):
-    cfg = tconfigs.get_config(arch, smoke=True)
-    assert cfg.family in ("audio", "vlm")
-    with pytest.raises(NotImplementedError, match=repr(cfg.family)):
-        treg.module_for(cfg)
+    """``module_for`` answers whisper for ``audio`` and the transformer for
+    ``vlm``, as the reference's does; the engine serves the VLM (text
+    only) and refuses whisper, whose flags are all false there too."""
+    for smoke in (False, True):
+        t = tconfigs.get_config(arch, smoke=smoke)
+        j = jconfigs.get_config(arch, smoke=smoke)
+        mod = {"audio": "whisper", "vlm": "transformer"}[t.family]
+        assert treg.module_for(t).__name__ == f"repro_torch.models.{mod}"
+        assert jreg.module_for(j).__name__ == f"repro.models.{mod}"
+        for fn in ("supports_prefill_chunk", "supports_paged",
+                   "supports_mixed"):
+            assert getattr(treg, fn)(t) == getattr(jreg, fn)(j) == (
+                t.family == "vlm")
 
 
 @pytest.mark.parametrize("arch", RECURRENT)

@@ -1005,3 +1005,33 @@ def test_zamba2_shared_glu_and_down_match_plain(cuda, mode, m):
         dt, want_h)
     assert float((y.float() - want_y.float()).abs().max()) <= _ulp_tol(
         dt, want_y)
+
+
+# whisper-large-v3's two-matrix MLP at full width (with_blast at TP = 16
+# gives 128 x 64 blocks): (K, N, b_in, b_out) of w_in and w_out; M = 8 is
+# a decode step's 8 lanes, M = 12000 the encoder's 8 lanes x 1500 frames
+# (93 full 128-row tiles and one of 96 rows; 187 full 64-row tiles and
+# one of 32)
+WHISPER_MLP = {"w_in": (1280, 5120, 128, 64), "w_out": (5120, 1280, 64, 128)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [8, 12000])
+@pytest.mark.parametrize("weight", sorted(WHISPER_MLP))
+def test_bspmm_at_the_whisper_mlp_shapes(cuda, weight, m):
+    """``bspmm`` on whisper's ``w_in`` and ``w_out`` at s = 0.8 in bf16,
+    at decode rows and at the encoder's 12000 rows, whose last row tile
+    is partial, within ``_ulp_tol``; one launch each."""
+    k, n, bi, bo = WHISPER_MLP[weight]
+    dt = torch.bfloat16
+    p = _packed(9, k, n, bi, bo, 0.8, dt, cuda)
+    x = torch.randn(m, k, generator=torch.Generator().manual_seed(m)).to(
+        cuda, dt)
+    before = tbs.LAUNCHES["bspmm"]
+    got, want = tbs.bspmm(x, p), tops.bspmm_plain(x, p)
+    torch.cuda.synchronize()
+    assert tbs.LAUNCHES["bspmm"] == before + 1
+    assert got.dtype == dt and got.shape == (m, n)
+    assert bool(torch.isfinite(got).all())
+    assert float((got.float() - want.float()).abs().max()) <= _ulp_tol(
+        dt, want), tbs.launch_plan(x, p).describe()

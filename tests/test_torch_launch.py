@@ -6,7 +6,7 @@ every dense architecture, engine and oracle rows equal, seal and validate,
 a flipped byte refused with code 2, a Chrome trace, the front door with
 SLA preemption, training that resumes from its checkpoint and serving from
 it). Without ``--device cpu`` and without a GPU both raise, never running
-on the CPU."""
+on the CPU; for whisper both exit before building a weight."""
 import argparse
 import dataclasses
 import json
@@ -247,7 +247,19 @@ def test_default_device_without_a_gpu_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("mod", [serve, train], ids=["serve", "train"])
-def test_families_not_ported_raise(mod):
-    with pytest.raises(NotImplementedError, match="'audio'"):
+def test_families_not_ported_raise(mod, monkeypatch):
+    """Neither launcher makes whisper's encoder frames: ``serve`` points
+    at ``serve_loop.generate(frames=...)`` and ``train`` names the
+    ``frames`` its token sources lack, each before any weight is built
+    (the reference builds the model, then fails on the missing frames)."""
+    from repro_torch.models import registry
+    from repro_torch.training import train_loop
+    monkeypatch.setattr(registry, "init_params", _never)
+    monkeypatch.setattr(train_loop, "train", _never)
+    with pytest.raises(SystemExit) as e:
         mod.main(["--arch", "whisper-large-v3", "--smoke", "--device",
                   "cpu"])
+    msg = str(e.value.code)
+    assert "'audio'" in msg
+    assert ("serve_loop.generate(frames=...)" if mod is serve
+            else "'frames'") in msg

@@ -11,7 +11,6 @@ greedy tokens equal (a divergence only at a reference top-2 margin below
 1e-5); the copy-on-write page copy bitwise; temperature sampling
 repeatable from one ``torch.Generator`` seed (no parity asked: the two
 sides draw from different generators)."""
-import dataclasses
 
 import numpy as np
 import pytest
@@ -25,6 +24,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from test_torch_engine import _assert_same_or_near_tie, _ref_margin  # noqa: E402
 from test_torch_transformer import CFGS, port_cfg, serving_params  # noqa: E402
+from repro import configs as jconfigs  # noqa: E402
 from repro.models import transformer as jtr  # noqa: E402
 from repro.serving import serve_loop as jsl, step as jstep  # noqa: E402
 from repro_torch.models import registry as treg  # noqa: E402
@@ -281,13 +281,28 @@ def test_decode_step_temperature_is_repeatable():
 
 
 def test_serve_loop_refuses_what_is_not_ported():
+    """``frames`` are whisper's (``audio``): accepted there, and required,
+    where the reference only asserts; a text family ignores them, as the
+    reference does."""
     jcfg = CFGS["tiny"]()
     tcfg = port_cfg(jcfg)
     _, tp = serving_params(jcfg, packed=True)
-    with pytest.raises(NotImplementedError, match="whisper"):
-        tsl.generate(tcfg, tp, np.ones((1, 3), np.int32), frames=np.ones(1),
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        treg.init_cache(dataclasses.replace(tcfg, family="audio"), 1, 4,
-                        device="cpu")
+    prompts = np.ones((1, 3), np.int32)
+    want, _ = tsl.generate(tcfg, tp, prompts, max_new_tokens=2,
+                           device="cpu")
+    got, _ = tsl.generate(tcfg, tp, prompts, max_new_tokens=2,
+                          frames=np.ones(1), device="cpu")
+    np.testing.assert_array_equal(got, want)
+    wcfg = port_cfg(jconfigs.get_config("whisper-large-v3", smoke=True))
+    wp = treg.init_params(wcfg, 0, "cpu")
+    with pytest.raises(ValueError, match="frames"):
+        tsl.generate(wcfg, wp, prompts, max_new_tokens=2, device="cpu")
+    frames = np.full((1, 5, wcfg.d_model), 0.02, np.float32)
+    toks, _ = tsl.generate(wcfg, wp, prompts, max_new_tokens=2,
+                           frames=frames, device="cpu")
+    assert toks.shape == (1, 5)
+    cache = treg.init_cache(wcfg, 1, 4, device="cpu")
+    assert set(cache) == {"k", "v"}
+    assert tuple(cache["k"].shape[:3]) == (wcfg.num_layers, 1, 4)
     assert treg.supports_prefill_chunk(tcfg) and treg.supports_mixed(tcfg)
+    assert not treg.supports_prefill_chunk(wcfg)
