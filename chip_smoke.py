@@ -61,6 +61,19 @@ only for new ones; the old weights' memory is freed when their last lane
 retires; the same swap behind the asyncio front door; a NaN in a new
 lane inside the window rolls the swap back.
 
+Tensor-parallel serving (``serve_tp``, after the swap): Llama-3.2-1B
+at full width and depth over a model axis of 2 (``dist=``), two spawned
+rank processes that each load the sealed split artifact and keep their
+shard (``export.shard_params``), over NCCL with a card each or, on one
+card, over gloo sharing it; the 12 requests through the TP engine,
+phased and mixed, the 4 oracle prompts through ``serve_loop.generate``
+and a short run of the joint artifact: on every rank, the streams equal
+the single-device runs' (a first divergence only at a near-tie), the
+block tables and page accounting equal theirs (a digest), the full-depth
+logits within 2**-5 of their magnitude, every kernel of the path
+launched, each rank holding about half the weight and KV bytes; then the
+kernels at a rank's local shapes (``tp_kernel`` lines).
+
 Training: 12 steps of the BLaST trainer (``train_loop.train``: masked
 dense with in-step prune-and-grow, f32 params, bf16 compute) on 8 x 128
 synthetic tokens, checked for a falling finite loss, exact per-column
@@ -73,7 +86,8 @@ The trained state is checkpointed at full depth (``train_ckpt``: a
 blocking and an async save, verify, a bitwise restore), and the chaos
 child (``training/faults.py``) at two layers is SIGKILLed, resumed, and
 resumed again past a corrupted newest checkpoint; each must end where
-an uninterrupted child ends (``train_chaos``).
+an uninterrupted child ends (``train_chaos``). These child processes,
+compared by their states and never by their time, run side by side.
 
 Observability (``repro_torch/obs``): ``obs_serve`` serves the 12
 requests at full depth in three rounds, each an untraced and a traced
@@ -167,6 +181,9 @@ CHAOS_WATCHDOG_S, CHAOS_WATCHDOG_FULL_S = 5.0, 30.0
 ART_DIR = os.path.join(ROOT, "build", "chip_artifacts")
 FAULT_TOKENS, SWAP_AFTER_STEP, SWAP_POST = 32, 2, 4
 CHAOS_LAYERS, CHAOS_STEPS, CHAOS_KILL = 2, 12, 11
+# full-width chaos children run beside the A -> A2 -> A3 chain at once
+# (three at a time with the chain's fit the card's 80 GB; four did not)
+CHAOS_SIDE = 2
 
 # datasheet figures (SXM parts, dense rates): bytes/s of device memory and
 # operations/s by input type (f32 outside the tensor cores, as the kernels
@@ -232,6 +249,15 @@ SSM_SCAN_B, SSM_SCAN_S, SSM_LOGIT_TOL = 2, 64, 1e-3
 # patches in front)
 AUDIO_VLM_RUNS = ("whisper-large-v3", "internvl2-2b")
 AUDIO_FRAMES, AV_PARITY_B, AV_PARITY_TOKENS = 1500, 4, 64
+# tensor-parallel serving (serve_tp): the model axis, the rank processes'
+# gloo/NCCL store under the gitignored build/, their time limit; a rank's
+# weight bytes may be at most TP_BYTES_FRACTION of the single-device
+# packed bytes plus the leaves every rank holds whole; the streams'
+# near-tie margin is TP_NEAR_TIE times the full-depth logits tolerance
+# (2**-5 of their magnitude, phase_e2e's), since two bf16 orders of the
+# same sums differ by about that
+TP_SIZE, TP_TIMEOUT_S, TP_BYTES_FRACTION, TP_NEAR_TIE = 2, 900, 0.55, 2.0
+TP_DIR = os.path.join(ROOT, "build", "chip_tp")
 
 
 T0 = time.monotonic()
@@ -655,7 +681,7 @@ def phase_serve(torch, cfg, name, params, prompts, new_tokens, must_launch,
         check(counts[k] > 0, f"{name}: kernel {k} never launched")
     for k in must_not:
         check(counts[k] == 0, f"{name}: kernel {k} launched unexpectedly")
-    return results, counts, dict(st)
+    return results, counts, dict(st, lockstep_digest=eng.lockstep_digest)
 
 
 def _brief(st):
@@ -670,9 +696,10 @@ def phase_serve_modes(torch, cfg, packed, prompts, phased):
     """The served 12 requests through the contiguous cache and mixed
     batching, beside the phased paged run: phased (already run),
     contiguous, mixed, then mixed, contiguous, phased again (decode is
-    host-bound, so the order alternates). Returns the launch counts."""
+    host-bound, so the order alternates). Returns the launch counts and
+    the first mixed run's (results, stats)."""
     runs = {"packed_split": [phased]}
-    counts = []
+    counts, mixed = [], None
     for name in ("serve_contiguous", "serve_mixed", "serve_mixed",
                  "serve_contiguous", "packed_split"):
         mode = {"serve_contiguous": dict(paged=False),
@@ -682,8 +709,10 @@ def phase_serve_modes(torch, cfg, packed, prompts, phased):
                 else PAGED)
         must_not = (("fused_glu_joint", "paged_flash_decode")
                     if name == "serve_contiguous" else ("fused_glu_joint",))
-        _, c, st = phase_serve(torch, cfg, name, packed, prompts, NEW_TOKENS,
-                               must, must_not, **mode)
+        res, c, st = phase_serve(torch, cfg, name, packed, prompts,
+                                 NEW_TOKENS, must, must_not, **mode)
+        if name == "serve_mixed" and mixed is None:
+            mixed = (res, st)
         if name == "serve_mixed":
             check(st["stalled_decode_steps"] == 0,
                   f"mixed: {st['stalled_decode_steps']} stalled steps")
@@ -695,7 +724,7 @@ def phase_serve_modes(torch, cfg, packed, prompts, phased):
                 "serve_mixed", "serve_contiguous", "packed_split"],
          runs=runs, kv_slab_bytes=_kv_slab_bytes(cfg, ENGINE["max_batch"],
                                                  ENGINE["max_len"]))
-    return counts
+    return counts, mixed
 
 
 def _span_summary(records) -> dict:
@@ -902,7 +931,8 @@ def phase_serve_loop(torch, cfg, packed, loop_prompts):
     cache, then one decode step per token) on 4 prompts of 64 tokens,
     beside the phased paged engine on the same prompts. All four requests
     get their first token at the end of the prefill, so its TTFT p50 and
-    p95 are the prefill's wall time. Returns the launch counts."""
+    p95 are the prefill's wall time. Returns the launch counts and the
+    generated tokens (4, 32)."""
     from repro_torch.serving import serve_loop
     _reset_counts()
     t0 = time.monotonic()
@@ -929,7 +959,7 @@ def phase_serve_loop(torch, cfg, packed, loop_prompts):
     _, c, _ = phase_serve(torch, cfg, "serve_loop_phased", packed,
                           loop_prompts, LOOP_TOKENS, PAGED,
                           ("fused_glu_joint",))
-    return [counts, c]
+    return [counts, c], gen
 
 
 def _first_divergence(got, want):
@@ -1178,10 +1208,11 @@ def _check_scrapes(scrapes, final, eng):
                                    for p in parsed])
 
 
-def _near_tie_equal(torch, cfg, params, prompts, got, want, name):
+def _near_tie_equal(torch, cfg, params, prompts, got, want, name,
+                    tol=NEAR_TIE):
     """Each stream of ``got`` equals ``want``'s, or first diverges where
-    the fault-free run's top-2 margin is below ``NEAR_TIE``. Returns the
-    accepted divergences."""
+    ``want``'s model (``params``) has a top-2 margin below ``tol``.
+    Returns the accepted divergences."""
     accepted = []
     for u, w in want.items():
         t = _first_divergence(got[u], w)
@@ -1190,8 +1221,8 @@ def _near_tie_equal(torch, cfg, params, prompts, got, want, name):
         seq = np.concatenate([prompts[u], w[:t]]).astype(np.int32)
         top2 = torch.topk(_last_logits(torch, cfg, params, seq), 2).values
         m = float(top2[0] - top2[1])
-        check(m < NEAR_TIE, f"chaos {name}: request {u} diverged at step "
-                            f"{t}, margin {m} >= {NEAR_TIE}")
+        check(m < tol, f"{name}: request {u} diverged at step {t}, margin "
+                       f"{m} >= {tol}")
         accepted.append({"request": u, "step": t, "margin": m})
     return accepted
 
@@ -1309,7 +1340,7 @@ def phase_serve_chaos(torch, cfg, packed, prompts):
             check("checksum" in failed[0].reason,
                   f"chaos {name}: {failed[0].reason}")
         accepted = _near_tie_equal(torch, cfg2, p2, reqs, ok,
-                                   {u: base[u] for u in ok}, name)
+                                   {u: base[u] for u in ok}, f"chaos {name}")
         check(st["faults_injected"] == (0 if name == "none" else 1),
               f"chaos {name}: {st['faults_injected']} faults fired")
         if name in ("b_host_crash", "e_stall"):
@@ -1348,7 +1379,7 @@ def phase_serve_chaos(torch, cfg, packed, prompts):
     accepted = _near_tie_equal(torch, cfg, packed, reqs,
                                {u: r.generated for u, r in out.items()},
                                {u: r.generated for u, r in full.items()},
-                               "b_host_crash full depth")
+                               "chaos b_host_crash full depth")
     check(len(log) == 1 and st["re_prefilled_tokens"] == 0
           and st["recovered_zero_reprefill"] >= 1,
           f"chaos full depth: log {log}, stats {st}")
@@ -1426,21 +1457,26 @@ def _check_chaos_postmortems(tracers):
     emit(phase="obs_postmortems", drive="serve_chaos", runs=rows)
 
 
-def _last_logits(torch, cfg, params, prompt):
+def _last_logits(torch, cfg, params, prompt, dist=None):
     """Next-token logits after ``prompt``: one single-lane prefill chunk
-    through the same model functions the engine calls."""
+    through the same model functions the engine calls (with ``dist``,
+    tensor-parallel on this rank's shard, the vocab shards gathered)."""
     from repro_torch.models import transformer
+    kw = {} if dist is None else {"dist": dist}
     ps = ENGINE["page_size"]
     pages = -(-len(prompt) // ps)
-    cache = transformer.init_paged_cache(cfg, pages, ps, device=DEVICE)
+    cache = transformer.init_paged_cache(cfg, pages, ps, device=DEVICE, **kw)
     with torch.inference_mode():
         logits, _ = transformer.paged_prefill_chunk(
             cfg, params, cache,
             torch.as_tensor(prompt, device=DEVICE)[None], 0,
             torch.zeros(1, dtype=torch.int32, device=DEVICE),
             torch.arange(pages, dtype=torch.int32, device=DEVICE)[None],
-            read_pages=pages)
-    return logits[0, -1].float()
+            read_pages=pages, **kw)
+        last = logits[0, -1:]
+        if dist is not None and dist.shards(cfg.vocab_size):
+            last = dist.all_gather(last, dim=-1)
+    return last[0].float()
 
 
 def _first_layers(tree, n):
@@ -1474,9 +1510,9 @@ def _mlp_inputs(torch, cfg, params, prompts):
     seen = []
     forward = transformer.mlp_forward
 
-    def recording(cfg_, p, x):
+    def recording(cfg_, p, x, masks=None, dist=None):
         seen.append(x.clone())
-        return forward(cfg_, p, x)
+        return forward(cfg_, p, x, masks, dist=dist)
 
     transformer.mlp_forward = recording
     try:
@@ -1923,9 +1959,9 @@ def _train_mlp_inputs(torch, cfg, state, tokens):
     seen = []
     forward = transformer.mlp_forward
 
-    def recording(cfg_, p, x, masks=None):
+    def recording(cfg_, p, x, masks=None, dist=None):
         seen.append(x.reshape(-1, x.shape[-1]).clone())
-        return forward(cfg_, p, x, masks)
+        return forward(cfg_, p, x, masks, dist=dist)
 
     transformer.mlp_forward = recording
     try:
@@ -2397,6 +2433,276 @@ def phase_serve_swap(torch, cfg, dirs, prompts, rng):
     return counts
 
 
+# ------------------------------------------- tensor-parallel serving
+def _tp_rank(rank, world, backend, cfg, dirs, prompts, loop_prompts):
+    """One rank of ``serve_tp`` (a spawned process): start the group from
+    the ``file://`` store in ``TP_DIR``, load the sealed split artifact
+    and keep this rank's shard, serve the 12 requests through the TP
+    engine (phased, then mixed) and the 4 oracle prompts through
+    ``serve_loop.generate``, gather the full-depth next-token logits of 4
+    prompts, then serve 4 requests of the joint artifact; launch counts
+    reset before and read after each run. Pickles what it saw to
+    ``rank<r>.pkl`` in ``TP_DIR``."""
+    import pickle
+
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.distributed.context import (DistContext,
+                                                 init_process_group,
+                                                 make_mesh)
+    from repro_torch.serving import artifact, export, serve_loop
+    from repro_torch.serving.engine import Engine
+    torch.cuda.set_device(rank if backend == "nccl" else 0)
+    init_process_group(TP_DIR, rank, world, backend)
+    try:
+        mesh = make_mesh((1, world), ("data", "model"))
+        dist = DistContext(mesh)
+        out = {"rank": rank, "device": torch.cuda.current_device()}
+
+        def shard(name):
+            full, _ = artifact.load(dirs[name], cfg, device=DEVICE)
+            local = export.shard_params(cfg, full, mesh)
+            del full
+            torch.cuda.empty_cache()
+            return local
+
+        params = shard("split")
+        out["weight_bytes"] = export.memory_report(cfg, params)["bytes"]
+        runs = {}
+        for name, mode in (("phased", {}), ("mixed", {"mixed": True})):
+            _reset_counts()
+            eng = Engine(cfg, params, device=DEVICE, dist=dist, **ENGINE,
+                         **mode)
+            uids = [eng.submit(p, NEW_TOKENS) for p in prompts]
+            t0 = time.monotonic()
+            res = eng.run()
+            wall = time.monotonic() - t0
+            runs[name] = dict(
+                streams=[res[u].generated for u in uids],
+                ok=all(res[u].ok for u in uids), wall_s=wall,
+                digest=eng.lockstep_digest, launches=_read_counts(),
+                kv_pool_bytes=sum(t.numel() * t.element_size()
+                                  for t in eng.cache.values()),
+                **{k: eng.stats[k] for k in (
+                    "tok_per_s", "ttft_p50_s", "stalled_decode_steps",
+                    "mixed_steps", "decode_slabs", "prefill_chunks")})
+            del eng
+        _reset_counts()
+        toks, st = serve_loop.generate(
+            cfg, params, np.stack(loop_prompts), max_new_tokens=LOOP_TOKENS,
+            device=DEVICE, dist=dist)
+        runs["serve_loop"] = dict(streams=toks[:, LOOP_LEN:],
+                                  launches=_read_counts(),
+                                  tok_per_s=st["tok_per_s"])
+        out["logits"] = [_last_logits(torch, cfg, params, p, dist)
+                         .cpu().numpy() for p in prompts[:4]]
+        del params
+        params = shard("joint")
+        _reset_counts()
+        eng = Engine(cfg, params, device=DEVICE, dist=dist, **ENGINE)
+        uids = [eng.submit(p, 16) for p in prompts[:4]]
+        res = eng.run()
+        runs["joint"] = dict(streams=[res[u].generated for u in uids],
+                             digest=eng.lockstep_digest,
+                             launches=_read_counts(),
+                             tok_per_s=eng.stats["tok_per_s"])
+        out["runs"] = runs
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    finally:
+        tdist.destroy_process_group()
+    with open(os.path.join(TP_DIR, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def _tp_ranks(cfg, world, backend, dirs, prompts, loop_prompts):
+    """Start ``world`` rank processes (spawn), wait for all of them; a rank
+    that fails or overruns fails the phase (the others are killed).
+    Returns each rank's results."""
+    import multiprocessing
+    import pickle
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    os.makedirs(TP_DIR)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_tp_rank, args=(
+        r, world, backend, cfg, dirs, prompts, loop_prompts))
+        for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + TP_TIMEOUT_S
+    try:
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+            # one rank failing leaves the others blocked in a collective
+            if p.exitcode not in (None, 0):
+                break
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    check(codes == [0] * world, f"serve_tp: rank exit codes {codes}")
+    out = []
+    for r in range(world):
+        with open(os.path.join(TP_DIR, f"rank{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    shutil.rmtree(TP_DIR)
+    return out
+
+
+def _tp_kernel_lines(torch, card, cfg, packed, joint, world):
+    """Each kernel of the path at rank 1's tp-``world`` shapes (rank 1
+    holds the down pack's zero padding): ``bspmm`` on its local down pack
+    over the all-gathered (8, d_ff) rows, both GLUs on its local gate/up
+    columns at M = 8, paged decode on its local heads at B = 8 over R =
+    16, each held against its plain version within ``ulp_tol`` and timed
+    beside its bound and library call (``_mlp_lines``, ``_paged_line``)."""
+    from repro_torch.distributed.context import DistContext, Mesh
+    from repro_torch.models import attention
+    from repro_torch.serving import export
+    mesh = Mesh(("data", "model"), (1, world), 1)
+    local = export.shard_params(cfg, _first_layers(packed, 1), mesh)
+    jlocal = export.shard_params(cfg, _first_layers(joint, 1), mesh)
+    mlp0 = _mlp_of(cfg, local, 0)
+    jmlp0 = _mlp_of(cfg, jlocal, 0)
+    timer = Timer(torch)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    base = dict(tp=world, rank=1, block=[cfg.blast.b_in, cfg.blast.b_out])
+    out = _mlp_lines(torch, card, timer, gen, "tp_kernel", (), ARCH_M,
+                     mlp0["w_down"], mlp0["w_gate"], mlp0["w_up"],
+                     jmlp0["w_gate"], jmlp0["w_up"], cfg.mlp_act,
+                     down_partial=mlp0["w_down"].partial, **base)
+    _, hl, _, kvl = attention.local_heads(cfg, DistContext(mesh))
+    out["paged_flash_decode"] = _paged_line(
+        torch, card, timer, gen, "tp_kernel", kvl, hl // kvl, cfg.head_dim,
+        cfg.attn_scale, float(cfg.attn_logit_softcap or 0.0),
+        cfg.sliding_window, **base)
+    return out
+
+
+def phase_serve_tp(torch, card, cfg, packed, joint, dirs, prompts,
+                   loop_prompts, single):
+    """Llama-3.2-1B served tensor-parallel at full width and depth over a
+    model axis of ``TP_SIZE`` ranks (``dist=``): each rank a spawned
+    process that loads the sealed split artifact (the weights the
+    single-device phases served, bitwise) and keeps its shard
+    (``export.shard_params``). With two or more cards each rank takes its
+    own over NCCL; with one, both share card 0 over gloo (NCCL refuses
+    two ranks on one device), whose collectives carry CUDA tensors, so
+    this measures no tensor-parallel speed and claims none.
+
+    Holds, per rank: the 12 requests' streams through the TP engine,
+    phased and mixed, and the 4 oracle prompts' through
+    ``serve_loop.generate``, equal to the single-device runs' (a first
+    divergence only where the single-device margin is below
+    ``TP_NEAR_TIE`` logits tolerances); every rank's streams and
+    block-table/page digests equal, and the digests equal to the
+    single-device engines'; the full-depth next-token logits of 4 prompts
+    within 2**-5 of their magnitude; the split GLU, ``bspmm`` and paged
+    decode launched on every rank (and the joint GLU in a short run of
+    the joint artifact); each rank's weight bytes at most
+    ``TP_BYTES_FRACTION`` of the single-device packed bytes plus the
+    leaves every rank holds whole, and its KV pool 1/``TP_SIZE`` of the
+    single-device pool. Then the kernels at a rank's local shapes
+    (``tp_kernel`` lines). Returns the ranks' launch counts."""
+    from repro_torch.distributed.context import Mesh
+    from repro_torch.models import attention
+    from repro_torch.serving import export
+    world = TP_SIZE
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    torch.cuda.synchronize()
+    ranks = _tp_ranks(cfg, world, backend, dirs, prompts, loop_prompts)
+    # the single-device figures
+    full_bytes = export.memory_report(cfg, packed)["bytes"]
+    local0 = export.shard_params(cfg, packed, Mesh(("data", "model"),
+                                                   (1, world), 0))
+    whole = sum(
+        export.memory_report(cfg, {"x": a})["bytes"]
+        for a, b in zip(export._leaves(packed), export._leaves(local0))
+        if (a.blocks is b.blocks if hasattr(a, "blocks") else a is b))
+    del local0
+    ps = ENGINE["page_size"]
+    n_pages = ENGINE["max_batch"] * -(-ENGINE["max_len"] // ps)
+    _, kv = attention.eff_heads(cfg)
+    single_pool = 2 * cfg.num_layers * n_pages * ps * kv * cfg.head_dim * 2
+    single_logits = [_last_logits(torch, cfg, packed, p) for p in prompts[:4]]
+    mag = max(float(x.abs().max()) for x in single_logits)
+    tol = 2.0 ** -5 * mag
+    err = max(float(np.abs(r["logits"][i] - single_logits[i].cpu().numpy())
+                    .max()) for r in ranks for i in range(4))
+    check(err <= tol, f"serve_tp: full-depth logits differ by {err} > {tol}")
+    near_tie = TP_NEAR_TIE * tol
+    want = {name: [r.generated for r in single[name][0]]
+            for name in ("phased", "mixed", "joint")}
+    want["serve_loop"] = list(single["serve_loop"])
+    accepted, counts = {}, []
+    r0 = ranks[0]["runs"]
+    for name in ("phased", "mixed", "serve_loop", "joint"):
+        accepted[name] = _near_tie_equal(
+            torch, cfg, joint if name == "joint" else packed,
+            loop_prompts if name == "serve_loop" else prompts,
+            dict(enumerate(r0[name]["streams"])), dict(enumerate(want[name])),
+            f"serve_tp {name}", tol=near_tie)
+    for r in ranks:
+        runs = r["runs"]
+        for name in ("phased", "mixed", "serve_loop", "joint"):
+            for a, b in zip(runs[name]["streams"], r0[name]["streams"]):
+                check(np.array_equal(a, b),
+                      f"serve_tp {name}: rank {r['rank']}'s streams differ "
+                      "from rank 0's")
+            counts.append(runs[name]["launches"])
+        for name in ("phased", "mixed", "joint"):
+            check(runs[name]["digest"]
+                  == single[name][1]["lockstep_digest"],
+                  f"serve_tp {name}: rank {r['rank']}'s block tables and "
+                  "page accounting differ from the single-device run's")
+        for name in ("phased", "mixed"):
+            check(runs[name]["ok"], f"serve_tp {name}: a request failed")
+            check(runs[name]["kv_pool_bytes"] * world == single_pool,
+                  f"serve_tp {name}: rank {r['rank']} KV pool "
+                  f"{runs[name]['kv_pool_bytes']} bytes")
+            for k in PAGED:
+                check(runs[name]["launches"][k] > 0,
+                      f"serve_tp {name}: rank {r['rank']} never launched {k}")
+        check(runs["mixed"]["stalled_decode_steps"] == 0,
+              "serve_tp mixed: decode stalled")
+        check(runs["joint"]["launches"]["fused_glu_joint"] > 0
+              and runs["joint"]["launches"]["fused_glu_split"] == 0,
+              f"serve_tp joint: rank {r['rank']} launches "
+              f"{runs['joint']['launches']}")
+        check(runs["serve_loop"]["launches"]["bspmm"] > 0
+              and runs["serve_loop"]["launches"]["fused_glu_split"] > 0,
+              "serve_tp serve_loop launched no BSpMM kernel")
+        check(r["weight_bytes"] <= TP_BYTES_FRACTION * full_bytes + whole,
+              f"serve_tp: rank {r['rank']} holds {r['weight_bytes']} bytes "
+              f"of {full_bytes} ({whole} held whole)")
+    lines = _tp_kernel_lines(torch, card, cfg, packed, joint, world)
+    emit(phase="serve_tp", model=cfg.name, depth=cfg.num_layers, tp=world,
+         backend=backend, devices=[r["device"] for r in ranks],
+         collectives="native (torch.distributed over the backend; gloo "
+                     "stages CUDA tensors through host memory itself)",
+         requests=len(prompts), new_tokens=NEW_TOKENS,
+         loop_prompts=len(loop_prompts), loop_tokens=LOOP_TOKENS,
+         streams_equal_single_device=True, accepted_divergences=accepted,
+         near_tie=near_tie, logits_max_abs_err=err, logits_tol=tol,
+         logits_err_over_tol=err / tol,
+         digests_equal_single_device=True,
+         weight_bytes_per_rank=[r["weight_bytes"] for r in ranks],
+         single_device_weight_bytes=full_bytes, whole_leaf_bytes=whole,
+         kv_pool_bytes_per_rank=[r["runs"]["phased"]["kv_pool_bytes"]
+                                 for r in ranks],
+         single_device_kv_pool_bytes=single_pool,
+         peak_bytes_per_rank=[r["peak_bytes"] for r in ranks],
+         runs={name: [{k: v for k, v in r["runs"][name].items()
+                       if k not in ("streams",)} for r in ranks]
+               for name in ("phased", "mixed", "serve_loop", "joint")},
+         kernel_lines={k: {"ms": v["ms"], "max_abs_err": v["max_abs_err"]}
+                       for k, v in lines.items()},
+         tok_per_s_note="two ranks on one card over gloo: the phase's "
+                        "own rate, not a tensor-parallel speed")
+    return counts
+
+
 def _pinned_bytes(torch) -> dict:
     """Pinned host memory that PyTorch's host allocator holds (in use or
     cached for reuse, in its power-of-two blocks), now and at its peak.
@@ -2477,15 +2783,15 @@ def phase_train_ckpt(torch, cfg, state):
          pinned_host_bytes=pinned)
 
 
-def _obs_train_pair(child, wd):
+def _obs_train_pair(off, on):
     """``obs_train``: two chaos children in the train_chaos setting (two
     layers, full width, f32, deterministic algorithms) train
-    ``OBS_PAIR_STEPS`` steps from the same seed, one untraced and one with
-    a ``trace_dir``: every TrainState leaf bitwise equal."""
-    r0, m0, w0, out0 = child("obs_off", steps=OBS_PAIR_STEPS)
+    ``OBS_PAIR_STEPS`` steps from the same seed, one untraced (``off``)
+    and one with a ``trace_dir`` (``on``), side by side: every TrainState
+    leaf bitwise equal."""
+    r0, m0, w0, out0 = off
     check(r0.returncode == 0, f"obs_train pair, off: {r0.stderr[-2000:]}")
-    r1, m1, w1, out1 = child("obs_on", steps=OBS_PAIR_STEPS,
-                             trace_dir=os.path.join(wd, "obs_pair_pm"))
+    r1, m1, w1, out1 = on
     check(r1.returncode == 0, f"obs_train pair, on: {r1.stderr[-2000:]}")
     with np.load(out0) as off, np.load(out1) as on:
         check(set(off.files) == set(on.files), "obs_train pair: keys")
@@ -2540,6 +2846,41 @@ def _obs_train_rewind(tf, wd):
             "counters": meta["counters"]}
 
 
+def _state_diff(want, got):
+    """The keys of two chaos children's final states (``.npz``) if they
+    differ, else (leaves unequal, largest absolute difference among the
+    inexact ones). Each leaf is read once from each file."""
+    with np.load(want) as zw, np.load(got) as zg:
+        if set(zg.files) != set(zw.files):
+            return sorted(set(zg.files) ^ set(zw.files)), None
+        worst, unequal = 0.0, []
+        for k in zw.files:
+            a, b = zg[k], zw[k]
+            if np.array_equal(a, b):
+                continue
+            unequal.append(k)
+            if not _exact_leaf(k):
+                worst = max(worst, float(np.max(np.abs(
+                    a.astype(np.float64) - b))))
+    return unequal, worst
+
+
+def _exact_leaf(k):
+    return k.startswith("masks/") or k in ("step", "rng")
+
+
+def _corrupt_newest(ck):
+    """Flip one byte in the middle of the newest checkpoint's arrays."""
+    f = os.path.join(ck, f"step_{CHAOS_STEPS:08d}", "arrays.npz")
+    with open(f, "r+b") as fh:
+        fh.seek(0, os.SEEK_END)
+        off = fh.tell() // 2
+        fh.seek(off)
+        b = fh.read(1)
+        fh.seek(off)
+        fh.write(bytes([b[0] ^ 1]))
+
+
 def phase_train_chaos(torch, cfg):
     """The SIGKILL chaos at two layers and full width in f32, through the
     chaos child (``training/faults.py``; deterministic algorithms, each
@@ -2550,8 +2891,19 @@ def phase_train_chaos(torch, cfg):
     checkpoint (12) is corrupted and child A3 must fall back to 8 and
     end where B ends. Masks, step and generator must be bitwise equal;
     params and moments too, or the nondeterministic op is named and the
-    largest difference printed."""
+    largest difference printed.
+
+    The children are independent processes compared by their final
+    states and postmortems, never by their time, so they run side by
+    side beside the A -> A2 -> A3 chain in threads: the full-width ones
+    ``CHAOS_SIDE`` at a time, first the ``obs_train`` pair, then B (a
+    full-width child holds ≈14 GB or more of the card: the chain and all
+    four others at once ran out of its 80 GB); on one more thread the
+    rewind child (a tiny model), then the comparisons of the pair and of
+    A2 with B while A3 runs (each reads two 4.6 GB states). Every
+    ``child_wall_s`` is then a shared card's."""
     import signal
+    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.checkpointing.checkpoint import Checkpointer
     from repro_torch.training import faults as tf
     wd = os.path.join(ROOT, "build", "chip_chaos")
@@ -2582,30 +2934,41 @@ def phase_train_chaos(torch, cfg):
                 meta = json.load(f)
         return r, meta, wall, spec["out"]
 
-    rb, mb, wb, out_b = child("b")
+    def diff_with_b(b, path):
+        rb, _, _, out_b = b.result()
+        return _state_diff(out_b, path) if rb.returncode == 0 else None
+
+    def pair(off, on):
+        return _obs_train_pair(off.result(), on.result())
+
+    with ThreadPoolExecutor(max_workers=1) as small, \
+            ThreadPoolExecutor(max_workers=CHAOS_SIDE) as pool:
+        side = {"off": pool.submit(child, "obs_off", steps=OBS_PAIR_STEPS),
+                "on": pool.submit(child, "obs_on", steps=OBS_PAIR_STEPS,
+                                  trace_dir=os.path.join(wd, "obs_pair_pm")),
+                "b": pool.submit(child, "b"),
+                "rewind": small.submit(_obs_train_rewind, tf, wd)}
+        side["pair"] = small.submit(pair, side["off"], side["on"])
+        ra, _, wa, _ = child("a", ckpt_dir=ck, kill_at=CHAOS_KILL)
+        # the async write of step 8 may still be running at the kill: then
+        # only its .tmp is on disk and the newest intact checkpoint is 4
+        torn = sorted(n for n in os.listdir(ck) if n.endswith(".tmp"))
+        newest = Checkpointer(ck).latest_intact_step()
+        ra2, m2, w2, out_a2 = child("a2", ckpt_dir=ck)
+        if ra2.returncode == 0:
+            side["a2_diff"] = small.submit(diff_with_b, side["b"], out_a2)
+            _corrupt_newest(ck)
+            ra3, m3, w3, out_a3 = child("a3", ckpt_dir=ck)
+        side = {k: f.result() for k, f in side.items()}
+    rb, mb, wb, out_b = side["b"]
     check(rb.returncode == 0, f"chaos child B failed: {rb.stderr[-2000:]}")
-    ra, _, wa, _ = child("a", ckpt_dir=ck, kill_at=CHAOS_KILL)
     check(ra.returncode == -signal.SIGKILL,
           f"chaos child A was not killed: {ra.returncode} "
           f"{ra.stderr[-2000:]}")
-    # the async write of step 8 may still be running at the kill: then
-    # only its .tmp is on disk and the newest intact checkpoint is 4
-    torn = sorted(n for n in os.listdir(ck) if n.endswith(".tmp"))
-    newest = Checkpointer(ck).latest_intact_step()
     check(newest in (4, 8), f"chaos: newest intact checkpoint {newest}")
-    ra2, m2, w2, out_a2 = child("a2", ckpt_dir=ck)
     check(ra2.returncode == 0, f"chaos child A2: {ra2.stderr[-2000:]}")
     check(m2["resumed_from"] == newest, f"chaos A2 resumed from "
           f"{m2['resumed_from']}, not {newest}")
-    f = os.path.join(ck, f"step_{CHAOS_STEPS:08d}", "arrays.npz")
-    with open(f, "r+b") as fh:
-        fh.seek(0, os.SEEK_END)
-        off = fh.tell() // 2
-        fh.seek(off)
-        b = fh.read(1)
-        fh.seek(off)
-        fh.write(bytes([b[0] ^ 1]))
-    ra3, m3, w3, out_a3 = child("a3", ckpt_dir=ck)
     check(ra3.returncode == 0, f"chaos child A3: {ra3.stderr[-2000:]}")
     check(m3["resumed_from"] == CHAOS_STEPS - 4
           and m3["counters"]["ckpt_fallbacks"] == 1,
@@ -2614,26 +2977,18 @@ def phase_train_chaos(torch, cfg):
     nondet = sorted(set(mb["nondeterministic_ops"] + m2[
         "nondeterministic_ops"] + m3["nondeterministic_ops"]))
     diffs = {}
-    with np.load(out_b) as zb:
-        for name, path in (("a2", out_a2), ("a3", out_a3)):
-            with np.load(path) as z:
-                check(set(z.files) == set(zb.files), f"chaos {name}: keys")
-                worst, unequal = 0.0, []
-                for k in zb.files:
-                    if np.array_equal(z[k], zb[k]):
-                        continue
-                    unequal.append(k)
-                    exact = (k.startswith("masks/") or k in ("step", "rng"))
-                    check(not exact, f"chaos {name}: {k} not bitwise")
-                    worst = max(worst, float(np.max(np.abs(
-                        z[k].astype(np.float64) - zb[k]))))
-                diffs[name] = {"unequal_leaves": len(unequal),
-                               "max_abs_diff": worst}
-                check(not unequal or nondet,
-                      f"chaos {name}: {len(unequal)} leaves differ by up "
-                      f"to {worst} with no nondeterministic op named")
-    pair = _obs_train_pair(child, wd)
-    rewind = _obs_train_rewind(tf, wd)
+    for name, (unequal, worst) in (("a2", side["a2_diff"]),
+                                   ("a3", _state_diff(out_b, out_a3))):
+        check(worst is not None, f"chaos {name}: keys {unequal} differ")
+        for k in unequal:
+            check(not _exact_leaf(k), f"chaos {name}: {k} not bitwise")
+        diffs[name] = {"unequal_leaves": len(unequal),
+                       "max_abs_diff": worst}
+        check(not unequal or nondet,
+              f"chaos {name}: {len(unequal)} leaves differ by up "
+              f"to {worst} with no nondeterministic op named")
+    pair = side["pair"]
+    rewind = side["rewind"]
     shutil.rmtree(wd)
     emit(phase="obs_train", run="pair", **pair)
     emit(phase="obs_postmortems", drive="train_rewind", **rewind)
@@ -3084,7 +3439,8 @@ def phase_serve_moe(torch, card):
         # the same traffic with every MLP a zero stub: the engine's own
         # synchronizing calls (eos is off, so the steps are the same)
         transformer.mlp_forward = (
-            lambda cfg_, p, x, masks=None: (torch.zeros_like(x), 0.0))
+            lambda cfg_, p, x, masks=None, dist=None:
+            (torch.zeros_like(x), 0.0))
         try:
             stub = _moe_serve_run(torch, cfg, packed, launcher.build_parser()
                                   .parse_args(argv), True)
@@ -3705,19 +4061,23 @@ def main():
     warm, prefix_reqs = _prefix_prompts(cfg, rng)
     loop_prompts = [rng.integers(0, cfg.vocab_size, size=LOOP_LEN)
                     .astype(np.int32) for _ in range(LOOP_PROMPTS)]
-    _, counts, st = phase_serve(
+    phased, counts, st = phase_serve(
         torch, cfg, "packed_split", packed, prompts, NEW_TOKENS,
         must_launch=PAGED, must_not=("fused_glu_joint",))
     served = [counts]
-    served += phase_serve_modes(torch, cfg, packed, prompts, _brief(st))
+    counts, mixed = phase_serve_modes(torch, cfg, packed, prompts, _brief(st))
+    served += counts
     served += phase_obs_serve(torch, cfg, packed, prompts)
     served += phase_serve_prefix(torch, cfg, packed, warm, prefix_reqs)
-    served += phase_serve_loop(torch, cfg, packed, loop_prompts)
-    _, jcounts, _ = phase_serve(
+    counts, loop_gen = phase_serve_loop(torch, cfg, packed, loop_prompts)
+    served += counts
+    single = {"phased": (phased, st), "mixed": mixed, "serve_loop": loop_gen}
+    jres, jcounts, jst = phase_serve(
         torch, cfg, "packed_joint", joint, prompts[:4], 16,
         must_launch=("bspmm", "fused_glu_joint", "paged_flash_decode"),
         must_not=("fused_glu_split",))
     served.append(jcounts)
+    single["joint"] = (jres, jst)
     phase_e2e(torch, cfg, packed, dense, prompts)
     served += phase_parity(
         torch, cfg, packed,
@@ -3727,6 +4087,8 @@ def main():
     dirs, counts = phase_artifact(torch, cfg, packed, joint)
     served += counts
     served += phase_serve_swap(torch, cfg, dirs, prompts, rng)
+    served += phase_serve_tp(torch, card, cfg, packed, joint, dirs, prompts,
+                             loop_prompts, single)
     shutil.rmtree(ART_DIR)
     phase_profile(torch, cfg, packed, prompts)
     summary["bspmm_t"] = phase_kernels_t(torch, card, packed)

@@ -1,13 +1,13 @@
 """Config registry (port of ``repro/configs/__init__.py``): ``--arch <id>``
 resolution for every assigned architecture. All ten ids resolve to a
-config; only the ``dense`` family runs in the port, the others raise
-``NotImplementedError`` at ``models/registry.py::module_for``."""
+config, and every family runs in the port (``models/registry.py``).
+``ParallelConfig`` says how a model maps onto a device mesh."""
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import (SHAPES, ModelConfig, ShapeConfig,
-                                      reduced, with_blast)
+from repro_torch.configs.base import (SHAPES, ModelConfig, ParallelConfig,
+                                      ShapeConfig, reduced, with_blast)
 
 _ARCH_MODULES = {
     "qwen3-moe-235b-a22b": "qwen3_moe_235b",
@@ -53,5 +53,6 @@ def cells(include_skipped: bool = False):
     return out
 
 
-__all__ = ["ARCH_IDS", "SHAPES", "ModelConfig", "ShapeConfig", "cells",
+__all__ = ["ARCH_IDS", "SHAPES", "ModelConfig", "ParallelConfig",
+           "ShapeConfig", "cells",
            "get_config", "reduced", "skip_shapes", "with_blast"]

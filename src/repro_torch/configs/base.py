@@ -91,6 +91,23 @@ SHAPES: dict[str, ShapeConfig] = {
 }
 
 
+@dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    """How the model maps onto the device mesh."""
+    data_axes: tuple[str, ...] = ("data",)
+    model_axis: str = "model"
+    pod_axis: str | None = None          # extra DP axis on multi-pod mesh
+    tp: int = 16                         # size of the model axis
+    # activation sharding of the sequence dim (SP)
+    shard_seq: bool = False
+    remat_policy: str = "dots_with_no_batch_dims_saveable"
+
+    @property
+    def batch_axes(self) -> tuple[str, ...]:
+        return (self.pod_axis,) + self.data_axes if self.pod_axis \
+            else self.data_axes
+
+
 def derive_block_shape(d_in: int, d_out: int, tp: int,
                        shard_out: bool = True) -> tuple[int, int]:
     """Largest (b_in, b_out) in {128,64,32,16,8} tiling the per-shard

@@ -7,10 +7,14 @@ of (b_in, b_out) blocks in every block-column is stored as
     blocks : (..., Nb, nnz, b_in, b_out)   kept block values, column-major
     idx    : (..., Nb, nnz) int32          block-row index of each block
 
-Unbalanced masks are padded with zero blocks at idx 0 (exact). ``kb`` and
-``joint`` are plain attributes: ``joint`` promises that this operand's
-idx table equals its fused-GLU partner's, so the joint kernel may load
-each X tile once for both products.
+Unbalanced masks are padded with zero blocks at idx 0 (exact). ``kb``,
+``joint`` and ``partial`` are plain attributes: ``joint`` promises that
+this operand's idx table equals its fused-GLU partner's, so the joint
+kernel may load each X tile once for both products; ``partial`` marks one
+rank's share of a tensor-parallel pack whose kept blocks (the nnz dim)
+were split over the model axis, so its product is a partial sum that the
+ranks all-reduce (``serving/export.py::shard_params``). The kernels read
+neither flag's meaning from anything but the tables they are given.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ class PackedBCSC:
     idx: torch.Tensor      # (..., Nb, nnz) int32
     kb: int                # number of block-rows
     joint: bool = False
+    partial: bool = False  # a share of the kept blocks: a partial sum
 
     @property
     def nnz(self) -> int:
@@ -48,7 +53,8 @@ class PackedBCSC:
 
     def layer(self, i: int) -> "PackedBCSC":
         """Views of one entry of the leading (layer) axis."""
-        return PackedBCSC(self.blocks[i], self.idx[i], self.kb, self.joint)
+        return dataclasses.replace(self, blocks=self.blocks[i],
+                                   idx=self.idx[i])
 
 
 def mark_joint(p_gate: PackedBCSC, p_up: PackedBCSC

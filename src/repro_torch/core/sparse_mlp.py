@@ -80,11 +80,19 @@ def _flat(x: torch.Tensor) -> torch.Tensor:
 
 
 def glu_mlp(x, w_gate, w_up, w_down, *, act="silu", masks=None,
-            spec: BlastSpec | None = None):
+            spec: BlastSpec | None = None, dist=None, d_ff: int = 0):
     """(act(x W_g) * (x W_u)) W_d — paper Eq. (1) for silu. ``masks``:
     optional block masks keyed 'w_gate', 'w_up', 'w_down', applied
     through the STE before the cast to x's dtype. Packed weights
-    dispatch to the fused BSpMM path over (M, d) rows."""
+    dispatch to the fused BSpMM path over (M, d) rows. ``dist`` (with
+    the model's ``d_ff``) takes the tensor-parallel path,
+    ``_glu_mlp_tp``."""
+    if dist is not None and dist.tp > 1:
+        if masks:
+            raise NotImplementedError(
+                "masked (training) GLU under dist= is the sharded train "
+                "step, not ported (ROADMAP §1 item 4)")
+        return _glu_mlp_tp(x, w_gate, w_up, w_down, act, dist, d_ff)
     if isinstance(w_gate, PackedBCSC):
         from repro_torch.kernels import ops
         y = ops.sparse_mlp_apply(_flat(x), w_gate, w_up, w_down, act=act)
@@ -96,6 +104,33 @@ def glu_mlp(x, w_gate, w_up, w_down, *, act="silu", masks=None,
     wd = maybe_mask(w_down, m.get("w_down"), spec, swapped=True).to(dt)
     h = act_fn(act)(x @ wg) * (x @ wu)
     return h @ wd
+
+
+def _glu_mlp_tp(x, w_gate, w_up, w_down, act, dist, d_ff):
+    """One rank's GLU under tensor parallelism, its output replicated.
+
+    Packed (the layout of ``serving/export.py::shard_params``): the
+    fused GLU kernel on the rank's gate/up block-columns; an all-gather
+    of its output (M, d_ff), in rank order, where those columns are
+    split; ``bspmm`` over the whole of it with the rank's share of
+    ``w_down``'s kept blocks, whose visit lists reach K blocks anywhere
+    in d_ff; an all-reduce of the partial sums where that share is one
+    (``PackedBCSC.partial``). The kernel wrappers see shard-local
+    packs. Dense: gate and up column-parallel, down row-parallel, then an
+    all-reduce (where d_ff splits over the model axis)."""
+    if isinstance(w_gate, PackedBCSC):
+        from repro_torch.kernels import ops
+        h = ops.fused_glu(_flat(x), w_gate, w_up, act=act)
+        if h.shape[-1] < w_down.kb * w_down.b_in:
+            h = dist.all_gather(h, dim=-1)
+        y = ops.bspmm(h, w_down)
+        if w_down.partial:
+            y = dist.all_reduce(y)
+        return y.reshape(*x.shape[:-1], y.shape[-1])
+    dt = x.dtype
+    h = act_fn(act)(x @ w_gate.to(dt)) * (x @ w_up.to(dt))
+    y = h @ w_down.to(dt)
+    return dist.all_reduce(y) if dist.shards(d_ff) else y
 
 
 def mlp2(x, w_in, w_out, b_in_=None, b_out_=None, *, act="gelu",

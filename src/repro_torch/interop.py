@@ -16,6 +16,8 @@ imported by the caller (JAX does so). ``train_state`` carries a
 reference ``TrainState`` across (step, params, masks and the Adam
 moments), so both trainers can start from the same state; the port
 keeps its own ``torch.Generator`` and does not imitate JAX's PRNG.
+``to_torch_shard`` gives one rank its shard of a serving tree for
+tensor-parallel serving.
 """
 from __future__ import annotations
 
@@ -57,6 +59,14 @@ def to_torch(tree, *, device):
                           idx=tensor(tree.idx, device=device),
                           kb=int(tree.kb), joint=bool(tree.joint))
     return tensor(tree, device=device)
+
+
+def to_torch_shard(tree, cfg, mesh, *, device):
+    """Nested dict of numpy arrays (a reference serving tree) -> this
+    rank's shard of the port's tree on ``device``: the full tree first,
+    then ``serving/export.py::shard_params`` on ``mesh``."""
+    from repro_torch.serving.export import shard_params
+    return shard_params(cfg, to_torch(tree, device=device), mesh)
 
 
 def to_numpy(tree):

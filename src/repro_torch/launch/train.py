@@ -22,8 +22,10 @@ import dataclasses
 
 from repro_torch.launch.serve import resolve_device
 
-MULTI_DEVICE = ("needs the port's multi-device slice (distributed/*, "
-                "launch/mesh.py), which is not ported yet; use --mesh none")
+MULTI_DEVICE = ("needs the sharded train step, the multi-device slice of "
+                "training, which is not ported yet (distributed/* and "
+                "launch/mesh.py serve tensor-parallel only); use --mesh "
+                "none")
 # the input each family's forward needs beyond tokens
 EXTRA_INPUT = {"audio": "frames", "vlm": "patch_embeds"}
 

@@ -46,6 +46,49 @@ def eff_heads(cfg) -> tuple[int, int]:
     return h, kv
 
 
+def local_heads(cfg, dist) -> tuple[int, int, int, int]:
+    """(first query head, query heads, first kv head, kv heads) that this
+    rank computes under ``dist`` (all of them without one). Query heads
+    split over the model axis where it divides them (else every rank
+    computes all); kv heads split where it divides them too, and
+    otherwise each rank takes the kv heads its own query heads read
+    (Llama-3.2-1B at tp 16: 2 query heads and 1 of the 8 kv heads a
+    rank). A rank's query heads must then read a run of kv heads with
+    one group size; other splits raise."""
+    h, kv = eff_heads(cfg)
+    if dist is None or not dist.shards(h):
+        return 0, h, 0, kv
+    hl, r = h // dist.tp, dist.model_rank
+    if dist.shards(kv):
+        kvl = kv // dist.tp
+        return r * hl, hl, r * kvl, kvl
+    g = h // kv
+    lo, hi = (r * hl) // g, ((r + 1) * hl - 1) // g + 1
+    n = hi - lo
+    if hl % n or any((r * hl + j) // g - lo != j // (hl // n)
+                     for j in range(hl)):
+        raise NotImplementedError(
+            f"{h} query heads over {kv} kv heads do not split {dist.tp} "
+            "ways into equal groups (ROADMAP §1 item 4)")
+    return r * hl, hl, lo, n
+
+
+def shard_local(cfg, p, dist):
+    """The attention params this rank computes with: ``p`` as sharded
+    (``distributed/sharding.py``), with replicated kv projections
+    narrowed to this rank's kv heads (``local_heads``)."""
+    if dist is None:
+        return p
+    _, _, lo, n = local_heads(cfg, dist)
+    if p["wk"].shape[-2] == n:
+        return p
+    p = dict(p)
+    for name in ("wk", "wv", "bk", "bv"):
+        if name in p:
+            p[name] = p[name].narrow(-2, lo, n)
+    return p
+
+
 def zero_padded_heads(cfg, p) -> None:
     """Zero, in place, the ``wq`` columns and ``wo`` rows of the query
     heads that ``pad_heads_to`` adds (heads >= ``num_heads``) in one

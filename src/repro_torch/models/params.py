@@ -72,6 +72,12 @@ def _leaves(specs: dict, prefix: str = ""):
             yield path, v
 
 
+def axes_tree(specs: dict) -> dict:
+    """Logical-axes tree parallel to the params tree."""
+    return {k: axes_tree(v) if isinstance(v, dict) else v.axes
+            for k, v in specs.items()}
+
+
 def init_params(specs: dict, seed: int = 0, device="cuda") -> dict:
     """Materialise a nested ParamSpec tree on ``device`` from ``seed``."""
     gen = torch.Generator(device=device)

@@ -2,7 +2,10 @@
 implementation module and the generic entry points the training loop
 and the serving path call. The dense, MoE and ``vlm`` families run
 ``models/transformer.py``, ``ssm`` runs ``models/rwkv6.py``, ``hybrid``
-``models/zamba.py`` and ``audio`` ``models/whisper.py``."""
+``models/zamba.py`` and ``audio`` ``models/whisper.py``. The serving
+entry points take ``dist=`` (tensor-parallel serving, the transformer's
+dense GLU family only) and hand it on only when it is set, so the other
+families' functions never see it."""
 from __future__ import annotations
 
 import math
@@ -37,6 +40,11 @@ def abstract_params(cfg):
     return pmod.abstract_params(param_specs(cfg))
 
 
+def axes_tree(cfg):
+    """Logical axis names of every leaf, parallel to the params tree."""
+    return pmod.axes_tree(param_specs(cfg))
+
+
 def sparse_paths(cfg):
     return module_for(cfg).sparse_paths(cfg)
 
@@ -45,9 +53,13 @@ def dense_layer_flags(cfg):
     return module_for(cfg).dense_layer_flags(cfg)
 
 
-def forward(cfg, params, tokens, **kw):
+def _dist_kw(kw: dict, dist) -> dict:
+    return kw if dist is None else dict(kw, dist=dist)
+
+
+def forward(cfg, params, tokens, *, dist=None, **kw):
     """Training forward -> (logits (B,S,V) f32, aux loss)."""
-    return module_for(cfg).forward(cfg, params, tokens, **kw)
+    return module_for(cfg).forward(cfg, params, tokens, **_dist_kw(kw, dist))
 
 
 def count_params(cfg, active_only: bool = False) -> int:
@@ -72,27 +84,35 @@ def init_masks(cfg, params):
     return sm.init_masks(cfg.blast, params, sparse_paths(cfg))
 
 
-def init_cache(cfg, batch, max_len, **kw):
+def init_cache(cfg, batch, max_len, *, dist=None, **kw):
     """The decode cache of ``serve_loop`` (``dtype``, ``device``): the
     contiguous KV cache (layers, batch, max_len, KV, hd) of a transformer,
     the recurrent state of the ``ssm`` and ``hybrid`` families, and
     whisper's self-attention cache (its encoder memory is
     ``whisper.prefill_cross``'s)."""
-    return module_for(cfg).init_cache(cfg, batch, max_len, **kw)
+    return module_for(cfg).init_cache(cfg, batch, max_len,
+                                      **_dist_kw(kw, dist))
 
 
-def decode_step(cfg, params, cache, tokens, pos, **kw):
+def abstract_cache(cfg, batch, max_len, **kw):
+    """Shapes and dtypes of ``init_cache``'s transformer KV cache (no
+    allocation)."""
+    return module_for(cfg).abstract_cache(cfg, batch, max_len, **kw)
+
+
+def decode_step(cfg, params, cache, tokens, pos, *, dist=None, **kw):
     """One decode step over the contiguous cache; ``pos`` an int
     (synchronized batch) or a (B,) tensor (per-lane frontiers)."""
     return module_for(cfg).decode_step(cfg, params, cache, tokens, pos,
-                                       **kw)
+                                       **_dist_kw(kw, dist))
 
 
 def supports_prefill_chunk(cfg) -> bool:
     return hasattr(module_for(cfg), "prefill_chunk")
 
 
-def prefill_chunk(cfg, params, cache, tokens, slot, offsets, **kw):
+def prefill_chunk(cfg, params, cache, tokens, slot, offsets, *, dist=None,
+                  **kw):
     """Batched chunked prefill over the contiguous cache."""
     mod = module_for(cfg)
     if not hasattr(mod, "prefill_chunk"):
@@ -100,7 +120,7 @@ def prefill_chunk(cfg, params, cache, tokens, slot, offsets, **kw):
             f"family {cfg.family!r} has no chunked prefill; use "
             "serve_loop.prefill_with_decode")
     return mod.prefill_chunk(cfg, params, cache, tokens, slot, offsets,
-                             **kw)
+                             **_dist_kw(kw, dist))
 
 
 def supports_paged(cfg) -> bool:
@@ -114,19 +134,20 @@ def supports_mixed(cfg) -> bool:
     return supports_paged(cfg)
 
 
-def init_paged_cache(cfg, n_pages, page_size, **kw):
-    return module_for(cfg).init_paged_cache(cfg, n_pages, page_size, **kw)
+def init_paged_cache(cfg, n_pages, page_size, *, dist=None, **kw):
+    return module_for(cfg).init_paged_cache(cfg, n_pages, page_size,
+                                            **_dist_kw(kw, dist))
 
 
 def paged_decode_step(cfg, params, cache, tokens, pos, block_tables, *,
-                      read_pages, **kw):
+                      read_pages, dist=None, **kw):
     return module_for(cfg).paged_decode_step(
         cfg, params, cache, tokens, pos, block_tables,
-        read_pages=read_pages, **kw)
+        read_pages=read_pages, **_dist_kw(kw, dist))
 
 
 def paged_prefill_chunk(cfg, params, cache, tokens, slot, offsets,
-                        block_tables, *, read_pages, **kw):
+                        block_tables, *, read_pages, dist=None, **kw):
     return module_for(cfg).paged_prefill_chunk(
         cfg, params, cache, tokens, slot, offsets, block_tables,
-        read_pages=read_pages, **kw)
+        read_pages=read_pages, **_dist_kw(kw, dist))

@@ -16,6 +16,19 @@ gemma2-style ``local_global`` stacks run as (local, global) pairs. With
 backward (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``
 with nothing saved): this changes memory, not numbers. The KV
 caches are updated in place (models/attention.py).
+
+Tensor-parallel serving (``dist=``, a ``distributed.context.DistContext``;
+the dense GLU family only): every rank holds its shard of the params
+(``serving/export.py::shard_params``) and runs the same forward on the
+replicated residual stream. The embedding is vocab-sharded (a masked
+local lookup, then an all-reduce); attention computes the rank's query
+heads and the kv heads they read (``attention.local_heads``), and its
+row-parallel ``wo`` is followed by an all-reduce; the MLP is
+``sparse_mlp.glu_mlp``'s tensor-parallel path; the logits come out
+vocab-sharded (each rank's slice of the vocabulary, in rank order), so
+a caller reduces them with ``DistContext.vocab_argmax`` or gathers them
+with ``all_gather``. A cache built with ``dist=`` holds the rank's kv
+heads only.
 """
 from __future__ import annotations
 
@@ -28,6 +41,7 @@ import torch.utils.checkpoint
 
 from repro_torch.core import sparse_mlp as sm
 from repro_torch.core.packing import PackedBCSC
+from repro_torch.distributed.context import check_serving
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import norm, softcap
@@ -173,8 +187,12 @@ def _layer_masks(masks: dict | None, stack: str) -> dict | None:
     return out or None
 
 
-def mlp_forward(cfg, p, x, masks=None):
-    """-> (MLP output, aux loss: the MoE layer's, else 0.0)."""
+def mlp_forward(cfg, p, x, masks=None, dist=None):
+    """-> (MLP output, aux loss: the MoE layer's, else 0.0). Under
+    ``dist`` the GLU is tensor-parallel (its output replicated)."""
+    if dist is not None:
+        return sm.glu_mlp(x, p["w_gate"], p["w_up"], p["w_down"],
+                          act=cfg.mlp_act, dist=dist, d_ff=cfg.d_ff), 0.0
     if cfg.is_moe:
         return moe_mod.moe_forward(cfg, p, x, masks=masks)
     if cfg.mlp_kind == "glu":
@@ -187,24 +205,35 @@ def mlp_forward(cfg, p, x, masks=None):
     return y, 0.0
 
 
-def _block(cfg, p, x, positions, masks, window):
+def _heads_out(cfg, out, dist):
+    """Attention's output: the sum over the model axis of each rank's
+    row-parallel ``wo`` product where the query heads are split."""
+    if dist is not None and dist.shards(attn.eff_heads(cfg)[0]):
+        return dist.all_reduce(out)
+    return out
+
+
+def _block(cfg, p, x, positions, masks, window, dist=None):
     """One pre-norm transformer block (full causal attention) -> (x,
     aux)."""
     h = norm(cfg.norm_kind, x, p["ln_attn_scale"], p.get("ln_attn_bias"))
-    x = x + attn.multihead_attention(cfg, p["attn"], h, positions,
-                                     causal=True, window=window)[0]
+    a = attn.multihead_attention(cfg, attn.shard_local(cfg, p["attn"], dist),
+                                 h, positions, causal=True, window=window)[0]
+    x = x + _heads_out(cfg, a, dist)
     h = norm(cfg.norm_kind, x, p["ln_mlp_scale"], p.get("ln_mlp_bias"))
-    m, aux = mlp_forward(cfg, p["mlp"], h, masks)
+    m, aux = mlp_forward(cfg, p["mlp"], h, masks, dist=dist)
     return x + m, aux
 
 
-def forward(cfg, params, tokens, *, masks=None, patch_embeds=None):
+def forward(cfg, params, tokens, *, masks=None, patch_embeds=None,
+            dist=None):
     """Training/prefill forward: tokens (B,S) int -> (logits (B,S,V) f32,
     aux loss). ``masks`` is the BLaST mask tree (None: dense);
     ``patch_embeds`` (B, num_patches, D) replace a VLM's first token
-    embeddings (``embed_inputs``)."""
+    embeddings (``embed_inputs``); under ``dist`` the logits are the
+    rank's vocab shard."""
     b, s = tokens.shape
-    x = embed_inputs(cfg, params, tokens, patch_embeds)
+    x = embed_inputs(cfg, params, tokens, patch_embeds, dist=dist)
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device)[None].expand(b, s)
     remat = cfg.remat and torch.is_grad_enabled()
@@ -212,9 +241,9 @@ def forward(cfg, params, tokens, *, masks=None, patch_embeds=None):
     def layer(p_l, m_l, x, window):
         if remat:
             return torch.utils.checkpoint.checkpoint(
-                _block, cfg, p_l, x, positions, m_l, window,
+                _block, cfg, p_l, x, positions, m_l, window, dist,
                 use_reentrant=False)
-        return _block(cfg, p_l, x, positions, m_l, window)
+        return _block(cfg, p_l, x, positions, m_l, window, dist)
 
     aux = 0.0
     if cfg.layer_pattern == "local_global":
@@ -235,11 +264,23 @@ def forward(cfg, params, tokens, *, masks=None, patch_embeds=None):
     return logits_from_hidden(cfg, params, x), aux
 
 
-def embed_inputs(cfg, params, tokens, patch_embeds=None):
+def embed_inputs(cfg, params, tokens, patch_embeds=None, dist=None):
     """Token embeddings (B,S,D) in the compute dtype; with
     ``patch_embeds`` (B, num_patches, D) and a config that has patches,
-    the first ``num_patches`` positions are the patches instead."""
-    x = params["embed"][tokens.long()].to(DTYPES[cfg.compute_dtype])
+    the first ``num_patches`` positions are the patches instead. Under
+    ``dist`` with a vocab-sharded table each rank looks up the tokens in
+    its slice, zeros the rest, and the all-reduce sums in the one rank's
+    row that holds each token (exact)."""
+    check_serving(cfg, dist)
+    if dist is not None and dist.shards(cfg.vocab_size):
+        table = params["embed"]
+        n = table.shape[0]
+        local = tokens.long() - dist.model_rank * n
+        mine = (local >= 0) & (local < n)
+        x = table[local.clamp(0, n - 1)].to(DTYPES[cfg.compute_dtype])
+        x = dist.all_reduce(torch.where(mine[..., None], x, 0.0))
+    else:
+        x = params["embed"][tokens.long()].to(DTYPES[cfg.compute_dtype])
     if cfg.scale_embeddings:
         x = x * math.sqrt(cfg.d_model)
     if patch_embeds is not None and cfg.num_patches:
@@ -249,7 +290,8 @@ def embed_inputs(cfg, params, tokens, patch_embeds=None):
 
 
 def logits_from_hidden(cfg, params, x):
-    """Final norm + (tied) LM head -> f32 logits."""
+    """Final norm + (tied) LM head -> f32 logits (a sharded rank's head
+    is its vocab slice, so its logits are too)."""
     xf = norm(cfg.norm_kind, x, params["ln_f_scale"], params.get("ln_f_bias"))
     head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
     logits = xf @ head.to(xf.dtype)
@@ -257,40 +299,51 @@ def logits_from_hidden(cfg, params, x):
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
-               device="cuda"):
+               device="cuda", dist=None):
     """Contiguous KV cache (layers, batch, max_len, KV, hd): one dense
-    slab row per lane."""
+    slab row per lane (KV the rank's kv heads under ``dist``)."""
     ns, per = n_stacks(cfg)
-    _, kv = attn.eff_heads(cfg)
+    kv = attn.local_heads(cfg, dist)[3]
     shape = (ns * per, batch, max_len, kv, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def init_paged_cache(cfg, n_pages: int, page_size: int,
-                     dtype=torch.bfloat16, device="cuda"):
-    """Paged KV pool (layers, n_pages, page_size, KV, hd), SHARED by every
-    lane; a pool page is allocated across all layers at once, so block
-    tables are layer-independent."""
+def abstract_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16):
+    """Shapes and dtypes of ``init_cache``'s K and V (no allocation)."""
+    from repro_torch.models.params import AbstractParam
     ns, per = n_stacks(cfg)
     _, kv = attn.eff_heads(cfg)
+    shape = (ns * per, batch, max_len, kv, cfg.head_dim)
+    return {"k": AbstractParam(shape, dtype), "v": AbstractParam(shape, dtype)}
+
+
+def init_paged_cache(cfg, n_pages: int, page_size: int,
+                     dtype=torch.bfloat16, device="cuda", dist=None):
+    """Paged KV pool (layers, n_pages, page_size, KV, hd), SHARED by every
+    lane; a pool page is allocated across all layers at once, so block
+    tables are layer-independent. Under ``dist`` KV is the rank's kv
+    heads."""
+    ns, per = n_stacks(cfg)
+    kv = attn.local_heads(cfg, dist)[3]
     shape = (ns * per, n_pages, page_size, kv, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def _run_stack(cfg, params, cache, x, attn_fn):
+def _run_stack(cfg, params, cache, x, attn_fn, dist=None):
     """Run every layer with a pluggable attention core
     ``attn_fn(p_attn, h, ck, cv, window) -> out`` that reads and writes
     this layer's cache views ``ck``/``cv`` in place. Returns hidden."""
     def one(window, p_l, x, li):
         h = norm(cfg.norm_kind, x, p_l["ln_attn_scale"],
                  p_l.get("ln_attn_bias"))
-        x = x + attn_fn(p_l["attn"], h, cache["k"][li], cache["v"][li],
-                        window)
+        a = attn_fn(attn.shard_local(cfg, p_l["attn"], dist), h,
+                    cache["k"][li], cache["v"][li], window)
+        x = x + _heads_out(cfg, a, dist)
         h = norm(cfg.norm_kind, x, p_l["ln_mlp_scale"],
                  p_l.get("ln_mlp_bias"))
-        return x + mlp_forward(cfg, p_l["mlp"], h)[0]
+        return x + mlp_forward(cfg, p_l["mlp"], h, dist=dist)[0]
 
     ns, _ = n_stacks(cfg)
     for i in range(ns):
@@ -304,66 +357,67 @@ def _run_stack(cfg, params, cache, x, attn_fn):
     return x
 
 
-def decode_step(cfg, params, cache, tokens, pos, *, offsets=None):
+def decode_step(cfg, params, cache, tokens, pos, *, offsets=None,
+                dist=None):
     """One decode step over the contiguous cache. tokens (B,1); ``pos``
     the cache slot, an int (synchronized batch) or a (B,) tensor
     (per-lane frontiers; slots >= max_len drop the write); ``offsets``
     (B,) makes the batch ragged. Returns (logits (B,1,V) f32, cache),
     the cache updated in place."""
-    x = embed_inputs(cfg, params, tokens)
+    x = embed_inputs(cfg, params, tokens, dist=dist)
 
     def attn_fn(p_a, h, ck, cv, window):
         return attn.decode_attention(cfg, p_a, h, ck, cv, pos,
                                      window=window, offsets=offsets)[0]
 
-    x = _run_stack(cfg, params, cache, x, attn_fn)
+    x = _run_stack(cfg, params, cache, x, attn_fn, dist)
     return logits_from_hidden(cfg, params, x), cache
 
 
 def prefill_chunk(cfg, params, cache, tokens, slot, offsets, *,
-                  lane_mask=None):
+                  lane_mask=None, dist=None):
     """Batched chunked prefill over the contiguous cache: the (B, C)
     chunk of right-aligned prompt tokens writes K/V at slots [slot,
     slot+C); lanes outside ``lane_mask`` keep their rows. Returns (logits
     (B,C,V) f32, cache), the cache updated in place."""
-    x = embed_inputs(cfg, params, tokens)
+    x = embed_inputs(cfg, params, tokens, dist=dist)
 
     def attn_fn(p_a, h, ck, cv, window):
         return attn.chunk_attention(cfg, p_a, h, ck, cv, slot, offsets,
                                     window=window, lane_mask=lane_mask)[0]
 
-    x = _run_stack(cfg, params, cache, x, attn_fn)
+    x = _run_stack(cfg, params, cache, x, attn_fn, dist)
     return logits_from_hidden(cfg, params, x), cache
 
 
 def paged_decode_step(cfg, params, cache, tokens, pos, block_tables, *,
-                      read_pages: int, offsets=None):
+                      read_pages: int, offsets=None, dist=None):
     """One decode step over the paged pool. tokens (B,1); pos (B,) logical
     cache slots (parked lanes carry ``max_pages * page_size``: the write
     drops); block_tables (B, max_pages) int32; attention reads each
     lane's first ``read_pages`` pages. Returns (logits (B,1,V) f32,
     cache), the cache updated in place."""
-    x = embed_inputs(cfg, params, tokens)
+    x = embed_inputs(cfg, params, tokens, dist=dist)
 
     def attn_fn(p_a, h, ck, cv, window):
         return attn.paged_decode_attention(
             cfg, p_a, h, ck, cv, block_tables, pos, read_pages=read_pages,
             window=window, offsets=offsets)[0]
 
-    x = _run_stack(cfg, params, cache, x, attn_fn)
+    x = _run_stack(cfg, params, cache, x, attn_fn, dist)
     return logits_from_hidden(cfg, params, x), cache
 
 
 def paged_prefill_chunk(cfg, params, cache, tokens, slot, offsets,
                         block_tables, *, read_pages: int, lane_mask=None,
-                        q_lens=None):
+                        q_lens=None, dist=None):
     """Chunked prefill over the paged pool: the (B, C) chunk's K/V lands
     at logical slots from ``slot`` (an int, or a (B,) tensor of per-lane
     starts) through each lane's block table; ``q_lens`` (B,) makes the
     query runs ragged (the mixed decode+prefill batch). Attention reads
     each lane's first ``read_pages`` pages (must cover every start +
     C). Returns (logits (B,C,V) f32, cache), updated in place."""
-    x = embed_inputs(cfg, params, tokens)
+    x = embed_inputs(cfg, params, tokens, dist=dist)
 
     def attn_fn(p_a, h, ck, cv, window):
         return attn.paged_chunk_attention(
@@ -371,5 +425,5 @@ def paged_prefill_chunk(cfg, params, cache, tokens, slot, offsets,
             read_pages=read_pages, window=window, lane_mask=lane_mask,
             q_lens=q_lens)[0]
 
-    x = _run_stack(cfg, params, cache, x, attn_fn)
+    x = _run_stack(cfg, params, cache, x, attn_fn, dist)
     return logits_from_hidden(cfg, params, x), cache

@@ -82,21 +82,37 @@ the request events and the ``prefill.chunks``, ``decode.slab`` and
 each call's host read (``.cpu()``), so a traced run syncs exactly as an
 untraced one.
 
-Not ported: the reference's ``dist=`` and ``attn_backend=`` (the paged
-decode kernel is the one backend). Everything runs on ``device``
-(default the GPU); the CPU serves only when the caller asks for it, as
-the tests do.
+Tensor-parallel serving (``dist=``, a ``distributed.context.DistContext``
+over a ``model`` axis; the dense GLU family): every rank builds its own
+engine on its shard of the params (``serving/export.py::shard_params``)
+and a pool of its own kv heads, is handed the same requests in the same
+order, and steps in lockstep. Every host decision is a function of the
+submitted requests and the tokens, and the tokens are the same on every
+rank (``step.greedy``), so the ranks' block tables and page accounting
+stay equal; ``run`` ends by all-gathering a digest of them
+(``lockstep_digest``, kept by every engine) and raises on a mismatch.
+Paged phased, ``mixed=True`` and the prefix cache serve under ``dist``.
+Refused there (``NotImplementedError``; ROADMAP §1 item 4): the
+contiguous cache, deadlines, SLA scheduling (its aging reads the clock),
+preemption, fault plans and recovery, the asyncio front door and its
+watchdog, hot-swap, and a data axis larger than 1.
+
+Not ported: the reference's ``attn_backend=`` (the paged decode kernel
+is the one backend). Everything runs on ``device`` (default the GPU);
+the CPU serves only when the caller asks for it, as the tests do.
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
 import time
+import zlib
 from collections import deque
 
 import numpy as np
 import torch
 
+from repro_torch.distributed.context import check_serving
 from repro_torch.models import registry
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import NULL_TRACER
@@ -109,8 +125,8 @@ from repro_torch.serving.faults import (BackpressureError,
 from repro_torch.serving.offload import HostKVStore
 from repro_torch.serving.pages import PagePool
 from repro_torch.serving.prefix_cache import Match, PrefixCache
-from repro_torch.serving.scheduler import FIFOScheduler, Request
-from repro_torch.serving.step import (make_copy_pages_step,
+from repro_torch.serving.scheduler import FIFOScheduler, Request, SLAScheduler
+from repro_torch.serving.step import (greedy, make_copy_pages_step,
                                       make_decode_slab_step,
                                       make_gather_pages_step,
                                       make_mixed_step,
@@ -303,7 +319,11 @@ class Engine:
                  offload_capacity_bytes: int | None = None,
                  admission_queue_limit: int | None = None,
                  enforce_deadlines: bool = False, faults=None,
-                 tracer=None, device="cuda"):
+                 tracer=None, device="cuda", dist=None):
+        if dist is not None:
+            _refuse_under_dist(cfg, dist, paged=paged, preempt=preempt,
+                               enforce_deadlines=enforce_deadlines,
+                               faults=faults, scheduler=scheduler)
         if not registry.supports_prefill_chunk(cfg):
             raise NotImplementedError(
                 f"family {cfg.family!r} is not servable by the engine; "
@@ -337,6 +357,10 @@ class Engine:
         self.stats = self.metrics.view()
         self.cfg = cfg
         self.params = params
+        self.dist = dist
+        # crc32 of the block tables, frontiers and page states after
+        # every step: the lockstep guard's digest (``check_lockstep``)
+        self.lockstep_digest = 0
         # weight generations (serving/hotswap.py): ``_gen`` is the one
         # new admissions decode under, ``_gen_params`` every param set an
         # in-flight lane still uses (``_gc_generations`` frees the rest),
@@ -410,7 +434,7 @@ class Engine:
             self.max_pages = min(per_lane, self.n_pages)
             self.pool = PagePool(self.n_pages, page_size)
             self.cache = registry.init_paged_cache(
-                cfg, self.n_pages, page_size, device=self.device)
+                cfg, self.n_pages, page_size, device=self.device, dist=dist)
             if prefix_cache:
                 self.pcache = PrefixCache(self.pool)
                 self._copy_pages = make_copy_pages_step()
@@ -421,14 +445,14 @@ class Engine:
             self._gather = make_gather_pages_step()
             self._scatter = make_scatter_pages_step()
             self.scheduler.feasibility = self._check_feasible
-            self._prefill = make_paged_prefill_chunk_step(cfg)
+            self._prefill = make_paged_prefill_chunk_step(cfg, dist)
             # one fused decode+prefill call (mixed steps, and the phased
             # engine's batched tail prefill of prefix-cached admissions)
-            self._mixed_fn = make_mixed_step(cfg)
+            self._mixed_fn = make_mixed_step(cfg, dist)
             # query-width bucket cap: smallest power of two >= chunk
             self._wcap = 1 << max(0, (self.chunk - 1).bit_length())
             self._slab = make_paged_decode_slab_step(
-                cfg, slab_k, max_len, page_size, eos_id=eos_id)
+                cfg, slab_k, max_len, page_size, eos_id=eos_id, dist=dist)
         else:
             self.cache = registry.init_cache(cfg, max_batch, max_len,
                                              device=self.device)
@@ -445,6 +469,8 @@ class Engine:
     def install_faults(self, plan) -> None:
         """Wire a ``FaultPlan`` into every injection point: the step
         hooks, the page allocator and the offload store."""
+        if self.dist is not None:
+            raise NotImplementedError(_REFUSED.format("fault plans"))
         self._faults = plan
         plan._engine = self
         if self.paged:
@@ -1106,7 +1132,7 @@ class Engine:
                     offsets, mask_t)
             pos += c
             self.stats["prefill_chunks"] += 1
-        first = torch.argmax(last, dim=-1).cpu().numpy()   # host sync
+        first = greedy(self.cfg, last, self.dist)[0].cpu().numpy()  # sync
         now = time.monotonic()
         self.stats["prefill_s"] += now - t0
         if self.tracer.enabled:
@@ -1304,7 +1330,29 @@ class Engine:
         if self._swap_monitor is not None:
             self._swap_monitor.on_step_end(self)
         self._pending_results = []
+        self._fold_digest()
         return finished
+
+    def _fold_digest(self) -> None:
+        parts = [self._mirror["frontier"], self._mirror["live"]]
+        if self.paged:
+            parts += [self._mirror["bt"], *self.pool.state()]
+        for a in parts:
+            self.lockstep_digest = zlib.crc32(
+                np.ascontiguousarray(a).tobytes(), self.lockstep_digest)
+
+    def check_lockstep(self) -> None:
+        """Under ``dist``: all-gather every rank's ``lockstep_digest`` and
+        raise ``RuntimeError`` unless they are all equal."""
+        if self.dist is None:
+            return
+        d = torch.tensor([self.lockstep_digest], dtype=torch.int64,
+                         device=self.device)
+        got = self.dist.all_gather(d, dim=0).cpu().tolist()
+        if len(set(got)) > 1:
+            raise RuntimeError(
+                f"ranks out of lockstep: block-table and page digests "
+                f"{got} differ")
 
     def _gc_generations(self) -> None:
         """Drop the weight generations no lane, preempted record or
@@ -1325,6 +1373,8 @@ class Engine:
         """Hot-swap the weights from a sealed artifact: validate, stage,
         canary, flip the generation, then a monitored commit or an
         automatic rollback (serving/hotswap.py). Call between steps."""
+        if self.dist is not None:
+            raise NotImplementedError(_REFUSED.format("hot-swap"))
         from repro_torch.serving import hotswap
         return hotswap.swap_weights(self, artifact_dir, **kw)
 
@@ -1564,6 +1614,7 @@ class Engine:
                or self._pending_results):
             for r in self.step():
                 out[r.uid] = r
+        self.check_lockstep()
         self.finalize_stats()
         return out
 
@@ -1610,11 +1661,11 @@ def generate(cfg, params, prompts, *, max_new_tokens: int = 32,
              page_size: int = 16, n_pages: int | None = None,
              prefix_cache: bool = False, mixed: bool = False,
              prefill_token_budget: int | None = None, tracer=None,
-             device="cuda"):
+             device="cuda", dist=None):
     """Ragged 1-D prompts -> (list of per-request token arrays, stats).
     A request that runs out of cache returns fewer than
     ``max_new_tokens`` tokens (``stats["truncated"]`` counts them).
-    ``tracer`` goes to the ``Engine``."""
+    ``tracer`` and ``dist`` go to the ``Engine``."""
     prompts = [np.asarray(p, np.int32).reshape(-1) for p in prompts]
     max_len = max_len or (max(p.size for p in prompts) + max_new_tokens)
     eng = Engine(cfg, params, max_batch=max_batch or len(prompts),
@@ -1623,7 +1674,27 @@ def generate(cfg, params, prompts, *, max_new_tokens: int = 32,
                  page_size=page_size, n_pages=n_pages,
                  prefix_cache=prefix_cache, mixed=mixed,
                  prefill_token_budget=prefill_token_budget, tracer=tracer,
-                 device=device)
+                 device=device, dist=dist)
     uids = [eng.submit(p, max_new_tokens) for p in prompts]
     res = eng.run()
     return [res[u].tokens for u in uids], eng.stats
+
+
+_REFUSED = ("{} under dist= is not ported: tensor-parallel serving takes "
+            "the paged engine, phased or mixed, with the prefix cache "
+            "(ROADMAP §1 item 4)")
+
+
+def _refuse_under_dist(cfg, dist, *, paged, preempt, enforce_deadlines,
+                       faults, scheduler) -> None:
+    """Raise for every engine option this slice does not serve
+    tensor-parallel (the module docstring's list)."""
+    check_serving(cfg, dist)
+    for on, what in ((not paged, "the contiguous cache (paged=False)"),
+                     (preempt, "preemption"),
+                     (enforce_deadlines, "deadlines"),
+                     (faults is not None, "fault plans"),
+                     (isinstance(scheduler, SLAScheduler),
+                      "SLA scheduling")):
+        if on:
+            raise NotImplementedError(_REFUSED.format(what))

@@ -6,7 +6,43 @@
     ``PackedBCSC``, marking gate/up pairs with one idx table ``joint``;
     layer-stacked leaves pack per layer in one pass, and a 2-D leaf (zamba's
     one shared MLP) packs as a single matrix;
-  * ``memory_report`` — bytes of the serving weights.
+  * ``memory_report`` — bytes of the serving weights;
+  * ``shard_params`` — one rank's shard of a serving tree for
+    tensor-parallel serving over the ``model`` axis, and
+    ``abstract_packed_params`` the shapes and specs of that layout.
+
+The tensor-parallel pack follows the reference's layout
+(``abstract_packed_params``) bit for bit:
+
+  * gate and up (``w_gate``/``w_up``): the column-block dim ``nb`` splits
+    over the model axis where it divides it, so each rank's fused GLU
+    produces its own d_ff/tp columns;
+  * the swapped leaves (``w_down``; the d_ff x d_model down projection,
+    whose column-blocks are d_model's and often do not split): the
+    kept-block (nnz, contraction) dim splits instead, first padded with
+    zero blocks at idx 0 to ``ceil(nnz / tp) * tp`` where ``nnz >= tp``
+    (else the pack is replicated). A rank's visit lists then reach K
+    blocks anywhere in d_ff, so the layer all-gathers the GLU output
+    (M x d_ff, in rank order) before ``bspmm`` and all-reduces
+    ``bspmm``'s partial sums (``PackedBCSC.partial``);
+  * every other leaf as ``distributed/sharding.py``'s rules say (query
+    and kv heads, the vocabulary; norms replicated).
+
+Per layer of Llama-3.2-1B at s = 0.8 (128 x 128 blocks, bf16), tp 2: gate
+and up keep 4 of 16 blocks in each of 64 columns, 8.4 MB each, 4.2 MB a
+rank; down keeps 13 of 64 in each of 16 columns, 6.8 MB, padded to 14 and
+3.7 MB a rank; attention's 21 MB of wq/wk/wv/wo halve with the heads.
+The collectives of a layer call on M rows: an all-reduce of M x 2048
+after ``wo``, an all-gather of M x 8192 (M x 4096 from each rank) after
+the GLU, an all-reduce of M x 2048 after ``bspmm``; a forward adds one
+all-reduce of M x 2048 for the embedding, and the greedy token one
+all-gather of 3 x B values (``DistContext.vocab_argmax``).
+
+The other layout: a K-range split of ``w_down`` (each rank keeps the kept
+blocks whose block-row falls in the d_ff/tp range its own GLU columns
+produce) needs one all-reduce and no all-gather, but its visit lists are
+unbalanced, since a column's kept blocks need not fall evenly into the
+ranges; choosing between the two is performance work for later.
 
 Every function walks the tree by its sparse paths and dicts alone, so
 whisper's nested stacks (``encoder/mlp/w_in`` ... ``decoder/mlp/w_out``)
@@ -14,12 +50,15 @@ take the same walk as a transformer's ``layers``.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
 import warnings
 
 import numpy as np
 import torch
 
 from repro_torch.core import packing, sparse_mlp as sm, topk
+from repro_torch.distributed import sharding as shd
 
 
 class UnbalancedMaskWarning(UserWarning):
@@ -105,3 +144,108 @@ def memory_report(cfg, params_or_packed) -> dict:
             total += leaf.numel() * leaf.element_size()
     return {"bytes": int(total), "GiB": total / 2**30,
             "gpus_80GB": int(np.ceil(total / (80 * 2**30)))}
+
+
+def _packed_layout(path: str, nb: int, nnz: int, tp: int
+                   ) -> tuple[str | None, int]:
+    """(the split dim of a pack, "nb", "nnz" or None, and its nnz after
+    the zero-block padding) over a model axis of ``tp``: the reference's
+    rules in ``abstract_packed_params``."""
+    swapped = path.split("/")[-1] in sm._SWAPPED_LEAVES
+    if swapped and nnz >= tp:
+        nnz = math.ceil(nnz / tp) * tp
+    if swapped and nnz % tp == 0:
+        return "nnz", nnz
+    if not swapped and nb % tp == 0:
+        return "nb", nnz
+    return None, nnz
+
+
+def _packed_specs(path: str, lead: tuple[int, ...], waxes, nb: int, nnz: int,
+                  mesh) -> tuple[tuple, tuple, int]:
+    """(blocks spec, idx spec, padded nnz) of a pack with leading dims
+    ``lead`` whose dense weight has logical axes ``waxes``."""
+    kind, nnz = _packed_layout(path, nb, nnz,
+                               shd.axis_sizes(mesh).get("model", 1))
+    lead_parts = tuple(shd.spec_for((lead[i],), (waxes[i],), mesh)[0]
+                       for i in range(len(lead)))
+    if kind == "nnz":
+        return (lead_parts + (None, "model", None, None),
+                lead_parts + (None, "model"), nnz)
+    if kind == "nb":
+        return (lead_parts + ("model", None, None, None),
+                lead_parts + ("model", None), nnz)
+    return lead_parts + (None,) * 4, lead_parts + (None,) * 2, nnz
+
+
+def abstract_packed_params(cfg, sparsity: float, mesh=None):
+    """Serving params with every sparse leaf replaced by an abstract
+    ``PackedBCSC`` at ``sparsity`` (``models.params.AbstractParam``
+    leaves, bf16 where the model is f32), and with ``mesh`` their specs
+    (``PackedBCSC`` of specs at the packed paths). Returns
+    (abstract params, specs or None)."""
+    from repro_torch.models import registry
+    from repro_torch.models.params import AbstractParam
+
+    def bf16(t):
+        if isinstance(t, dict):
+            return {k: bf16(v) for k, v in t.items()}
+        return AbstractParam(t.shape, torch.bfloat16
+                             if t.dtype == torch.float32 else t.dtype)
+
+    abs_p = bf16(registry.abstract_params(cfg))
+    specs = (shd.param_specs_tree(registry.param_specs(cfg), mesh)
+             if mesh is not None else None)
+    axes = registry.axes_tree(cfg)
+    for path in registry.sparse_paths(cfg):
+        w = sm.get_path(abs_p, path)
+        bi, bo = sm.block_dims_for(cfg.blast, path)
+        kb, nb = w.shape[-2] // bi, w.shape[-1] // bo
+        nnz = max(1, math.ceil((1.0 - sparsity) * kb))
+        lead = tuple(w.shape[:-2])
+        if mesh is not None:
+            bspec, ispec, nnz = _packed_specs(path, lead,
+                                              sm.get_path(axes, path), nb,
+                                              nnz, mesh)
+            specs = sm.set_path(specs, path,
+                                packing.PackedBCSC(bspec, ispec, kb))
+        abs_p = sm.set_path(abs_p, path, packing.PackedBCSC(
+            blocks=AbstractParam(lead + (nb, nnz, bi, bo), torch.bfloat16),
+            idx=AbstractParam(lead + (nb, nnz), torch.int32), kb=kb))
+    return abs_p, specs
+
+
+def shard_pack(p: packing.PackedBCSC, path: str, mesh,
+               lead_axes: tuple = ()) -> packing.PackedBCSC:
+    """One rank's share of the pack at ``path`` on ``mesh`` (the layout
+    above; ``lead_axes`` the logical axes of its leading dims, e.g.
+    ``("layers",)``): ``partial`` set where the nnz dim splits."""
+    tp = shd.axis_sizes(mesh).get("model", 1)
+    kind, nnz = _packed_layout(path, p.nb, p.nnz, tp)
+    p = packing.pad_nnz(p, nnz)         # swapped leaves only: no joint
+    bspec, ispec, _ = _packed_specs(path, tuple(p.idx.shape[:-2]),
+                                    lead_axes, p.nb, p.nnz, mesh)
+    return dataclasses.replace(p, blocks=shd.shard(p.blocks, bspec, mesh),
+                               idx=shd.shard(p.idx, ispec, mesh),
+                               partial=kind == "nnz" and tp > 1)
+
+
+def shard_params(cfg, params, mesh, rules: dict | None = None):
+    """One rank's shard of a serving tree (packed, pruned-dense or
+    full) on ``mesh`` (a ``distributed.context.Mesh``): each pack split
+    by the layout above (``shard_pack``), every other leaf by
+    ``sharding.spec_for`` over its logical axes. Split leaves are copies,
+    so the full tree can be freed; replicated ones are the given
+    tensors."""
+    from repro_torch.models import registry
+    specs = shd.param_specs_tree(registry.param_specs(cfg), mesh, rules)
+    axes = registry.axes_tree(cfg)
+
+    def walk(node, spec, path):
+        if isinstance(node, dict):
+            return {k: walk(v, spec[k], f"{path}/{k}" if path else k)
+                    for k, v in node.items()}
+        if isinstance(node, packing.PackedBCSC):
+            return shard_pack(node, path, mesh, sm.get_path(axes, path))
+        return shd.shard(node, spec, mesh)
+    return walk(params, specs, "")

@@ -191,6 +191,10 @@ class AsyncEngine:
                  watchdog_s: float | None = None,
                  max_recoveries: int = 0,
                  metrics_port: int | None = None):
+        if getattr(engine, "dist", None) is not None:
+            from repro_torch.serving.engine import _REFUSED
+            raise NotImplementedError(_REFUSED.format(
+                "the asyncio front door and its watchdog"))
         self.engine = engine
         self._idle_wait_s = idle_wait_s
         # the loop side appends, the engine thread pops: both atomic

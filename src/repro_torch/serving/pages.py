@@ -25,6 +25,8 @@ hand one page to two lanes).
 """
 from __future__ import annotations
 
+import numpy as np
+
 
 class PagePool:
     """Host-side refcounted free list over ``n_pages`` pool pages."""
@@ -81,6 +83,13 @@ class PagePool:
 
     def is_cached(self, page: int) -> bool:
         return self._cached[page]
+
+    def state(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(free list in pop order, refcount per page, cached flag per
+        page): the whole accounting, for a digest."""
+        return (np.asarray(self._free, np.int32),
+                np.asarray(self._rc, np.int32),
+                np.asarray(self._cached, bool))
 
     def _check(self) -> None:
         free, ref, ci = len(self._free), self._n_ref, self._n_cached_idle

@@ -76,6 +76,10 @@ class Supervisor:
     """Owns crash recovery for one engine (see module docstring)."""
 
     def __init__(self, engine):
+        if getattr(engine, "dist", None) is not None:
+            from repro_torch.serving.engine import _REFUSED
+            raise NotImplementedError(_REFUSED.format(
+                "crash recovery"))
         self.engine = engine
 
     def _classify_lanes(self, device_lost: bool, results: list,

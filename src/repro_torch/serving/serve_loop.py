@@ -8,7 +8,9 @@ differ from the engine's, as in the reference), and the recurrent
 chunked prefill, as in the reference): their cache is the per-lane
 recurrent state of ``registry.init_cache``; and whisper (``audio``),
 whose encoder frames fill the cross-attention memory (``prefill_cross``)
-before the prompt is prefilled.
+before the prompt is prefilled. ``dist=`` serves the dense GLU family
+tensor-parallel (``serving/step.py``): every rank runs this loop on its
+shard of the params, in lockstep, and returns the same tokens.
 """
 from __future__ import annotations
 
@@ -17,24 +19,28 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.distributed.context import check_serving
 from repro_torch.models import registry
-from repro_torch.serving.step import make_decode_step
+from repro_torch.serving.step import greedy, make_decode_step
 
 
 @torch.inference_mode()
 def prefill_with_decode(cfg, params, prompts, max_len: int, frames=None,
-                        device="cuda"):
+                        device="cuda", dist=None):
     """Seed a contiguous cache by running the decode step over the prompt
     tokens. ``prompts`` (B, plen) ints. For whisper, ``frames`` (B,
     S_enc, d_model), a numpy array or a tensor, seed the cross-attention
     memory first (required; ignored by the other families, as in the
-    reference). Returns (last logits (B, V) f32, cache)."""
+    reference). Returns (last logits (B, V) f32, cache); under ``dist``
+    the logits are the rank's vocab shard and the cache holds its kv
+    heads."""
+    check_serving(cfg, dist)
     prompts = torch.as_tensor(np.asarray(prompts, np.int32), device=device)
     b, plen = prompts.shape
     if cfg.family == "audio" and frames is None:
         raise ValueError("whisper serving needs frames (B, S_enc, d_model): "
                          "pass generate(frames=...)")
-    cache = registry.init_cache(cfg, b, max_len, device=device)
+    cache = registry.init_cache(cfg, b, max_len, device=device, dist=dist)
     if cfg.family == "audio":
         from repro_torch.models import whisper
         if not torch.is_tensor(frames):
@@ -44,7 +50,8 @@ def prefill_with_decode(cfg, params, prompts, max_len: int, frames=None,
     logits = None
     for i in range(plen):
         logits, cache = registry.decode_step(cfg, params, cache,
-                                             prompts[:, i:i + 1], i)
+                                             prompts[:, i:i + 1], i,
+                                             dist=dist)
     return logits[:, -1], cache
 
 
@@ -52,18 +59,20 @@ def prefill_with_decode(cfg, params, prompts, max_len: int, frames=None,
 def generate(cfg, params, prompts, *, max_new_tokens: int = 32,
              max_len: int | None = None, temperature: float = 0.0,
              generator: torch.Generator | None = None, frames=None,
-             device="cuda"):
+             device="cuda", dist=None):
     """Greedy (or, with ``temperature`` > 0 and a ``torch.Generator``,
     sampled) generation for a batch of equal-length prompts on
     ``device``, where ``params`` must lie. Returns (tokens (B, plen+new)
-    int32 numpy, stats)."""
+    int32 numpy, stats). ``dist``: tensor-parallel, ``params`` the rank's
+    shard (``serving/export.py::shard_params``)."""
     prompts = np.asarray(prompts, np.int32)
     b, plen = prompts.shape
     max_len = max_len or (plen + max_new_tokens)
     last, cache = prefill_with_decode(cfg, params, prompts, max_len,
-                                      frames=frames, device=device)
-    decode = make_decode_step(cfg, temperature=temperature)
-    nxt = torch.argmax(last, dim=-1)[:, None].to(torch.int32)
+                                      frames=frames, device=device,
+                                      dist=dist)
+    decode = make_decode_step(cfg, temperature=temperature, dist=dist)
+    nxt = greedy(cfg, last, dist)[0][:, None]
     out = [nxt]
     t0 = time.monotonic()
     for i in range(max_new_tokens - 1):

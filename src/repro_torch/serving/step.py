@@ -8,6 +8,12 @@ The reference's ``lax.scan`` slab becomes a loop of ``k_steps`` decode
 steps whose whole state stays on the device: nothing in the loop reads a
 value back to the host, so the engine syncs once per slab. Caches are
 updated in place.
+
+Every maker takes ``dist=`` (tensor-parallel serving,
+``distributed/context.py``): the model then runs on the rank's shard and
+its logits come out vocab-sharded, so each greedy token is
+``greedy``'s argmax over the whole vocabulary, the same on every rank,
+and a sampled one a draw from the gathered logits.
 """
 from __future__ import annotations
 
@@ -16,28 +22,43 @@ import torch
 from repro_torch.models import registry
 
 
-def make_prefill_step(cfg):
+def greedy(cfg, last, dist=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(argmax (B,) int32, every logit finite (B,) bool) of last-token
+    logits (B, V), or of their vocab shards under ``dist``
+    (``DistContext.vocab_argmax``: ties to the lowest index, as
+    ``torch.argmax`` on the whole row)."""
+    if dist is not None and dist.shards(cfg.vocab_size):
+        nxt, finite = dist.vocab_argmax(last)
+        return nxt.to(torch.int32), finite
+    return (torch.argmax(last, dim=-1).to(torch.int32),
+            torch.isfinite(last).all(dim=-1))
+
+
+def make_prefill_step(cfg, dist=None):
     """prefill(params, tokens (B,S)) -> last-token logits (B, V) f32,
     through the training forward (no cache)."""
     def prefill_step(params, tokens):
-        logits, _ = registry.forward(cfg, params, tokens, masks=None)
+        logits, _ = registry.forward(cfg, params, tokens, masks=None,
+                                     dist=dist)
         return logits[:, -1]
     return prefill_step
 
 
-def make_prefill_chunk_step(cfg):
+def make_prefill_chunk_step(cfg, dist=None):
     """prefill(params, cache, tokens, slot, offsets, lane_mask) ->
     (last_logits (B, V) f32, cache): one (B, C) chunk of right-aligned
     prompt tokens through the model into the contiguous cache at slots
     [slot, slot+C), lanes outside ``lane_mask`` untouched."""
     def prefill_step(params, cache, tokens, slot, offsets, lane_mask):
         logits, cache = registry.prefill_chunk(
-            cfg, params, cache, tokens, slot, offsets, lane_mask=lane_mask)
+            cfg, params, cache, tokens, slot, offsets, lane_mask=lane_mask,
+            dist=dist)
         return logits[:, -1], cache
     return prefill_step
 
 
-def _run_slab(k_steps, max_len, eos_id, cache, state, park, step_fn):
+def _run_slab(cfg, k_steps, max_len, eos_id, cache, state, park, step_fn,
+              dist=None):
     """``k_steps`` greedy decode steps over per-lane state, shared by the
     contiguous and paged slabs (they differ only in ``park``, a slot the
     cache write drops, and in ``step_fn``).
@@ -64,8 +85,8 @@ def _run_slab(k_steps, max_len, eos_id, cache, state, park, step_fn):
         last = logits[:, -1]
         if t == 0:
             last = last + state["poison"][:, None]
-        nxt = torch.argmax(last, dim=-1).to(torch.int32)
-        bad = live & ~torch.isfinite(last).all(dim=-1)
+        nxt, finite = greedy(cfg, last, dist)
+        bad = live & ~finite
         faulted = faulted | bad
         ok = live & ~bad
         frontier = torch.where(ok, frontier + 1, frontier)
@@ -83,7 +104,7 @@ def _run_slab(k_steps, max_len, eos_id, cache, state, park, step_fn):
 
 
 def make_decode_slab_step(cfg, k_steps: int, max_len: int,
-                          eos_id: int | None = None):
+                          eos_id: int | None = None, dist=None):
     """slab(params, cache, state) -> (tokens (B, k_steps), new state,
     cache) over the contiguous cache. ``state`` holds the (B,) device
     vectors pending, frontier, offsets, remaining, live, poison and
@@ -95,14 +116,15 @@ def make_decode_slab_step(cfg, k_steps: int, max_len: int,
 
         def step_fn(cache, tokens, write_pos):
             return registry.decode_step(cfg, params, cache, tokens,
-                                        write_pos, offsets=offsets)
+                                        write_pos, offsets=offsets,
+                                        dist=dist)
 
-        return _run_slab(k_steps, max_len, eos_id, cache, state, max_len,
-                         step_fn)
+        return _run_slab(cfg, k_steps, max_len, eos_id, cache, state,
+                         max_len, step_fn, dist)
     return slab
 
 
-def make_paged_prefill_chunk_step(cfg):
+def make_paged_prefill_chunk_step(cfg, dist=None):
     """prefill(params, cache, tokens, slot, offsets, lane_mask,
     block_tables, read_pages) -> (last_logits (B, V) f32, cache): one
     (B, C) chunk of right-aligned prompt tokens through the model, its
@@ -112,13 +134,14 @@ def make_paged_prefill_chunk_step(cfg):
                      block_tables, read_pages):
         logits, cache = registry.paged_prefill_chunk(
             cfg, params, cache, tokens, slot, offsets, block_tables,
-            read_pages=read_pages, lane_mask=lane_mask)
+            read_pages=read_pages, lane_mask=lane_mask, dist=dist)
         return logits[:, -1], cache
     return prefill_step
 
 
 def make_paged_decode_slab_step(cfg, k_steps: int, max_len: int,
-                                page_size: int, eos_id: int | None = None):
+                                page_size: int, eos_id: int | None = None,
+                                dist=None):
     """slab(params, cache, state, read_pages) -> (tokens (B, k_steps),
     new state, cache). ``state`` holds the (B,) device vectors pending,
     frontier, offsets, remaining, live, poison, faulted and ``bt``, each
@@ -133,14 +156,14 @@ def make_paged_decode_slab_step(cfg, k_steps: int, max_len: int,
         def step_fn(cache, tokens, write_pos):
             return registry.paged_decode_step(
                 cfg, params, cache, tokens, write_pos, bt,
-                read_pages=read_pages, offsets=offsets)
+                read_pages=read_pages, offsets=offsets, dist=dist)
 
-        return _run_slab(k_steps, max_len, eos_id, cache, state,
-                         bt.shape[1] * page_size, step_fn)
+        return _run_slab(cfg, k_steps, max_len, eos_id, cache, state,
+                         bt.shape[1] * page_size, step_fn, dist)
     return slab
 
 
-def make_mixed_step(cfg):
+def make_mixed_step(cfg, dist=None):
     """mixed(params, cache, tokens (B,W), starts (B,), q_lens (B,),
     offsets (B,), block_tables, read_pages, poison (B,)) ->
     (next_tokens (B,) int32, faulted (B,) bool, cache): one pass of the
@@ -156,13 +179,13 @@ def make_mixed_step(cfg):
                    block_tables, read_pages, poison):
         logits, cache = registry.paged_prefill_chunk(
             cfg, params, cache, tokens, starts, offsets, block_tables,
-            read_pages=read_pages, q_lens=q_lens)
+            read_pages=read_pages, q_lens=q_lens, dist=dist)
         row = (q_lens.to(torch.int64) - 1).clamp_min(0)
         last = torch.gather(
             logits, 1, row[:, None, None].expand(-1, 1, logits.shape[-1]))
         last = last[:, 0] + poison[:, None]
-        faulted = ~torch.isfinite(last).all(dim=-1)
-        return torch.argmax(last, dim=-1).to(torch.int32), faulted, cache
+        nxt, finite = greedy(cfg, last, dist)
+        return nxt, ~finite, cache
     return mixed_step
 
 
@@ -204,21 +227,26 @@ def make_scatter_pages_step():
     return scatter_pages
 
 
-def make_decode_step(cfg, temperature: float = 0.0):
+def make_decode_step(cfg, temperature: float = 0.0, dist=None):
     """decode(params, cache, tokens (B,1), pos, generator) -> (next (B,1)
     int32, cache, last logits (B, V), generator) over the contiguous
     cache. Greedy at ``temperature`` 0; above it, a draw from
     softmax(logits / temperature) with ``generator`` (a
     ``torch.Generator`` on the logits' device), so parity with the
-    reference holds for greedy decoding only."""
+    reference holds for greedy decoding only. Under ``dist`` the
+    returned logits are the rank's vocab shard, and a draw is made from
+    the whole gathered row with a generator seeded alike on every rank,
+    so every rank draws the same token."""
     def decode_step(params, cache, tokens, pos, generator=None):
         logits, cache = registry.decode_step(cfg, params, cache, tokens,
-                                             pos)
+                                             pos, dist=dist)
         last = logits[:, -1]
         if temperature > 0.0:
-            probs = torch.softmax(last / temperature, dim=-1)
+            full = (dist.all_gather(last, dim=-1) if dist is not None
+                    and dist.shards(cfg.vocab_size) else last)
+            probs = torch.softmax(full / temperature, dim=-1)
             nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
         else:
-            nxt = torch.argmax(last, dim=-1)
+            nxt = greedy(cfg, last, dist)[0]
         return nxt[:, None].to(torch.int32), cache, last, generator
     return decode_step

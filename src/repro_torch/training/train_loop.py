@@ -21,7 +21,9 @@ watchdog.
     ``MetricsRegistry(namespace="blast_train")`` (or the ``metrics=``
     one a caller injects, to scrape it).
 
-Not ported yet: ``dist=``.
+Not ported yet: ``dist=``, the sharded train step. Multi-device serving
+is ported (``distributed/*``, ``serving`` with ``dist=``); training runs
+on one device.
 
 Two host reads per step: the step reads its loss and gradient norm
 together to decide skip or update (``training/step.py``), and the loop

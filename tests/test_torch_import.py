@@ -53,6 +53,14 @@ def test_no_file_imports_jax_or_repro(rel):
     assert not bad, f"{rel} imports {bad}"
 
 
+def test_multi_device_modules_are_scanned():
+    """The multi-device slice's modules are among the files above."""
+    for rel in ("repro_torch/distributed/context.py",
+                "repro_torch/distributed/sharding.py",
+                "repro_torch/launch/mesh.py"):
+        assert rel in FILES
+
+
 def test_entry_points_default_to_the_gpu():
     from repro_torch.models import registry, transformer
     from repro_torch.models.params import init_params
