@@ -89,6 +89,27 @@ resumed again past a corrupted newest checkpoint; each must end where
 an uninterrupted child ends (``train_chaos``). These child processes,
 compared by their states and never by their time, run side by side.
 
+The sharded train step (``train_tp``, after the chaos children, beside
+which its ranks start and warm up on a small model): two spawned ranks
+(NCCL with a card each, gloo sharing card 0 with one) run one process
+group and two meshes over it. (a) A model axis of 2:
+full-width, full-depth Llama-3.2-1B trained through ``train_loop.train(
+dist=)`` exactly as ``train`` trains it on one device, for that run's
+first five steps (its refreshes at steps 0 and 4): the losses and
+gradient norms within a bf16 tolerance of the one-device run's, so is
+every layer's gradient history (AdamW's v summed over the layer), the
+gathered masks after both refreshes equal to its masks but for blocks
+that were near-ties in its own block scores. (b) A data axis of 2: two
+steps (3 and 4, the second a refresh) of the deferred step
+(``training/deferred.py``) with two microbatches and int8 error-feedback
+compression on two whole 4-layer replicas: each leaf's compressed mean
+within half a quantization step of the f32 mean over the same ranks,
+the new params and masks those of the one-device refresh and AdamW
+update applied to that compressed mean, the first loss within the bf16
+tolerance of the one-device loss on the whole batch. The line prints
+the collectives per step and their bytes, each rank's bytes and the
+phase's seconds.
+
 Observability (``repro_torch/obs``): ``obs_serve`` serves the 12
 requests at full depth in three rounds, each an untraced and a traced
 engine stepped in alternation (the host's speed drifts by tens of
@@ -138,15 +159,18 @@ Prints JSON lines; the line before the last is a ``kernels`` summary and
 the last is ``{"ok": true, "device": {...}}``. Any failed phase raises
 and the script exits non-zero without that line. Needs one CUDA card.
 """
+import contextlib
 import dataclasses
 import gc
 import json
 import math
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -184,6 +208,11 @@ CHAOS_LAYERS, CHAOS_STEPS, CHAOS_KILL = 2, 12, 11
 # full-width chaos children run beside the A -> A2 -> A3 chain at once
 # (three at a time with the chain's fit the card's 80 GB; four did not)
 CHAOS_SIDE = 2
+# train_ckpt runs beside the chain's first children only where the card's
+# free bytes, less what the script holds (the restore makes a second copy
+# of the state), leave CKPT_BESIDE_FREE for a chain child (≈14-20 GB),
+# the rewind child and train_tp's warming ranks; else it runs first
+CKPT_BESIDE_FREE = 36 << 30
 
 # datasheet figures (SXM parts, dense rates): bytes/s of device memory and
 # operations/s by input type (f32 outside the tensor cores, as the kernels
@@ -258,6 +287,27 @@ AUDIO_FRAMES, AV_PARITY_B, AV_PARITY_TOKENS = 1500, 4, 64
 # same sums differ by about that
 TP_SIZE, TP_TIMEOUT_S, TP_BYTES_FRACTION, TP_NEAR_TIE = 2, 900, 0.55, 2.0
 TP_DIR = os.path.join(ROOT, "build", "chip_tp")
+# train_tp: (a) the first TRAIN_TP_STEPS steps of the train phase's run
+# (its refreshes at 0 and TRAIN_STEP_SIZE) at a model axis of 2; (b)
+# TRAIN_DP_STEPS deferred int8 steps from step TRAIN_DP_START (a
+# learning rate above 0; the second a refresh) on TRAIN_DP_LAYERS-layer
+# replicas over a data axis of 2. (a)'s losses and gradient norms hold to
+# TRAIN_TP_TOL relative: the sharded run's readings against one device
+# are 1.24e-3 and 8.0e-4 (bf16 sums in another order), and with
+# copy_to_model planted as the identity 0.18 and 0.74 (PERF.md §6, PR
+# 26). Each layer's gradient history (the square root of the sum of
+# AdamW's v over the layer's part of a leaf) holds to TRAIN_TP_LAYER_TOL
+# relative (readings 3.0e-3, planted fault 1.5): it catches a fault in a
+# few leaves that the loss and the global norm cannot show. A mask block may differ from the one-device run's where
+# its one-device score lies within TRAIN_TP_TIE (relative) of its
+# column's selection boundary. (b)'s new params equal the one-device
+# refresh and AdamW update applied to the step's compressed mean within
+# TRAIN_DP_UPDATE_TOL of the learning rate.
+TRAIN_TP_STEPS, TRAIN_DP_LAYERS = 5, 4
+TRAIN_DP_START, TRAIN_DP_STEPS = 3, 2
+TRAIN_TP_TOL, TRAIN_TP_LAYER_TOL = 2.0 ** -8, 2.0 ** -6
+TRAIN_TP_TIE, TRAIN_DP_UPDATE_TOL = 2.0 ** -5, 1e-3
+TRAIN_TP_DIR = os.path.join(ROOT, "build", "chip_train_tp")
 
 
 T0 = time.monotonic()
@@ -1729,11 +1779,27 @@ def phase_kernels_t(torch, card, packed):
     return summary
 
 
-def _record_steps(train_loop, torch):
+def _grad_history(torch, v) -> dict:
+    """AdamW's second moment ``v`` (a tree) summed per layer (the first
+    dim of a leaf under 'layers') or whole, in f64 on the device: {path:
+    (n,) tensor}. ``v`` accumulates the squared clipped and masked
+    gradients, so each entry is one layer's gradient history, which a
+    fault in a few leaves moves while the loss and the global norm barely
+    do."""
+    from repro_torch.checkpointing.checkpoint import flatten_tree
+    return {p: (x.flatten(1).sum(1, dtype=torch.float64)
+                if p.startswith("layers/") else
+                x.sum(dtype=torch.float64)[None])
+            for p, x in flatten_tree(v).items()}
+
+
+def _record_steps(train_loop, torch, history_until=0):
     """Wrap the loop's step factory so every step's (step, new masks) is
     kept, and a CUDA event pair brackets each step's device work (start
     recorded before the step, end after its last kernel was queued; no
-    sync). Returns (masks list, event pairs, restore)."""
+    sync); the steps before ``history_until`` also keep the new state's
+    ``_grad_history`` (device tensors) in ``seen``'s third place (else
+    None). Returns (seen, event pairs, restore)."""
     seen, events = [], []
     make = train_loop.step_mod.make_train_step
 
@@ -1747,7 +1813,9 @@ def _record_steps(train_loop, torch):
             new, metrics = fn(state, batch)
             end.record()
             events.append((start, end))
-            seen.append((state.step, new.masks))
+            seen.append((state.step, new.masks,
+                         _grad_history(torch, new.opt_state["v"])
+                         if state.step < history_until else None))
             return new, metrics
         return step
 
@@ -1780,7 +1848,23 @@ def phase_train(torch, cfg):
     loop = train_loop.TrainLoopConfig(total_steps=TRAIN_STEPS, log_every=1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    seen, events, restore = _record_steps(train_loop, torch)
+    seen, events, restore = _record_steps(train_loop, torch,
+                                          TRAIN_TP_STEPS)
+    # the block scores of train_tp's refreshes, by path (device tensors,
+    # no sync): the reference that its masks are judged against
+    scores, refresh = {}, sm.refresh_masks
+
+    def recording(spec, params, dense_grads, masks, step, *a, **kw):
+        if step < TRAIN_TP_STEPS:
+            for path in masks:
+                bi, bo = sm.block_dims_for(spec, path)
+                scores.setdefault(step, {})[path] = (
+                    dataclasses.replace(spec, b_in=bi, b_out=bo),
+                    *(topk.block_norms(sm.get_path(t, path), bi, bo)
+                      for t in (params, dense_grads)))
+        return refresh(spec, params, dense_grads, masks, step, *a, **kw)
+
+    sm.refresh_masks = recording
     tr = Tracer()
     _reset_counts()
     t0 = time.monotonic()
@@ -1790,6 +1874,7 @@ def phase_train(torch, cfg):
             log_fn=lambda m: None)
     finally:
         restore()
+        sm.refresh_masks = refresh
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     counts = _read_counts()
@@ -1816,7 +1901,7 @@ def phase_train(torch, cfg):
                        "train", med)
     spec, flags = cfg.blast, registry.dense_layer_flags(cfg)
     refreshes = []
-    for step, masks in seen:
+    for step, masks, _ in seen:
         if step % TRAIN_STEP_SIZE:
             continue
         s = sparsity_at(step, s_init=spec.s_init, s_max=spec.s_max,
@@ -1842,7 +1927,17 @@ def phase_train(torch, cfg):
             check(not bool(sm.get_path(tree, path)[pruned].any()),
                   f"{path}: pruned blocks not zero in {name}")
     emit(phase="train_refreshes", refreshes=refreshes)
-    return cfg, opt, src, state
+    ref = {"losses": losses[:TRAIN_TP_STEPS],
+           "grad_norms": [h["grad_norm"] for h in steps][:TRAIN_TP_STEPS],
+           "masks": {st: {p: m.cpu() for p, m in masks.items()}
+                     for st, masks, _ in seen if st < TRAIN_TP_STEPS
+                     and st % TRAIN_STEP_SIZE == 0},
+           "history": [{p: x.cpu().numpy() for p, x in hist.items()}
+                       for _, _, hist in seen[:TRAIN_TP_STEPS]],
+           "scores": {st: {p: (sp, wn.cpu(), gn.cpu())
+                           for p, (sp, wn, gn) in by_path.items()}
+                      for st, by_path in scores.items()}}
+    return cfg, opt, src, state, ref
 
 
 def _check_train_spans(tr, device_s, run, med=None):
@@ -2444,6 +2539,7 @@ def _tp_rank(rank, world, backend, cfg, dirs, prompts, loop_prompts):
     reset before and read after each run. Pickles what it saw to
     ``rank<r>.pkl`` in ``TP_DIR``."""
     import pickle
+    _die_with_parent()
 
     import torch
     import torch.distributed as tdist
@@ -2514,20 +2610,47 @@ def _tp_rank(rank, world, backend, cfg, dirs, prompts, loop_prompts):
         pickle.dump(out, f)
 
 
-def _tp_ranks(cfg, world, backend, dirs, prompts, loop_prompts):
-    """Start ``world`` rank processes (spawn), wait for all of them; a rank
-    that fails or overruns fails the phase (the others are killed).
-    Returns each rank's results."""
+def _die_with_parent():
+    """Have the kernel SIGKILL this spawned rank when the script's
+    process ends, however it ends, so no rank outlives a killed run."""
+    import ctypes
     import multiprocessing
-    import pickle
-    shutil.rmtree(TP_DIR, ignore_errors=True)
-    os.makedirs(TP_DIR)
+    ctypes.CDLL(None, use_errno=True).prctl(1, signal.SIGKILL)  # PDEATHSIG
+    if os.getppid() != multiprocessing.parent_process().pid:
+        os._exit(1)
+
+
+@contextlib.contextmanager
+def _killed_on_failure(procs):
+    """Kill ``procs`` (spawned ranks) if the block raises."""
+    try:
+        yield
+    except BaseException:
+        for p in procs:
+            p.kill()
+        raise
+
+
+def _start_ranks(directory, target, world, args):
+    """Start ``world`` spawned processes ``target(rank, *args)`` with a
+    fresh ``directory`` (their gloo store and results); returns them.
+    They are daemons: the script's exit ends any that still run."""
+    import multiprocessing
+    shutil.rmtree(directory, ignore_errors=True)
+    os.makedirs(directory)
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=_tp_rank, args=(
-        r, world, backend, cfg, dirs, prompts, loop_prompts))
-        for r in range(world)]
+    procs = [ctx.Process(target=target, args=(r, *args), daemon=True)
+             for r in range(world)]
     for p in procs:
         p.start()
+    return procs
+
+
+def _join_ranks(name, directory, procs):
+    """Wait for ``_start_ranks``' processes; a rank that fails or
+    overruns fails the phase (the others are killed). Returns each rank's
+    pickled ``rank<r>.pkl``, in rank order."""
+    import pickle
     deadline = time.monotonic() + TP_TIMEOUT_S
     try:
         for p in procs:
@@ -2541,12 +2664,12 @@ def _tp_ranks(cfg, world, backend, dirs, prompts, loop_prompts):
                 p.kill()
             p.join()
     codes = [p.exitcode for p in procs]
-    check(codes == [0] * world, f"serve_tp: rank exit codes {codes}")
+    check(codes == [0] * len(procs), f"{name}: rank exit codes {codes}")
     out = []
-    for r in range(world):
-        with open(os.path.join(TP_DIR, f"rank{r}.pkl"), "rb") as f:
+    for r in range(len(procs)):
+        with open(os.path.join(directory, f"rank{r}.pkl"), "rb") as f:
             out.append(pickle.load(f))
-    shutil.rmtree(TP_DIR)
+    shutil.rmtree(directory)
     return out
 
 
@@ -2580,8 +2703,21 @@ def _tp_kernel_lines(torch, card, cfg, packed, joint, world):
     return out
 
 
-def phase_serve_tp(torch, card, cfg, packed, joint, dirs, prompts,
-                   loop_prompts, single):
+def _serve_tp_start(torch, cfg, dirs, prompts, loop_prompts):
+    """Spawn ``serve_tp``'s ``TP_SIZE`` ranks (``_tp_rank``): NCCL with a
+    card each, else gloo sharing card 0. They serve on their own, compared
+    with the single-device runs only when ``phase_serve_tp`` joins them,
+    so they run beside ``serve_swap``. -> (processes, backend)."""
+    world = TP_SIZE
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    torch.cuda.synchronize()
+    return (_start_ranks(TP_DIR, _tp_rank, world,
+                         (world, backend, cfg, dirs, prompts, loop_prompts)),
+            backend)
+
+
+def phase_serve_tp(torch, card, cfg, packed, joint, prompts, loop_prompts,
+                   single, started):
     """Llama-3.2-1B served tensor-parallel at full width and depth over a
     model axis of ``TP_SIZE`` ranks (``dist=``): each rank a spawned
     process that loads the sealed split artifact (the weights the
@@ -2604,14 +2740,14 @@ def phase_serve_tp(torch, card, cfg, packed, joint, dirs, prompts,
     ``TP_BYTES_FRACTION`` of the single-device packed bytes plus the
     leaves every rank holds whole, and its KV pool 1/``TP_SIZE`` of the
     single-device pool. Then the kernels at a rank's local shapes
-    (``tp_kernel`` lines). Returns the ranks' launch counts."""
+    (``tp_kernel`` lines). ``started`` is ``_serve_tp_start``'s (the
+    ranks ran beside ``serve_swap``). Returns the ranks' launch counts."""
     from repro_torch.distributed.context import Mesh
     from repro_torch.models import attention
     from repro_torch.serving import export
-    world = TP_SIZE
-    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
-    torch.cuda.synchronize()
-    ranks = _tp_ranks(cfg, world, backend, dirs, prompts, loop_prompts)
+    procs, backend = started
+    world = len(procs)
+    ranks = _join_ranks("serve_tp", TP_DIR, procs)
     # the single-device figures
     full_bytes = export.memory_report(cfg, packed)["bytes"]
     local0 = export.shard_params(cfg, packed, Mesh(("data", "model"),
@@ -2703,6 +2839,435 @@ def phase_serve_tp(torch, card, cfg, packed, joint, dirs, prompts,
     return counts
 
 
+def _train_tp_warm(torch, cfg, opt, src, dist, dp):
+    """The paths of ``train_tp`` on a small model (4 layers, width 256,
+    vocabulary 2048: a few MB): two sharded steps (the first refreshes)
+    and one deferred int8 step, so the CUDA kernels, cuBLAS and the gloo
+    connections are loaded before the measured run, beside the chaos
+    chain."""
+    from repro_torch.distributed import sharding
+    from repro_torch.training import deferred, step as ts
+    wcfg = dataclasses.replace(cfg, num_layers=4, d_model=256, num_heads=4,
+                               num_kv_heads=2, head_dim=64, d_ff=1024,
+                               vocab_size=2048)
+    batch = {k: torch.as_tensor(v % wcfg.vocab_size, device=DEVICE)
+             for k, v in src.batch(0).items()}
+    st = ts.init_state(wcfg, SEED, DEVICE, dist=dist)
+    step = ts.make_train_step(wcfg, opt, dist=dist)
+    for _ in range(2):
+        st, _ = step(st, batch)
+    st = ts.init_state(wcfg, SEED, DEVICE, dist=dp)
+    st.opt_state = deferred.init_opt_state(wcfg, st.params, True)
+    deferred.make_train_step_deferred(wcfg, opt, dp, microbatches=2)(
+        st, sharding.slice_batch(batch, dp))
+    del st
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _count_collectives(tdist) -> dict:
+    """Count every all-reduce and all-gather this process issues from now
+    on: ``torch.distributed``'s two functions wrapped, each call noted
+    under its kind by the bytes this rank puts in (the tensor reduced, or
+    its part of the gather). Returns the counts, {kind: {bytes: calls}},
+    which the caller clears."""
+    stats = {}
+
+    def wrap(kind, fn, part):
+        def call(*a, **kw):
+            x = part(*a)
+            per = stats.setdefault(kind, {})
+            n = x.numel() * x.element_size()
+            per[n] = per.get(n, 0) + 1
+            return fn(*a, **kw)
+        return call
+
+    tdist.all_reduce = wrap("all_reduce", tdist.all_reduce, lambda t, *_: t)
+    tdist.all_gather = wrap("all_gather", tdist.all_gather,
+                            lambda parts, t, *_: t)
+    return stats
+
+
+def _train_tp_rank(rank, world, backend, cfg, opt, src, go):
+    """One rank of ``train_tp`` (a spawned process): one group, a (data 1,
+    model 2) mesh for (a) and a (data 2, model 1) mesh for (b). It starts
+    beside the chaos chain, warms up (``_train_tp_warm``) and waits for
+    ``go`` (set once the chain is done), then runs (a) and (b). (a):
+    ``train_loop.train(dist=)`` from the seeded init, the train phase's
+    config, ``TRAIN_TP_STEPS`` steps; per step the collectives (calls and
+    bytes by kind) of the step itself, this rank's ``_grad_history`` and
+    the gathered masks after each refresh. (b): ``TRAIN_DP_STEPS``
+    deferred int8 steps from step ``TRAIN_DP_START``; before each, the
+    local gradients, each leaf's error feedback added, reduced both ways
+    (int8 and f32, timed), then the step, and its new params and masks
+    against the one-device refresh and AdamW update applied to the
+    compressed mean; on data rank 0 the one-device loss of the whole
+    batch. Pickles what it saw to ``rank<r>.pkl`` in ``TRAIN_TP_DIR``."""
+    import pickle
+    _die_with_parent()
+
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.checkpointing.checkpoint import flatten_tree
+    from repro_torch.core import sparse_mlp as sm
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.context import (DistContext,
+                                                 init_process_group,
+                                                 make_mesh)
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw, compress
+    from repro_torch.training import deferred, step as ts, train_loop
+    # the ranks warm up beside the chaos chain, the group's critical
+    # path: leave the host's cores to it first
+    os.nice(10)
+    torch.cuda.set_device(rank if backend == "nccl" else 0)
+    init_process_group(TRAIN_TP_DIR, rank, world, backend)
+    try:
+        dist = DistContext(make_mesh((1, world), ("data", "model")))
+        dp = DistContext(make_mesh((world, 1), ("data", "model")))
+        out = {"rank": rank, "device": torch.cuda.current_device()}
+        t0 = time.monotonic()
+        _train_tp_warm(torch, cfg, opt, src, dist, dp)
+        out["warm_s"] = time.monotonic() - t0
+        go.wait()
+        counts = _count_collectives(tdist)
+
+        # (a) the model axis
+        seen, stats, history, make = [], [], [], ts.make_train_step
+
+        def recording(*a, **kw):
+            fn = make(*a, **kw)
+
+            def step(state, batch):
+                counts.clear()
+                new, m = fn(state, batch)
+                stats.append({k: dict(v) for k, v in counts.items()})
+                seen.append((state.step, new.masks))
+                history.append({p: x.cpu().numpy() for p, x in
+                                _grad_history(torch,
+                                              new.opt_state["v"]).items()})
+                return new, m
+            return step
+
+        train_loop.step_mod.make_train_step = recording
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        try:
+            state, hist = train_loop.train(
+                cfg, opt, src, train_loop.TrainLoopConfig(
+                    total_steps=TRAIN_TP_STEPS, log_every=1),
+                device=DEVICE, seed=SEED, dist=dist, log_fn=lambda e: None)
+        finally:
+            train_loop.step_mod.make_train_step = make
+        torch.cuda.synchronize()
+        steps = [h for h in hist if "event" not in h]
+        shd = sharding.state_shardings(cfg, dist.mesh)
+        out["a"] = dict(
+            wall_s=time.monotonic() - t0,
+            losses=[h["loss"] for h in steps],
+            grad_norms=[h["grad_norm"] for h in steps],
+            anomalies=sum(int(h["anomaly"]) for h in steps),
+            sec_per_step=[h["sec_per_step"] for h in steps],
+            collectives=stats, history=history,
+            split=flatten_tree(sharding.shard_flags(shd.params)),
+            masks={st: {p: m.cpu().numpy() for p, m in sharding.gather_tree(
+                masks, shd.masks).items()}
+                for st, masks in seen if st % TRAIN_STEP_SIZE == 0},
+            param_bytes=sharding.count_bytes(state.params),
+            state_bytes=sharding.count_bytes(
+                {"params": state.params, "opt": state.opt_state}),
+            peak_bytes=torch.cuda.max_memory_allocated())
+        del state, seen
+        torch.cuda.empty_cache()
+
+        # (b) the data axis: deferred, int8, two microbatches
+        cfg4 = dataclasses.replace(cfg, num_layers=TRAIN_DP_LAYERS)
+        spec, flags = cfg4.blast, registry.dense_layer_flags(cfg4)
+        flags = flags.to(DEVICE) if flags is not None else None
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        st = ts.init_state(cfg4, SEED, DEVICE, dist=dp)
+        st.opt_state = deferred.init_opt_state(cfg4, st.params, True)
+        st.step = TRAIN_DP_START
+        full = {k: torch.as_tensor(v, device=DEVICE)
+                for k, v in src.batch(0).items()}
+        b = sharding.slice_batch(full, dp)
+        one = None
+        if dp.data_rank == 0:
+            with torch.no_grad():
+                one = float(ts.loss_fn(cfg4, st.params, st.masks, full)[0])
+        cstep = deferred.make_train_step_deferred(cfg4, opt, dp,
+                                                  microbatches=2,
+                                                  compress_grads=True)
+        out["b"] = dict(layers=TRAIN_DP_LAYERS, one_device_loss=one,
+                        steps=[], traffic=None)
+        for _ in range(TRAIN_DP_STEPS):
+            loss_l, _, g = ts.loss_and_grads(cfg4, st, b, dp, 2,
+                                             over_data=False)
+            worst, times = 0.0, {"int8": 0.0, "f32": 0.0}
+            counts.clear()
+
+            def both(x, e):
+                nonlocal worst
+                torch.cuda.synchronize()
+                t1 = time.monotonic()
+                c, _ = compress.reduce_leaf_int8(x, e, dp)
+                torch.cuda.synchronize()
+                t2 = time.monotonic()
+                xe = x + e
+                f = dp.mean_over_data(xe.clone())
+                torch.cuda.synchronize()
+                times["int8"] += t2 - t1
+                times["f32"] += time.monotonic() - t2
+                s = dp.max_over_data(xe.abs().max() / 127.0)
+                worst = max(worst, float((c - f).abs().max() / (s / 2)))
+                return c
+
+            comp = adamw.tree_map(both, g, st.opt_state["ef"])
+            red_stats = {k: dict(v) for k, v in counts.items()}
+            if out["b"]["traffic"] is None:
+                out["b"]["traffic"] = compress.traffic_report(g, st.masks)
+            del g
+            counts.clear()
+            st1, m = cstep(st, b)
+            step_stats = {k: dict(v) for k, v in counts.items()}
+            # the one-device refresh and update on the compressed mean
+            masks, want, _ = sm.maybe_refresh(spec, st.params, comp,
+                                              st.masks, st.step, flags)
+            want, _, om = adamw.update(
+                opt, sm.mask_grads(masks, comp, spec),
+                adamw.mask_moments({k: st.opt_state[k] for k in ("m", "v")},
+                                   masks, spec), want, st.step)
+            del comp
+            lr = om["lr"]
+            upd_err = max(float((x - y).abs().max()) for x, y in zip(
+                adamw.tree_leaves(st1.params), adamw.tree_leaves(want)))
+            moved = min(float((x - y).abs().max()) for x, y in zip(
+                adamw.tree_leaves(st1.params), adamw.tree_leaves(st.params)))
+            same_masks = all(bool(torch.equal(st1.masks[p], masks[p]))
+                             for p in masks)
+            del want, masks
+            torch.cuda.synchronize()
+            out["b"]["steps"].append(dict(
+                step=st.step, loss=m["loss"], local_loss=float(loss_l),
+                grad_norm=m["grad_norm"], lr=lr, err_over_bound=worst,
+                update_err=upd_err, least_leaf_move=moved,
+                masks_equal=same_masks, reduce_s=times,
+                reduce_collectives=red_stats, step_collectives=step_stats))
+            st = st1
+            del st1
+        torch.cuda.synchronize()
+        out["b"].update(
+            wall_s=time.monotonic() - t0,
+            state_bytes=sharding.count_bytes({"params": st.params,
+                                              "opt": st.opt_state}),
+            peak_bytes=torch.cuda.max_memory_allocated())
+    finally:
+        tdist.destroy_process_group()
+    with open(os.path.join(TRAIN_TP_DIR, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def _tie_margin(torch, spec, wn, gn, step, kb_col):
+    """How near one block was to its column's selection boundary in the
+    one-device refresh (``mask_from_scores``): the smaller of its |W|
+    score's and its |G| score's distance from the boundary of that
+    stage, relative to the boundary. ``wn``/``gn`` are one column's
+    scores (Kb,), ``kb_col`` the block's row."""
+    from repro_torch.core.prune_grow import grow_count
+    from repro_torch.core.schedule import keep_count, sparsity_at
+    s = sparsity_at(step, s_init=spec.s_init, s_max=spec.s_max,
+                    total_steps=spec.total_steps, decay=spec.decay)
+    kept = keep_count(s, wn.shape[0])
+    grow = grow_count(spec, step, kept)
+
+    def margin(scores, k, x):
+        top = torch.sort(scores, descending=True).values
+        if k <= 0 or k >= len(top):
+            return math.inf
+        edge = float(top[k - 1] + top[k]) / 2
+        return abs(float(x) - edge) / max(abs(edge), 1e-30)
+
+    keep = torch.zeros_like(wn, dtype=torch.bool)
+    keep[torch.sort(wn, descending=True, stable=True).indices[
+        :kept - grow]] = True
+    mw = margin(wn, kept - grow, wn[kb_col])
+    mg = margin(gn.masked_fill(keep, -math.inf), grow, gn[kb_col])
+    return min(mw, mg)
+
+
+def _train_tp_start(torch, cfg, opt, src):
+    """Spawn ``train_tp``'s two ranks (``_train_tp_rank``): NCCL with a
+    card each, else gloo sharing card 0. They warm up and wait for the
+    returned event. -> (processes, event, backend)."""
+    import multiprocessing
+    world = 2
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    go = multiprocessing.get_context("spawn").Event()
+    return (_start_ranks(TRAIN_TP_DIR, _train_tp_rank, world,
+                         (world, backend, cfg, opt, src, go)), go, backend)
+
+
+def _train_tp_readings(torch, ranks, ref) -> dict:
+    """(a)'s distances from the one-device record ``ref``, over every
+    rank: the largest relative error of the losses, of the gradient
+    norms and of a layer's gradient history (the ranks' ``_grad_history``
+    summed over the model axis where a leaf is split, the square roots
+    compared) with the leaf and step where it lies, and the gathered
+    masks' blocks that differ from one device's, each with its tie
+    margin (``_tie_margin``)."""
+    out = {"loss": 0.0, "grad_norm": 0.0, "history": 0.0,
+           "history_at": None, "differing": [], "blocks": 0}
+    for r in ranks:
+        a = r["a"]
+        for key, got, want in (("loss", a["losses"], ref["losses"]),
+                               ("grad_norm", a["grad_norms"],
+                                ref["grad_norms"])):
+            out[key] = max([out[key]] + [abs(x - y) / abs(y)
+                                         for x, y in zip(got, want)])
+    a0 = ranks[0]["a"]
+    for k, want in enumerate(ref["history"]):
+        for p, w in want.items():
+            got = (sum(r["a"]["history"][k][p] for r in ranks)
+                   if a0["split"][p] else a0["history"][k][p])
+            w = np.sqrt(w)
+            e = float(np.max(np.abs(np.sqrt(got) - w)
+                             / np.maximum(w, 1e-30)))
+            if e > out["history"]:
+                out["history"], out["history_at"] = e, (k, p)
+    for st, masks in a0["masks"].items():
+        for p, m in masks.items():
+            want = ref["masks"][st][p].numpy()
+            out["blocks"] += m.size
+            spec, wn, gn = ref["scores"][st][p]
+            for idx in zip(*np.nonzero(m != want)):
+                *lead, kb, nb = idx
+                col = tuple(lead) + (slice(None), nb)
+                out["differing"].append((st, p, tuple(map(int, idx)),
+                                         _tie_margin(torch, spec, wn[col],
+                                                     gn[col], st, kb)))
+    return out
+
+
+def phase_train_tp(torch, cfg, ref, started):
+    """The sharded train step on the card (see the module docstring):
+    ``started`` is ``_train_tp_start``'s (ranks warmed up beside the
+    chaos chain, which has ended), ``ref`` the train phase's
+    one-device record of its first ``TRAIN_TP_STEPS`` steps (losses,
+    gradient norms, gradient histories, masks and block scores at each
+    refresh). Checks: (a) on every rank the losses and gradient norms
+    within ``TRAIN_TP_TOL`` relative and no anomaly, every layer's
+    gradient history within ``TRAIN_TP_LAYER_TOL``, the gathered masks
+    equal to the one-device masks but for near-ties (``TRAIN_TP_TIE``)
+    and to each other, each rank holding about half the params; (b) per
+    step every leaf's compressed mean within half a quantization step of
+    the f32 mean, the ranks' losses equal, the new params within
+    ``TRAIN_DP_UPDATE_TOL`` of the learning rate of the one-device
+    refresh and update applied to the compressed mean, the masks equal
+    to its, every leaf moved by over a quarter of the learning rate; the
+    first loss within ``TRAIN_TP_TOL`` of the one-device loss on the
+    whole batch."""
+    from repro_torch.models import registry
+    procs, go, backend = started
+    t0 = time.monotonic()
+    go.set()
+    ranks = _join_ranks("train_tp", TRAIN_TP_DIR, procs)
+    wall = time.monotonic() - t0
+    world = len(ranks)
+    for r in ranks:
+        a = r["a"]
+        check(len(a["losses"]) == TRAIN_TP_STEPS and a["anomalies"] == 0,
+              f"train_tp (a): rank {r['rank']} steps {a['losses']}")
+        for st, masks in a["masks"].items():
+            for p, m in masks.items():
+                check(np.array_equal(m, ranks[0]["a"]["masks"][st][p]),
+                      f"train_tp (a): rank {r['rank']}'s masks differ")
+    got = _train_tp_readings(torch, ranks, ref)
+    a0 = ranks[0]["a"]
+    for key in ("loss", "grad_norm"):
+        check(got[key] <= TRAIN_TP_TOL,
+              f"train_tp (a): {key} rel err {got[key]} (tol "
+              f"{TRAIN_TP_TOL}): {a0['losses']} / {a0['grad_norms']} vs "
+              f"one device {ref['losses']} / {ref['grad_norms']}")
+    check(got["history"] <= TRAIN_TP_LAYER_TOL,
+          f"train_tp (a): gradient history rel err {got['history']} at "
+          f"(step, leaf) {got['history_at']}")
+    worst_margin = max([m for *_, m in got["differing"]], default=0.0)
+    for st, p, idx, mg in got["differing"]:
+        check(mg <= TRAIN_TP_TIE,
+              f"train_tp (a): {p} block {idx} after step {st} differs "
+              f"from one device, margin {mg}")
+    full = registry.count_params(cfg)
+    for r in ranks:
+        check(r["a"]["param_bytes"] <= 0.51 * 4 * full,
+              f"train_tp (a): rank {r['rank']} holds "
+              f"{r['a']['param_bytes']} param bytes of {4 * full}")
+        check(len(r["b"]["steps"]) == TRAIN_DP_STEPS,
+              f"train_tp (b): rank {r['rank']} steps {r['b']['steps']}")
+        for k, bs in enumerate(r["b"]["steps"]):
+            at = f"train_tp (b): rank {r['rank']} step {bs['step']}"
+            check(bs["err_over_bound"] <= 1.0 + 1e-5,
+                  f"{at}: a compressed mean off by {bs['err_over_bound']} "
+                  "half-steps")
+            check(bs["loss"] == ranks[0]["b"]["steps"][k]["loss"],
+                  f"{at}: the ranks' losses differ")
+            check(bs["lr"] > 0 and bs["update_err"]
+                  <= TRAIN_DP_UPDATE_TOL * bs["lr"],
+                  f"{at}: params {bs['update_err']} off the one-device "
+                  f"update on the compressed mean (lr {bs['lr']})")
+            check(bs["least_leaf_move"] > bs["lr"] / 4,
+                  f"{at}: a leaf moved only {bs['least_leaf_move']}")
+            check(bs["masks_equal"], f"{at}: masks differ from the "
+                  "one-device refresh on the compressed mean")
+    b0 = ranks[0]["b"]
+    one = b0["one_device_loss"]
+    b_err = abs(b0["steps"][0]["loss"] - one) / abs(one)
+    check(b_err <= TRAIN_TP_TOL,
+          f"train_tp (b): deferred loss {b0['steps'][0]['loss']} vs one "
+          f"device {one}")
+    per_step = a0["collectives"][1]          # a step without a refresh
+    emit(phase="train_tp", model=cfg.name, backend=backend, ranks=world,
+         devices=[r["device"] for r in ranks], wall_s=wall,
+         warm_up_s=[r["warm_s"] for r in ranks],
+         a=dict(mesh={"data": 1, "model": world}, layers=cfg.num_layers,
+                steps=TRAIN_TP_STEPS, losses=a0["losses"],
+                one_device_losses=ref["losses"],
+                grad_norms=a0["grad_norms"],
+                one_device_grad_norms=ref["grad_norms"],
+                loss_rel_err=got["loss"], grad_norm_rel_err=got["grad_norm"],
+                tol=TRAIN_TP_TOL, history_rel_err=got["history"],
+                history_worst_at=got["history_at"],
+                history_tol=TRAIN_TP_LAYER_TOL,
+                refresh_steps=sorted(a0["masks"]), mask_blocks=got["blocks"],
+                masks_differing=len(got["differing"]),
+                worst_tie_margin=worst_margin, tie_tol=TRAIN_TP_TIE,
+                sec_per_step=[r["a"]["sec_per_step"] for r in ranks],
+                wall_s=[r["a"]["wall_s"] for r in ranks],
+                collectives_per_step=per_step,
+                collectives_refresh_step=a0["collectives"][0],
+                param_bytes_per_rank=[r["a"]["param_bytes"] for r in ranks],
+                state_bytes_per_rank=[r["a"]["state_bytes"] for r in ranks],
+                single_device_param_bytes=4 * full,
+                peak_bytes_per_rank=[r["a"]["peak_bytes"] for r in ranks]),
+         b=dict(mesh={"data": world, "model": 1}, layers=TRAIN_DP_LAYERS,
+                microbatches=2, compress_grads=True,
+                one_device_loss=one, loss_rel_err=b_err,
+                update_tol=TRAIN_DP_UPDATE_TOL,
+                steps=[dict(bs, local_losses=[r["b"]["steps"][k][
+                    "local_loss"] for r in ranks],
+                    err_over_int8_bound=max(r["b"]["steps"][k][
+                        "err_over_bound"] for r in ranks),
+                    reduce_s=[r["b"]["steps"][k]["reduce_s"]
+                              for r in ranks])
+                       for k, bs in enumerate(b0["steps"])],
+                traffic=b0["traffic"],
+                wall_s=[r["b"]["wall_s"] for r in ranks],
+                state_bytes_per_rank=[r["b"]["state_bytes"] for r in ranks],
+                peak_bytes_per_rank=[r["b"]["peak_bytes"] for r in ranks]),
+         note="two ranks sharing one card over gloo: the phase's own "
+              "times, not a parallel speed" if backend == "gloo" else "")
+
+
 def _pinned_bytes(torch) -> dict:
     """Pinned host memory that PyTorch's host allocator holds (in use or
     cached for reuse, in its power-of-two blocks), now and at its peak.
@@ -2713,15 +3278,18 @@ def _pinned_bytes(torch) -> dict:
             "held_peak": st["allocated_bytes.peak"]}
 
 
-def phase_train_ckpt(torch, cfg, state):
+def phase_train_ckpt(torch, cfg, state, layout):
     """The 12-step trainer state at full depth and width (f32 params,
     both Adam moments, masks, the generator). First the gather alone, as
     a run's first save meets it (the pinned host pool still cold); then
-    one blocking save and ``restore_state`` (which verifies first;
+    one blocking save and ``restore_state`` (which verifies as it loads;
     bitwise against the live state), then one async save (the stall
     training sees is the gather, into the now warm pool; the write runs
     behind) and its verify. The pinned host bytes the process holds are
-    read after each. Written under the gitignored build/ and deleted."""
+    read after each, the card bytes it reserves before the gather and
+    after the restore. Written under the gitignored build/ and deleted;
+    ``layout`` (whether it ran beside the chaos children, and the card
+    bytes that decided it) goes into its line."""
     from repro_torch.checkpointing.checkpoint import (Checkpointer,
                                                       flatten_tree,
                                                       host_arrays)
@@ -2734,6 +3302,7 @@ def phase_train_ckpt(torch, cfg, state):
                                 "m": state.masks})
     state_bytes = sum(t.numel() * t.element_size() for t in leaves)
     pinned = {"before": _pinned_bytes(torch)}
+    reserved = {"before": torch.cuda.memory_reserved()}
     torch.cuda.synchronize()
     t0 = time.monotonic()
     host, _ = host_arrays(flatten_tree(
@@ -2749,9 +3318,10 @@ def phase_train_ckpt(torch, cfg, state):
     blocking_s = time.monotonic() - t0
     nbytes = _dir_bytes(d)
     t0 = time.monotonic()
-    back = ck.restore_state(state)          # verifies, then loads
+    back = ck.restore_state(state)          # verifies as it loads
     torch.cuda.synchronize()
     restore_s = time.monotonic() - t0
+    reserved["restored"] = torch.cuda.memory_reserved()
     same = (back.step == state.step and all(
         a.dtype == b.dtype and torch.equal(a, b)
         for a, b in zip(adamw.tree_leaves(
@@ -2780,7 +3350,8 @@ def phase_train_ckpt(torch, cfg, state):
          blocking_save_s=blocking_s, warm_gather_stall_s=stall_s,
          async_write_s=write_s, verify_s=verify_s,
          restore_with_verify_s=restore_s, restored_bitwise=same,
-         pinned_host_bytes=pinned)
+         pinned_host_bytes=pinned, card_reserved_bytes=reserved,
+         layout=layout)
 
 
 def _obs_train_pair(off, on):
@@ -2881,7 +3452,7 @@ def _corrupt_newest(ck):
         fh.write(bytes([b[0] ^ 1]))
 
 
-def phase_train_chaos(torch, cfg):
+def phase_train_chaos(torch, cfg, beside=None):
     """The SIGKILL chaos at two layers and full width in f32, through the
     chaos child (``training/faults.py``; deterministic algorithms, each
     child a process of its own): child B runs 12 steps uninterrupted;
@@ -2895,14 +3466,16 @@ def phase_train_chaos(torch, cfg):
 
     The children are independent processes compared by their final
     states and postmortems, never by their time, so they run side by
-    side beside the A -> A2 -> A3 chain in threads: the full-width ones
-    ``CHAOS_SIDE`` at a time, first the ``obs_train`` pair, then B (a
+    side beside the A -> A2 -> A3 chain in threads: ``beside()`` first,
+    on a thread of its own (``train_ckpt``: the full-depth state, ≈30 GB
+    of the card while it restores), then the full-width ones
+    ``CHAOS_SIDE`` at a time, the ``obs_train`` pair, then B (a
     full-width child holds ≈14 GB or more of the card: the chain and all
     four others at once ran out of its 80 GB); on one more thread the
     rewind child (a tiny model), then the comparisons of the pair and of
     A2 with B while A3 runs (each reads two 4.6 GB states). Every
-    ``child_wall_s`` is then a shared card's."""
-    import signal
+    ``child_wall_s`` is then a shared card's (``train_tp``'s ranks warm
+    up beside them too)."""
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.checkpointing.checkpoint import Checkpointer
     from repro_torch.training import faults as tf
@@ -2941,13 +3514,23 @@ def phase_train_chaos(torch, cfg):
     def pair(off, on):
         return _obs_train_pair(off.result(), on.result())
 
+    gate = threading.Event()     # set once ``beside`` is done
+
+    def after_beside(name, **kw):
+        gate.wait()
+        return child(name, **kw)
+
     with ThreadPoolExecutor(max_workers=1) as small, \
+            ThreadPoolExecutor(max_workers=1) as first, \
             ThreadPoolExecutor(max_workers=CHAOS_SIDE) as pool:
-        side = {"off": pool.submit(child, "obs_off", steps=OBS_PAIR_STEPS),
-                "on": pool.submit(child, "obs_on", steps=OBS_PAIR_STEPS,
-                                  trace_dir=os.path.join(wd, "obs_pair_pm")),
-                "b": pool.submit(child, "b"),
-                "rewind": small.submit(_obs_train_rewind, tf, wd)}
+        side = {"beside": first.submit(beside or (lambda: None))}
+        side["beside"].add_done_callback(lambda f: gate.set())
+        side.update(
+            off=pool.submit(after_beside, "obs_off", steps=OBS_PAIR_STEPS),
+            on=pool.submit(after_beside, "obs_on", steps=OBS_PAIR_STEPS,
+                           trace_dir=os.path.join(wd, "obs_pair_pm")),
+            b=pool.submit(after_beside, "b"),
+            rewind=small.submit(_obs_train_rewind, tf, wd))
         side["pair"] = small.submit(pair, side["off"], side["on"])
         ra, _, wa, _ = child("a", ckpt_dir=ck, kill_at=CHAOS_KILL)
         # the async write of step 8 may still be running at the kill: then
@@ -4041,11 +4624,62 @@ def phase_serve_audio_vlm(torch, card):
     return served
 
 
+def phase_training(torch, cfg):
+    """The training phases, in order: ``train``, the packed fine-tuning
+    gradients, the train profile, the unlogged ``obs_train`` run, then
+    ``train_ckpt`` beside the chaos children (before them where the card
+    lacks ``CKPT_BESIDE_FREE``), ``train_tp``'s ranks warming up beside
+    them, and ``train_tp``. Returns the fine-tuning phase's launch
+    counts."""
+    tcfg, opt, src, state, train_ref = phase_train(torch, cfg)
+    ft = phase_finetune_packed(torch, tcfg, state, src.batch(TRAIN_STEPS))
+    phase_train_profile(torch, tcfg, opt, src, state)
+    phase_obs_train_unlogged(torch, tcfg, opt, src, state)
+    # train_tp's ranks start and warm up beside the chaos children (a few
+    # GB of the card), then train once those are done; the full-depth
+    # checkpoint runs beside the chaos chain's first children where the
+    # card has room, with only the state left of the training phases'
+    # memory (their cached blocks beside the chain's child ran the card
+    # out of memory)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info()
+    layout = {"card_free_bytes": free,
+              "held_bytes": torch.cuda.memory_allocated()}
+    layout["beside_chaos"] = free - layout["held_bytes"] >= CKPT_BESIDE_FREE
+    held = [state]
+    del state
+
+    def ckpt():
+        phase_train_ckpt(torch, tcfg, held.pop(), layout)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if not layout["beside_chaos"]:
+        ckpt()
+    tp = _train_tp_start(torch, tcfg, opt, src)
+    with _killed_on_failure(tp[0]):
+        phase_train_chaos(torch, cfg,
+                          beside=ckpt if layout["beside_chaos"] else None)
+    phase_train_tp(torch, tcfg, train_ref, tp)
+    return ft
+
+
+def _on_term(signum, frame):
+    """SIGTERM: kill the spawned ranks and leave at once (the chaos
+    children and the ranks also die with the script: ``_die_with_parent``
+    and ``training/faults.py``'s child set the parent-death signal)."""
+    import multiprocessing
+    for p in multiprocessing.active_children():
+        p.kill()
+    os._exit(128 + signum)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    signal.signal(signal.SIGTERM, _on_term)
     from repro_torch.configs.paper_models import LLAMA32_1B
 
     card = phase_env(torch)
@@ -4086,9 +4720,13 @@ def main():
     served += phase_serve_chaos(torch, cfg, packed, prompts)
     dirs, counts = phase_artifact(torch, cfg, packed, joint)
     served += counts
-    served += phase_serve_swap(torch, cfg, dirs, prompts, rng)
-    served += phase_serve_tp(torch, card, cfg, packed, joint, dirs, prompts,
-                             loop_prompts, single)
+    # serve_tp's ranks serve beside the swap (a few GB of the card; their
+    # streams are compared with the single-device runs once joined)
+    tp = _serve_tp_start(torch, cfg, dirs, prompts, loop_prompts)
+    with _killed_on_failure(tp[0]):
+        served += phase_serve_swap(torch, cfg, dirs, prompts, rng)
+    served += phase_serve_tp(torch, card, cfg, packed, joint, prompts,
+                             loop_prompts, single, tp)
     shutil.rmtree(ART_DIR)
     phase_profile(torch, cfg, packed, prompts)
     summary["bspmm_t"] = phase_kernels_t(torch, card, packed)
@@ -4098,15 +4736,7 @@ def main():
     served += phase_serve_moe(torch, card)
     served += phase_serve_ssm(torch, card)
     served += phase_serve_audio_vlm(torch, card)
-
-    tcfg, opt, src, state = phase_train(torch, cfg)
-    ft = phase_finetune_packed(torch, tcfg, state, src.batch(TRAIN_STEPS))
-    phase_train_profile(torch, tcfg, opt, src, state)
-    phase_obs_train_unlogged(torch, tcfg, opt, src, state)
-    phase_train_ckpt(torch, tcfg, state)
-    del state
-    torch.cuda.empty_cache()
-    phase_train_chaos(torch, cfg)
+    ft = phase_training(torch, cfg)
 
     kernels = []
     for name, (src, repl) in REPLACES.items():

@@ -12,10 +12,10 @@ other wrote.
     never happened is promoted back, a stale ``.tmp`` is dropped, and
     ``steps()`` lists neither;
   * integrity: every array is crc32'd into a manifest in ``meta.json``
-    and verified on restore; ``restore(step=None)`` falls back to the
-    newest intact checkpoint (counting ``fallbacks``), and keep-k GC
-    never deletes the newest intact one, even when newer ones are
-    corrupt;
+    and verified on restore, as it is read (one pass over the file);
+    ``restore(step=None)`` falls back to the newest intact checkpoint
+    (counting ``fallbacks``), and keep-k GC never deletes the newest
+    intact one, even when newer ones are corrupt;
   * async: the device-to-host gather runs in the caller (the next
     training step must not race it; one device sync covers the whole
     tree), the file write in a background thread; a failed write is
@@ -30,6 +30,15 @@ other wrote.
 numpy has no bfloat16: such a leaf is stored as its 16-bit pattern
 (``uint16``) and ``meta.json`` records its dtype under ``dtypes``. The
 reference reads only ``checksums`` and ``step`` there.
+
+Multi-device (the sharded train step): checkpoints stay logical. The
+train loop gathers the state (``sharding.gather_state``) and one rank,
+the ``writer``, saves it: the same files as one device's save of that
+state. ``restore(shardings=)`` / ``restore_state(shardings=)`` cut each
+logical array to this rank's block of whatever mesh the shardings name
+(``sharding.NamedSharding``), so a run restarts on another mesh
+(elastic restart). A ``Checkpointer(writer=False)`` (every other rank)
+reads only: it leaves a killed writer's leftovers to the writer.
 
 ``tracer`` (obs/trace.py; the train loop installs its own) records a
 ``ckpt.save`` span over the part of a save that holds up training (the
@@ -164,8 +173,9 @@ def _state_tree(state) -> dict:
 
 
 class Checkpointer:
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, writer: bool = True):
         self.dir = directory
+        self.writer = writer
         self.keep = keep
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
@@ -173,7 +183,8 @@ class Checkpointer:
         self.fault_hook = None     # training/faults.py corruption port
         self.tracer = NULL_TRACER  # obs/trace.py; train_loop installs
         os.makedirs(directory, exist_ok=True)
-        self._recover_leftovers()
+        if writer:
+            self._recover_leftovers()
 
     def _recover_leftovers(self):
         """Crash cleanup: a parked ``.old`` whose final rename never
@@ -203,6 +214,9 @@ class Checkpointer:
         ``state`` is a ``TrainState`` or any nested dict of tensors and
         arrays."""
         from repro_torch.training.step import TrainState
+        if not self.writer:
+            raise RuntimeError(f"this Checkpointer of {self.dir} only "
+                               "reads (writer=False)")
         t_save = time.monotonic()
         tree = _state_tree(state) if isinstance(state, TrainState) else state
         self.wait()
@@ -296,22 +310,39 @@ class Checkpointer:
         """Full integrity check: meta.json parses, the array set matches
         the manifest, and every array's crc32 matches. A checkpoint
         without a manifest passes on a load test alone."""
+        return self._intact(step)
+
+    def _intact(self, step: int, take=None) -> bool:
+        """``verify``'s check in one pass over the arrays: each is read
+        once, its crc32 checked, and then handed to ``take(name, array,
+        meta)`` (a restore's load). A read error means not intact; an
+        error in ``take`` propagates."""
         d = self._path(step)
         try:
             with open(os.path.join(d, "meta.json")) as f:
                 meta = json.load(f)
             cks = meta.get("checksums")
-            with np.load(os.path.join(d, "arrays.npz")) as z:
-                names = list(z.files)
-                if cks is None:
-                    for k in names:
-                        z[k]
-                    return True
-                if set(names) != set(cks):
-                    return False
-                return {k: crc32_array(z[k]) for k in names} == cks
+            z = np.load(os.path.join(d, "arrays.npz"))
         except Exception:
             return False
+        with z:
+            try:
+                names = list(z.files)
+                if cks is not None and set(names) != set(cks):
+                    return False
+            except Exception:
+                return False
+            for k in names:
+                try:
+                    a = z[k]
+                    ok = cks is None or crc32_array(a) == cks[k]
+                except Exception:
+                    return False
+                if not ok:
+                    return False
+                if take is not None:
+                    take(k, a, meta)
+        return True
 
     def latest_intact_step(self) -> int | None:
         for s in reversed(self.steps()):
@@ -319,21 +350,35 @@ class Checkpointer:
                 return s
         return None
 
-    def _load(self, template, step: int, device):
-        d = self._path(step)
-        with open(os.path.join(d, "meta.json")) as f:
-            dtypes = json.load(f).get("dtypes", {})
+    def _load(self, template, step: int, device, shardings):
+        """Checkpoint ``step`` restored into ``template``'s structure,
+        verified as it is read (``_intact``: one pass over the file), or
+        None when it is not intact."""
         tmpl = flatten_tree(template)
-        with np.load(os.path.join(d, "arrays.npz")) as z:
-            flat = {k: _leaf_like(t, z[k], dtypes.get(k), device)
-                    for k, t in tmpl.items()}
+        shd = flatten_tree(shardings) if shardings is not None else {}
+        flat = {}
+
+        def take(k, a, meta):
+            if k in tmpl:
+                leaf = _leaf_like(tmpl[k], a, meta.get("dtypes", {}).get(k),
+                                  device)
+                if shd.get(k) is not None:
+                    leaf = shd[k].shard(leaf)
+                flat[k] = leaf
+
+        if not self._intact(step, take):
+            return None
         return unflatten_tree(template, flat)
 
-    def restore(self, template, step: int | None = None, device=None):
+    def restore(self, template, step: int | None = None, device=None,
+                shardings=None):
         """Restore into the structure of ``template``: a tensor leaf comes
         back as a tensor on ``device`` (default: the template leaf's), a
         generator leaf as a generator with the saved state, an int as an
-        int, anything else as the stored numpy array.
+        int, anything else as the stored numpy array. With ``shardings``
+        (a tree of ``sharding.NamedSharding`` over the template's paths;
+        a missing or None entry keeps its leaf whole) each array comes
+        back as this rank's block on their mesh (elastic reshard).
 
         An explicit ``step`` is verified and raises
         ``CheckpointCorruptionError`` on a mismatch. With ``step=None``
@@ -343,33 +388,44 @@ class Checkpointer:
         with self.tracer.span("ckpt.restore",
                               step=-1 if step is None else int(step)):
             if step is not None:
-                if not self.verify(step):
+                out = self._load(template, step, device, shardings)
+                if out is None:
                     raise CheckpointCorruptionError(step, self.dir)
-                return self._load(template, step, device)
+                return out
             steps = self.steps()
             if not steps:
                 raise FileNotFoundError(f"no checkpoints in {self.dir}")
             for skipped, s in enumerate(reversed(steps)):
-                if self.verify(s):
+                out = self._load(template, s, device, shardings)
+                if out is not None:
                     if skipped:
                         self.tracer.event("ckpt.fallback",
                                           skipped=skipped, to_step=s)
                     self.fallbacks += skipped
-                    return self._load(template, s, device)
+                    return out
             raise CheckpointCorruptionError(
                 steps[-1], self.dir, "no intact checkpoint to fall back to")
 
     def restore_state(self, template_state, step: int | None = None,
-                      device=None):
+                      device=None, shardings=None):
         """Restore a ``TrainState`` (the template gives structure, dtypes
-        and, without ``device``, each leaf's device)."""
+        and, without ``device``, each leaf's device). ``shardings``: a
+        ``TrainState`` of ``NamedSharding`` trees
+        (``sharding.state_shardings``; the optimizer's buffers follow the
+        params) restores this rank's shard."""
         from repro_torch.training.step import TrainState
         tmpl = {"step": int(template_state.step),
                 "params": template_state.params,
                 "opt_state": template_state.opt_state,
                 "masks": template_state.masks,
                 "rng": template_state.generator}
-        tree = self.restore(tmpl, step, device)
+        shd = None
+        if shardings is not None:
+            shd = {"params": shardings.params,
+                   "opt_state": {k: shardings.params
+                                 for k in template_state.opt_state},
+                   "masks": shardings.masks}
+        tree = self.restore(tmpl, step, device, shd)
         return TrainState(step=tree["step"], params=tree["params"],
                           opt_state=tree["opt_state"], masks=tree["masks"],
                           generator=tree["rng"])

@@ -62,8 +62,14 @@ def generate_mask(spec: BlastSpec, w: torch.Tensor, g: torch.Tensor,
     shape (..., Kb, Nb); leading dims (layers, experts) select
     independently. ``balanced`` budgets are per block-column, ``global``
     ones are scaled by Nb."""
-    wn = topk.block_norms(w, spec.b_in, spec.b_out)
-    gn = topk.block_norms(g, spec.b_in, spec.b_out)
+    return mask_from_scores(spec, topk.block_norms(w, spec.b_in, spec.b_out),
+                            topk.block_norms(g, spec.b_in, spec.b_out), step)
+
+
+def mask_from_scores(spec: BlastSpec, wn: torch.Tensor, gn: torch.Tensor,
+                     step: int) -> torch.Tensor:
+    """``generate_mask`` from the block scores: |W| norms ``wn`` and |G|
+    norms ``gn``, both (..., Kb, Nb) f32."""
     s = sparsity_at(step, s_init=spec.s_init, s_max=spec.s_max,
                     total_steps=spec.total_steps, decay=spec.decay)
     kept = keep_count(s, wn.shape[-2])                 # per-column budget

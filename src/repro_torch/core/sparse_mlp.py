@@ -23,7 +23,8 @@ import torch.nn.functional as F
 from repro_torch.core import topk
 from repro_torch.core.packing import PackedBCSC
 from repro_torch.core.prune_grow import (BlastSpec, generate_mask,
-                                         prune_weight, zero_grown)
+                                         mask_from_scores, prune_weight,
+                                         zero_grown)
 from repro_torch.core.schedule import is_refresh_step
 
 Params = dict
@@ -86,13 +87,10 @@ def glu_mlp(x, w_gate, w_up, w_down, *, act="silu", masks=None,
     through the STE before the cast to x's dtype. Packed weights
     dispatch to the fused BSpMM path over (M, d) rows. ``dist`` (with
     the model's ``d_ff``) takes the tensor-parallel path,
-    ``_glu_mlp_tp``."""
+    ``_glu_mlp_tp``, masked or not."""
     if dist is not None and dist.tp > 1:
-        if masks:
-            raise NotImplementedError(
-                "masked (training) GLU under dist= is the sharded train "
-                "step, not ported (ROADMAP §1 item 4)")
-        return _glu_mlp_tp(x, w_gate, w_up, w_down, act, dist, d_ff)
+        return _glu_mlp_tp(x, w_gate, w_up, w_down, act, dist, d_ff, masks,
+                           spec)
     if isinstance(w_gate, PackedBCSC):
         from repro_torch.kernels import ops
         y = ops.sparse_mlp_apply(_flat(x), w_gate, w_up, w_down, act=act)
@@ -106,7 +104,8 @@ def glu_mlp(x, w_gate, w_up, w_down, *, act="silu", masks=None,
     return h @ wd
 
 
-def _glu_mlp_tp(x, w_gate, w_up, w_down, act, dist, d_ff):
+def _glu_mlp_tp(x, w_gate, w_up, w_down, act, dist, d_ff, masks=None,
+                spec=None):
     """One rank's GLU under tensor parallelism, its output replicated.
 
     Packed (the layout of ``serving/export.py::shard_params``): the
@@ -116,8 +115,12 @@ def _glu_mlp_tp(x, w_gate, w_up, w_down, act, dist, d_ff):
     ``w_down``'s kept blocks, whose visit lists reach K blocks anywhere
     in d_ff; an all-reduce of the partial sums where that share is one
     (``PackedBCSC.partial``). The kernel wrappers see shard-local
-    packs. Dense: gate and up column-parallel, down row-parallel, then an
-    all-reduce (where d_ff splits over the model axis)."""
+    packs. Dense (serving, or training with ``masks`` through the STE on
+    the rank's mask shards): gate and up column-parallel behind
+    ``copy_to_model``, down row-parallel, then ``reduce_from_model``,
+    where this rank holds a d_ff slice (the train state splits d_ff only
+    in whole blocks, ``sharding.train_specs``); otherwise every rank
+    computes the whole MLP."""
     if isinstance(w_gate, PackedBCSC):
         from repro_torch.kernels import ops
         h = ops.fused_glu(_flat(x), w_gate, w_up, act=act)
@@ -128,9 +131,15 @@ def _glu_mlp_tp(x, w_gate, w_up, w_down, act, dist, d_ff):
             y = dist.all_reduce(y)
         return y.reshape(*x.shape[:-1], y.shape[-1])
     dt = x.dtype
-    h = act_fn(act)(x @ w_gate.to(dt)) * (x @ w_up.to(dt))
-    y = h @ w_down.to(dt)
-    return dist.all_reduce(y) if dist.shards(d_ff) else y
+    split = w_gate.shape[-1] < d_ff
+    if split:
+        x = dist.copy_to_model(x)
+    m = masks or {}
+    wg = maybe_mask(w_gate, m.get("w_gate"), spec).to(dt)
+    wu = maybe_mask(w_up, m.get("w_up"), spec).to(dt)
+    wd = maybe_mask(w_down, m.get("w_down"), spec, swapped=True).to(dt)
+    y = (act_fn(act)(x @ wg) * (x @ wu)) @ wd
+    return dist.reduce_from_model(y) if split else y
 
 
 def mlp2(x, w_in, w_out, b_in_=None, b_out_=None, *, act="gelu",
@@ -207,12 +216,38 @@ def init_masks(spec: BlastSpec, params: Params,
     return masks
 
 
+def _sharded_mask(spec: BlastSpec, w, g, step: int, dist, mspec: tuple):
+    """One weight's refresh on this rank's shard: the selection that one
+    device makes, restricted to this rank's blocks. Balanced selection
+    ranks each block-column, so where the columns split (gate/up) the
+    rank's own scores suffice; where the rows split (down) or the
+    selection is global, the block scores (f32, one per block) are
+    gathered over the model axis, ranked by the one-device code (stable,
+    ties to the lower global index) and this rank's part kept."""
+    from repro_torch.distributed import sharding as shd
+    wn = topk.block_norms(w, spec.b_in, spec.b_out)
+    gn = topk.block_norms(g, spec.b_in, spec.b_out)
+    split = {i for i, e in enumerate(mspec)
+             if shd.model_sharded((e,), dist.model_axis)}
+    if not split or (spec.selection == "balanced"
+                     and wn.dim() - 2 not in split):
+        return mask_from_scores(spec, wn, gn, step)
+    both = shd.gather(torch.stack([wn, gn]), (None,) + tuple(mspec),
+                      dist.mesh)
+    return shd.shard(mask_from_scores(spec, both[0], both[1], step), mspec,
+                     dist.mesh)
+
+
 def refresh_masks(spec: BlastSpec, params: Params, dense_grads: Params,
-                  masks: MaskTree, step: int, dense_flags=None):
+                  masks: MaskTree, step: int, dense_flags=None, dist=None,
+                  mask_specs: dict | None = None):
     """generate_masks() + prune_weights() of paper Listing 1 over the
     whole mask tree, from the old params and the dense gradients.
     Returns (new_masks, pruned_params, grown_masks); the params tree is
-    copied along the changed paths, the given one is not modified."""
+    copied along the changed paths, the given one is not modified. Under
+    ``dist`` the trees are this rank's shards and ``mask_specs`` their
+    layout (``sharding.train_specs``): the masks come out as the
+    one-device masks' shards (``_sharded_mask``)."""
     new_masks: MaskTree = {}
     grown: MaskTree = {}
     new_params = params
@@ -220,9 +255,12 @@ def refresh_masks(spec: BlastSpec, params: Params, dense_grads: Params,
         w = get_path(params, path)
         bi, bo = block_dims_for(spec, path)
         pspec = dataclasses.replace(spec, b_in=bi, b_out=bo)
-        nm = _dense_flag_mask(
-            generate_mask(pspec, w, get_path(dense_grads, path), step),
-            dense_flags, path)
+        g = get_path(dense_grads, path)
+        if dist is not None and dist.tp > 1:
+            nm = _sharded_mask(pspec, w, g, step, dist, mask_specs[path])
+        else:
+            nm = generate_mask(pspec, w, g, step)
+        nm = _dense_flag_mask(nm, dense_flags, path)
         gr = nm & ~old
         new_masks[path] = nm
         grown[path] = gr
@@ -232,13 +270,14 @@ def refresh_masks(spec: BlastSpec, params: Params, dense_grads: Params,
 
 
 def maybe_refresh(spec: BlastSpec, params, dense_grads, masks, step: int,
-                  dense_flags=None):
+                  dense_flags=None, dist=None, mask_specs=None):
     """Refresh every ``spec.step_size`` steps. ``step`` is a host int, so
-    this is a Python branch with no device read. Returns (masks, params,
-    grown); ``grown`` is all-False when no refresh ran."""
+    this is a Python branch with no device read (every rank takes the
+    same one). Returns (masks, params, grown); ``grown`` is all-False
+    when no refresh ran."""
     if spec.enabled and is_refresh_step(step, spec.step_size):
         return refresh_masks(spec, params, dense_grads, masks, step,
-                             dense_flags)
+                             dense_flags, dist, mask_specs)
     return masks, params, {p: torch.zeros_like(m) for p, m in masks.items()}
 
 
@@ -252,9 +291,20 @@ def mask_grads(masks: MaskTree, grads: Params, spec: BlastSpec) -> Params:
     return out
 
 
-def tree_sparsity(masks: MaskTree) -> torch.Tensor:
+def tree_sparsity(masks: MaskTree, dist=None,
+                  sharded: dict | None = None) -> torch.Tensor:
     """Overall fraction of pruned blocks across the mask tree (a float32
-    device scalar: reading it is the caller's sync)."""
-    tot = sum(m.numel() for m in masks.values())
-    kept = sum(m.sum() for m in masks.values())
-    return 1.0 - kept / tot
+    device scalar: reading it is the caller's sync). Under ``dist`` the
+    masks are shards: ``sharded`` (path -> split over the model axis)
+    says which count summed over the model axis and which once."""
+    if dist is None or dist.tp == 1:
+        tot = sum(m.numel() for m in masks.values())
+        kept = sum(m.sum() for m in masks.values())
+        return 1.0 - kept / tot
+    tot = sum(m.numel() * (dist.tp if sharded[p] else 1)
+              for p, m in masks.items())
+    split = sum(m.sum() for p, m in masks.items() if sharded[p])
+    rep = sum(m.sum() for p, m in masks.items() if not sharded[p])
+    if torch.is_tensor(split):
+        rep = rep + dist.all_reduce(split.clone())
+    return 1.0 - rep / tot

@@ -1,7 +1,7 @@
-"""DistContext: the one object threaded through the model's serving
-forwards that knows the mesh, this rank's place in it and the axis
-conventions (port of ``repro/distributed/context.py``). ``None`` in its
-place is a single device.
+"""DistContext: the one object threaded through the model's forwards
+(serving and training) that knows the mesh, this rank's place in it and
+the axis conventions (port of ``repro/distributed/context.py``). ``None``
+in its place is a single device.
 
 The reference shards with GSPMD: its params carry ``NamedSharding``s and
 ``constrain_seq`` / ``constrain_logits`` are layout hints that XLA turns
@@ -23,6 +23,23 @@ over the model axis (``sp``, sequence parallelism, is not ported: the
 field is kept and must stay False), and the logits are vocab-sharded
 wherever the vocabulary divides the model axis.
 
+Training differentiates through the collectives, so it uses Megatron's
+conjugate pairs, each a ``torch.autograd.Function`` (outside autograd they
+are the serving collectives above):
+
+  * ``reduce_from_model``: forward sums over the model axis, backward
+    passes the gradient through (after a row-parallel product; not
+    ``torch.distributed.nn``'s all_reduce, whose backward sums again and
+    so gives tp times the gradient of a replicated residual stream);
+  * ``copy_to_model``: forward is the identity, backward sums the
+    gradient over the model axis (before a column-parallel product, and
+    on a replicated leaf that each rank uses only in part: the kv heads
+    that ``attention.shard_local`` narrows);
+  * ``gather_from_model``: forward all-gathers, backward keeps this
+    rank's slice;
+  * ``sum_over_data`` / ``mean_over_data``: a gradient summed or averaged
+    over the batch axes, in place, after the backward.
+
 ``Mesh`` is the port's stand-in for ``jax.sharding.Mesh``: axis names,
 shape, this rank's coordinates and one process group per axis of size
 > 1. ``init_process_group`` starts ``torch.distributed`` from a
@@ -37,6 +54,10 @@ import math
 import os
 
 import torch
+
+def _wire(x: torch.Tensor) -> torch.Tensor:
+    """gloo moves no bool tensors: their bytes as uint8."""
+    return x.view(torch.uint8) if x.dtype == torch.bool else x
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,29 +102,40 @@ def _flat(idx: tuple[int, ...], shape: tuple[int, ...]) -> int:
     return r
 
 
-def make_mesh(shape: tuple[int, ...], axis_names: tuple[str, ...]) -> Mesh:
+def make_mesh(shape: tuple[int, ...], axis_names: tuple[str, ...],
+              ranks: list[int] | None = None) -> Mesh | None:
     """The mesh of the started process group (``torch.distributed`` must
     be initialised with a world size of ``prod(shape)``). Every rank
-    calls this with the same arguments: group creation is collective."""
+    calls this with the same arguments: group creation is collective.
+
+    ``ranks`` (world ranks, ``prod(shape)`` of them, in mesh order) builds
+    the mesh over part of the group instead: every rank of the world still
+    calls it, and the ranks outside get ``None`` (a restart onto a
+    smaller mesh inside one group)."""
     import torch.distributed as tdist
     shape, axis_names = tuple(shape), tuple(axis_names)
     if len(shape) != len(axis_names):
         raise ValueError(f"mesh shape {shape} vs axes {axis_names}")
     world = tdist.get_world_size()
-    if math.prod(shape) != world:
+    members = list(range(world)) if ranks is None else list(ranks)
+    if math.prod(shape) != len(members):
         raise ValueError(f"mesh {dict(zip(axis_names, shape))} needs "
-                         f"{math.prod(shape)} ranks, the group has {world}")
-    rank = tdist.get_rank()
+                         f"{math.prod(shape)} ranks, the group has "
+                         f"{len(members)}")
+    me = tdist.get_rank()
     groups = {}
     for i, name in enumerate(axis_names):
         if shape[i] == 1:
             continue
         for line in _axis_lines(shape, i):
+            line = [members[j] for j in line]
             g = (tdist.group.WORLD if len(line) == world
                  else tdist.new_group(line))
-            if rank in line:
+            if me in line:
                 groups[name] = g
-    return Mesh(axis_names, shape, rank, groups)
+    if me not in members:
+        return None
+    return Mesh(axis_names, shape, members.index(me), groups)
 
 
 def init_process_group(directory: str, rank: int, world_size: int,
@@ -169,29 +201,107 @@ class DistContext:
         where the model axis does not divide it, ``sharding.spec_for``)."""
         return self.tp > 1 and dim % self.tp == 0
 
+    @property
+    def data_rank(self) -> int:
+        """This rank's index over the batch axes (the first major)."""
+        if self.mesh is None:
+            return 0
+        c, r = self.mesh.coords, 0
+        for a in self.batch_axes:
+            r = r * self.mesh.axis_size(a) + c[a]
+        return r
+
     # ---------------------------------------------------- collectives
     def _group(self):
         return self.mesh.groups[self.model_axis]
 
-    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum ``x`` over the model axis, in place; returns it."""
+    def _reduce(self, x: torch.Tensor, axes, op: str) -> torch.Tensor:
+        """All-reduce ``x`` in place over each of ``axes`` (of size > 1)
+        in turn; returns it."""
+        import torch.distributed as tdist
+        red = getattr(tdist.ReduceOp, op.upper())
+        for a in axes:
+            if self.mesh.axis_size(a) > 1:
+                tdist.all_reduce(x, op=red, group=self.mesh.groups[a])
+        return x
+
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """Sum (or ``op="max"``) ``x`` over the model axis, in place;
+        returns it."""
         if self.tp == 1:
             return x
-        import torch.distributed as tdist
-        x = x.contiguous()
-        tdist.all_reduce(x, group=self._group())
-        return x
+        return self._reduce(x.contiguous(), (self.model_axis,), op)
 
     def all_gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
         """Concatenate every model-axis rank's ``x`` along ``dim``, in
         rank order."""
         if self.tp == 1:
             return x
-        import torch.distributed as tdist
-        x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(self.tp)]
-        tdist.all_gather(parts, x, group=self._group())
-        return torch.cat(parts, dim=dim)
+        return _gather(x, dim, self._group(), self.tp)
+
+    # the conjugate pairs of training: plain collectives where nothing
+    # needs a gradient (serving, under torch.inference_mode)
+    def reduce_from_model(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum over the model axis; the backward is the identity."""
+        if self.tp == 1:
+            return x
+        if x.requires_grad and torch.is_grad_enabled():
+            return _ReduceFromModel.apply(x, self)
+        return self.all_reduce(x)
+
+    def copy_to_model(self, x: torch.Tensor) -> torch.Tensor:
+        """The identity; the backward sums the gradient over the model
+        axis."""
+        if self.tp == 1 or not (x.requires_grad and torch.is_grad_enabled()):
+            return x
+        return _CopyToModel.apply(x, self)
+
+    def gather_from_model(self, x: torch.Tensor, dim: int = -1
+                          ) -> torch.Tensor:
+        """All-gather along ``dim``; the backward keeps this rank's
+        slice."""
+        if self.tp == 1:
+            return x
+        if x.requires_grad and torch.is_grad_enabled():
+            return _GatherFromModel.apply(x, self, dim)
+        return self.all_gather(x, dim)
+
+    def sum_over_data(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum ``x`` over the batch axes, in place; returns it."""
+        if self.data_size == 1:
+            return x
+        return self._reduce(x, self.batch_axes, "sum")
+
+    def mean_over_data(self, x: torch.Tensor) -> torch.Tensor:
+        """Average ``x`` (a gradient, a loss) over the batch axes, in
+        place; returns it."""
+        if self.data_size == 1:
+            return x
+        return self.sum_over_data(x).div_(self.data_size)
+
+    def max_over_data(self, x: torch.Tensor) -> torch.Tensor:
+        """Maximum of ``x`` over the batch axes, in place."""
+        if self.data_size == 1:
+            return x
+        return self._reduce(x, self.batch_axes, "max")
+
+    def max_over_mesh(self, x: torch.Tensor) -> torch.Tensor:
+        """Maximum of ``x`` over every rank of the mesh, in place (one
+        all-reduce per axis of size > 1): equal on all of them after, and
+        a barrier."""
+        return self._reduce(x, self.mesh.axis_names, "max")
+
+    def gather_over_data(self, x: torch.Tensor) -> list[torch.Tensor]:
+        """Every data rank's ``x`` (the batch axes, one at a time: a
+        single data axis is one all-gather), in data-rank order."""
+        parts = [x]
+        for a in reversed(self.batch_axes):
+            n = self.mesh.axis_size(a)
+            if n == 1:
+                continue
+            stacked = _gather(torch.stack(parts), 0, self.mesh.groups[a], n)
+            parts = list(stacked.unbind(0))
+        return parts
 
     def vocab_argmax(self, logits: torch.Tensor
                      ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -211,18 +321,67 @@ class DistContext:
         return idx, g[:, 2].min(dim=0).values > 0
 
 
-def check_serving(cfg, dist) -> None:
-    """Refuse a multi-device context where this slice does not serve:
-    tensor-parallel serving covers the dense GLU family on a mesh whose
-    batch axes have size 1."""
+def _gather(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    import torch.distributed as tdist
+    x = x.contiguous()
+    w = _wire(x)
+    parts = [torch.empty_like(w) for _ in range(n)]
+    tdist.all_gather(parts, w, group=group)
+    if x.dtype == torch.bool:
+        parts = [p.view(torch.bool) for p in parts]
+    return torch.cat(parts, dim=dim)
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dist):
+        return dist.all_reduce(x.clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dist):
+        ctx.dist = dist
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.dist.all_reduce(g.clone()), None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dist, dim):
+        ctx.dist, ctx.dim, ctx.n = dist, dim, x.shape[dim]
+        return dist.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        r = ctx.dist.model_rank
+        return g.narrow(ctx.dim, r * ctx.n, ctx.n), None, None
+
+
+def check_training(cfg, dist) -> None:
+    """Refuse a multi-device context where the port does not run: the
+    sharded train step and tensor-parallel serving cover the dense GLU
+    family, the train step on any (data, model) mesh."""
     if dist is None:
         return
     if cfg.family != "dense" or cfg.mlp_kind != "glu" or cfg.is_moe:
         raise NotImplementedError(
-            f"dist= serves the dense GLU family only, not {cfg.family!r} "
+            f"dist= covers the dense GLU family only, not {cfg.family!r} "
             f"with mlp_kind {cfg.mlp_kind!r} (ROADMAP §1 item 4: dist= on "
             "the other families)")
-    if dist.data_size > 1:
+
+
+def check_serving(cfg, dist) -> None:
+    """``check_training``, and serving's mesh has batch axes of size 1."""
+    check_training(cfg, dist)
+    if dist is not None and dist.data_size > 1:
         raise NotImplementedError(
             "a serving data axis larger than 1 is not ported (ROADMAP §1 "
             "item 4: sequence-parallel and a serving data axis)")

@@ -13,9 +13,19 @@ name major), the contents of the reference's ``PartitionSpec``. Where
 the reference hands a ``NamedSharding`` tree to GSPMD, the port slices:
 ``param_sharding_tree`` and ``mask_sharding_tree`` return one rank's
 shard of a full tree (``distributed/context.py`` says why).
+
+The train state's layout (``train_specs``, ``state_shardings``): every
+leaf as the rules say, except that a BLaST weight splits only where its
+block mask splits (the rules re-checked against the block counts), so a
+rank always holds whole blocks; its Adam moments and error-feedback
+buffer follow it. ``NamedSharding`` pairs a spec with its mesh, the role
+the reference's ``jax.sharding.NamedSharding`` plays for
+``Checkpointer.restore(shardings=)``; ``gather`` is the exact inverse of
+``shard`` (every rank gets the logical array back, bitwise).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any
 
@@ -89,6 +99,8 @@ def shard(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
             raise ValueError(f"spec {spec} uses a mesh axis twice")
         seen |= set(names)
         n = math.prod(sizes[a] for a in names)
+        if n == 1:
+            continue
         i = 0
         for a in names:
             i = i * sizes[a] + coords[a]
@@ -100,6 +112,43 @@ def shard(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
     if out is x:
         return x
     return out.clone(memory_format=torch.contiguous_format)
+
+
+def gather(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """The full array of which ``x`` is this rank's block under ``spec``
+    (the inverse of ``shard``): each split dim all-gathered over its
+    axes, the minor axis first. Every rank of those axes gets it."""
+    from repro_torch.distributed.context import _gather
+    sizes = axis_sizes(mesh)
+    out = x
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        names = (entry,) if isinstance(entry, str) else tuple(entry)
+        for a in reversed(names):
+            if sizes[a] > 1:
+                out = _gather(out, dim, mesh.groups[a], sizes[a])
+    return out
+
+
+def model_sharded(spec: tuple, axis: str = "model") -> bool:
+    """Whether ``spec`` splits a dim over ``axis``."""
+    return any(e == axis or (isinstance(e, tuple) and axis in e)
+               for e in spec if e is not None)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh: ``shard`` takes this rank's block of a logical
+    array, ``gather`` gives the logical array back."""
+    mesh: Any
+    spec: tuple
+
+    def shard(self, x: torch.Tensor) -> torch.Tensor:
+        return shard(x, self.spec, self.mesh)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        return gather(x, self.spec, self.mesh)
 
 
 def _map_specs(fn, specs):
@@ -142,6 +191,116 @@ def mask_sharding_tree(masks: dict, weight_axes: dict,
         out[path] = shard(arr, spec_for(tuple(arr.shape),
                                         get_path(weight_axes, path), mesh,
                                         rules), mesh)
+    return out
+
+
+def train_specs(cfg, mesh) -> dict:
+    """Specs of the train state's params and masks: ``{"params": spec
+    tree, "masks": {path: spec}}``, from ``training/step.py::
+    abstract_state``. A mask shards like its weight with divisibility
+    re-checked on the block counts, and its weight then takes the mask's
+    spec, so each rank holds whole blocks."""
+    from repro_torch.core.sparse_mlp import get_path, set_path
+    from repro_torch.models import registry
+    from repro_torch.training.step import abstract_state
+    st = abstract_state(cfg)
+    axes = registry.axes_tree(cfg)
+    params = param_specs_tree(registry.param_specs(cfg), mesh)
+    masks = {}
+    for path, m in st.masks.items():
+        masks[path] = spec_for(tuple(m.shape), get_path(axes, path), mesh)
+        params = set_path(params, path, masks[path])
+    return {"params": params, "masks": masks}
+
+
+def _named(specs, mesh):
+    if isinstance(specs, dict):
+        return {k: _named(v, mesh) for k, v in specs.items()}
+    return NamedSharding(mesh, specs)
+
+
+def state_shardings(cfg, mesh):
+    """A ``TrainState`` of ``NamedSharding`` trees for the params and the
+    masks; every optimizer buffer ('m', 'v', the deferred step's 'ef')
+    follows the params, so ``opt_state`` is None, and so are ``step`` and
+    ``generator`` (not arrays)."""
+    from repro_torch.training.step import TrainState
+    sp = train_specs(cfg, mesh)
+    return TrainState(step=None, params=_named(sp["params"], mesh),
+                      opt_state=None, masks=_named(sp["masks"], mesh),
+                      generator=None)
+
+
+def _zip_map(fn, tree, shardings):
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, v, shardings[k]) for k, v in tree.items()}
+    return fn(shardings, tree)
+
+
+def shard_tree(tree, shardings):
+    """This rank's block of every leaf of a logical tree."""
+    return _zip_map(lambda s, x: s.shard(x), tree, shardings)
+
+
+def gather_tree(tree, shardings, then=None):
+    """The logical tree of a sharded one (collective: every rank calls
+    it, in the same order). ``then`` maps each whole leaf as soon as it
+    is gathered (say, to host memory, or to None on a rank that keeps
+    nothing), so the device holds one whole leaf at a time beyond the
+    shards."""
+    then = then or (lambda t: t)
+    return _zip_map(lambda s, x: then(s.gather(x)), tree, shardings)
+
+
+def _map_state(fn, state, shardings):
+    opt = {k: fn(v, shardings.params) for k, v in state.opt_state.items()}
+    return dataclasses.replace(state, params=fn(state.params,
+                                                shardings.params),
+                               opt_state=opt,
+                               masks=fn(state.masks, shardings.masks))
+
+
+def shard_state(state, shardings):
+    """This rank's block of a logical ``TrainState``."""
+    return _map_state(shard_tree, state, shardings)
+
+
+def gather_state(state, shardings, then=None):
+    """The logical ``TrainState`` of this rank's block (collective;
+    ``then`` as in ``gather_tree``)."""
+    return _map_state(lambda t, s: gather_tree(t, s, then), state,
+                      shardings)
+
+
+def shard_flags(tree_of_shardings, axis: str = "model"):
+    """Per leaf: whether it is split over ``axis`` (a norm counts such a
+    leaf's square sum on every rank, a replicated one once)."""
+    if isinstance(tree_of_shardings, dict):
+        return {k: shard_flags(v, axis) for k, v in tree_of_shardings.items()}
+    return model_sharded(tree_of_shardings.spec, axis)
+
+
+def slice_batch(batch: dict, dist, microbatches: int = 1) -> dict:
+    """This data rank's rows of a global batch, so that its microbatch
+    ``i`` is its slice of the global microbatch ``i`` (as GSPMD shards
+    the reference's reshaped batch). Scalars (the fault-injection ones)
+    pass unchanged."""
+    d, r = dist.data_size, dist.data_rank
+    if d == 1:
+        return dict(batch)
+    out = {}
+    for k, v in batch.items():
+        if not torch.is_tensor(v) or v.dim() == 0:
+            out[k] = v
+            continue
+        b = v.shape[0]
+        if b % (d * microbatches):
+            raise ValueError(f"batch {b} does not split into {d} data "
+                             f"ranks x {microbatches} microbatches")
+        n = microbatches
+        per = b // (n * d)
+        out[k] = v.reshape(n, b // n, *v.shape[1:]).narrow(
+            1, r * per, per).reshape(n * per, *v.shape[1:])
     return out
 
 

@@ -2,7 +2,10 @@
 
 Both are functions that read the started ``torch.distributed`` group, so
 importing this module touches no device and no process group. The rank
-processes start the group first (``distributed.context.init_process_group``).
+processes start the group first (``distributed.context.init_process_group``
+from a ``file://`` store, or ``launch/train.py`` from ``torchrun``'s
+environment); a group of another size than the mesh raises ``ValueError``
+naming the ranks it needs, which the launcher turns into its exit.
 """
 from __future__ import annotations
 

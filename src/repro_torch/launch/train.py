@@ -5,9 +5,15 @@
 
 ``--smoke`` selects the reduced config. Runs on the GPU unless ``--device
 cpu`` is given; without a CUDA device and without ``--device cpu`` it
-raises rather than fall back. Only ``--mesh none`` runs: the port has no
-multi-device path yet, so ``--mesh single|multi`` and a nonzero
-``--devices`` (the reference's forced host device count) exit non-zero.
+raises rather than fall back. ``--mesh single|multi`` trains the sharded
+step (``train_loop.train(dist=)``) on the production mesh
+(``launch/mesh.py``: 256 or 512 ranks), one process per rank started by
+``torchrun`` (the group starts from its ``RANK``/``WORLD_SIZE``/
+``MASTER_ADDR``/``MASTER_PORT``, as the reference starts
+``jax.distributed`` from ``JAX_COORDINATOR``; NCCL on the card, gloo with
+``--device cpu``); a group of another size exits naming the ranks the
+mesh needs. A nonzero ``--devices`` (the reference's forced host device
+count) exits: ranks come from ``torchrun``.
 With ``--ckpt-dir`` the run checkpoints every ``max(steps // 5, 10)``
 steps and a second call resumes at the newest intact checkpoint. The
 ``audio`` and ``vlm`` families exit before any weight is built: their
@@ -22,10 +28,9 @@ import dataclasses
 
 from repro_torch.launch.serve import resolve_device
 
-MULTI_DEVICE = ("needs the sharded train step, the multi-device slice of "
-                "training, which is not ported yet (distributed/* and "
-                "launch/mesh.py serve tensor-parallel only); use --mesh "
-                "none")
+MULTI_DEVICE = ("is multi-device: start one process per rank with torchrun "
+                "(RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT), or use "
+                "--mesh none")
 # the input each family's forward needs beyond tokens
 EXTRA_INPUT = {"audio": "frames", "vlm": "patch_embeds"}
 
@@ -59,11 +64,39 @@ def main(argv=None):
     """Train on ``argv`` (default: the command line); returns (final
     state, history)."""
     args = build_parser().parse_args(argv)
-    if args.mesh != "none":
-        raise SystemExit(f"--mesh {args.mesh} {MULTI_DEVICE}")
     if args.devices:
         raise SystemExit(f"--devices {args.devices} {MULTI_DEVICE}")
+    if args.mesh == "none":
+        return _train(args, None)
+    import os
 
+    import torch.distributed as tdist
+    if "WORLD_SIZE" not in os.environ and not tdist.is_initialized():
+        raise SystemExit(f"--mesh {args.mesh} {MULTI_DEVICE}")
+    resolve_device(args.device)
+    started = not tdist.is_initialized()
+    if started:
+        tdist.init_process_group(
+            "nccl" if args.device == "cuda" else "gloo", init_method="env://")
+    try:
+        from repro_torch.distributed.context import DistContext
+        from repro_torch.launch.mesh import make_production_mesh
+        if args.device == "cuda":
+            import torch
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        try:
+            mesh = make_production_mesh(multi_pod=args.mesh == "multi")
+        except ValueError as e:
+            raise SystemExit(f"--mesh {args.mesh}: {e}") from None
+        return _train(args, DistContext(mesh))
+    finally:
+        if started:
+            tdist.destroy_process_group()
+
+
+def _train(args, dist):
+    """Build the config, the source and the schedules from ``args`` and
+    train (``dist`` None: one device)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.pipeline import make_source
@@ -95,7 +128,7 @@ def main(argv=None):
         ckpt_every=max(args.steps // 5, 10),
         guard=None if args.no_guard else train_loop.GuardConfig())
     state, history = train_loop.train(cfg, opt, source, loop,
-                                      device=device)
+                                      device=device, dist=dist)
     logged = [h for h in history if "loss" in h]
     if logged:
         print(f"done: final loss {logged[-1]['loss']:.4f}, "

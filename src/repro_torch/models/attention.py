@@ -76,11 +76,25 @@ def local_heads(cfg, dist) -> tuple[int, int, int, int]:
 def shard_local(cfg, p, dist):
     """The attention params this rank computes with: ``p`` as sharded
     (``distributed/sharding.py``), with replicated kv projections
-    narrowed to this rank's kv heads (``local_heads``)."""
+    narrowed to this rank's kv heads (``local_heads``). Where the query
+    heads split, a replicated leaf serves only this rank's heads (the
+    narrowed kv projections, the q/k norms), so its gradient is this
+    rank's part of the whole: it passes ``copy_to_model``, whose backward
+    sums the parts over the model axis (an identity outside autograd)."""
     if dist is None:
         return p
+    h, _ = eff_heads(cfg)
     _, _, lo, n = local_heads(cfg, dist)
-    if p["wk"].shape[-2] == n:
+    narrow = p["wk"].shape[-2] != n
+    if dist.shards(h):
+        rep = [k for k in ("q_norm", "k_norm") if k in p]
+        if narrow:
+            rep += [k for k in ("wk", "wv", "bk", "bv") if k in p]
+        if rep:
+            p = dict(p)
+            for k in rep:
+                p[k] = dist.copy_to_model(p[k])
+    if not narrow:
         return p
     p = dict(p)
     for name in ("wk", "wv", "bk", "bv"):

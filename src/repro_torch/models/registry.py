@@ -95,8 +95,9 @@ def init_cache(cfg, batch, max_len, *, dist=None, **kw):
 
 
 def abstract_cache(cfg, batch, max_len, **kw):
-    """Shapes and dtypes of ``init_cache``'s transformer KV cache (no
-    allocation)."""
+    """Shapes and dtypes of the decode cache (no allocation): a
+    transformer's KV cache, the recurrent families' state, whisper's
+    self-attention cache with its encoder memory."""
     return module_for(cfg).abstract_cache(cfg, batch, max_len, **kw)
 
 

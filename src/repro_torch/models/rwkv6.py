@@ -221,6 +221,16 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
     }
 
 
+def abstract_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16):
+    """Shapes and dtypes of ``init_cache``'s state (no allocation)."""
+    from repro_torch.models.params import AbstractParam
+    h, dk, _ = _heads(cfg)
+    n, d = cfg.num_layers, cfg.d_model
+    return {"state": AbstractParam((n, batch, h, dk, dk), torch.float32),
+            "x_tmix": AbstractParam((n, batch, d), dtype),
+            "x_cmix": AbstractParam((n, batch, d), dtype)}
+
+
 def decode_step(cfg, params, cache, tokens, pos, **_):
     """One token through every layer's recurrence. tokens (B,1); ``pos``
     does not enter (the state carries the position). Returns (logits

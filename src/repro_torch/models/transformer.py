@@ -29,6 +29,16 @@ vocab-sharded (each rank's slice of the vocabulary, in rank order), so
 a caller reduces them with ``DistContext.vocab_argmax`` or gathers them
 with ``all_gather``. A cache built with ``dist=`` holds the rank's kv
 heads only.
+
+The training forward (``forward`` with ``masks=`` and ``dist=``, the
+sharded train step) runs the same layout through the conjugate pairs of
+``DistContext``: ``copy_to_model`` on the normed input of every
+column-parallel product (attention's projections, the MLP's gate/up, the
+vocab-sharded head), ``reduce_from_model`` after every row-parallel one
+(``wo``, the MLP's down projection) and after the masked embedding
+lookup. The logits stay vocab-sharded (``core/distill.py`` reduces the
+cross-entropy over the shards); a tied embedding takes both its lookup's
+and its head's gradient on its own rows.
 """
 from __future__ import annotations
 
@@ -41,7 +51,7 @@ import torch.utils.checkpoint
 
 from repro_torch.core import sparse_mlp as sm
 from repro_torch.core.packing import PackedBCSC
-from repro_torch.distributed.context import check_serving
+from repro_torch.distributed.context import check_serving, check_training
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import norm, softcap
@@ -192,7 +202,8 @@ def mlp_forward(cfg, p, x, masks=None, dist=None):
     ``dist`` the GLU is tensor-parallel (its output replicated)."""
     if dist is not None:
         return sm.glu_mlp(x, p["w_gate"], p["w_up"], p["w_down"],
-                          act=cfg.mlp_act, dist=dist, d_ff=cfg.d_ff), 0.0
+                          act=cfg.mlp_act, masks=masks, spec=cfg.blast,
+                          dist=dist, d_ff=cfg.d_ff), 0.0
     if cfg.is_moe:
         return moe_mod.moe_forward(cfg, p, x, masks=masks)
     if cfg.mlp_kind == "glu":
@@ -209,7 +220,7 @@ def _heads_out(cfg, out, dist):
     """Attention's output: the sum over the model axis of each rank's
     row-parallel ``wo`` product where the query heads are split."""
     if dist is not None and dist.shards(attn.eff_heads(cfg)[0]):
-        return dist.all_reduce(out)
+        return dist.reduce_from_model(out)
     return out
 
 
@@ -217,6 +228,8 @@ def _block(cfg, p, x, positions, masks, window, dist=None):
     """One pre-norm transformer block (full causal attention) -> (x,
     aux)."""
     h = norm(cfg.norm_kind, x, p["ln_attn_scale"], p.get("ln_attn_bias"))
+    if dist is not None and dist.shards(attn.eff_heads(cfg)[0]):
+        h = dist.copy_to_model(h)
     a = attn.multihead_attention(cfg, attn.shard_local(cfg, p["attn"], dist),
                                  h, positions, causal=True, window=window)[0]
     x = x + _heads_out(cfg, a, dist)
@@ -232,6 +245,7 @@ def forward(cfg, params, tokens, *, masks=None, patch_embeds=None,
     ``patch_embeds`` (B, num_patches, D) replace a VLM's first token
     embeddings (``embed_inputs``); under ``dist`` the logits are the
     rank's vocab shard."""
+    check_training(cfg, dist)
     b, s = tokens.shape
     x = embed_inputs(cfg, params, tokens, patch_embeds, dist=dist)
     positions = torch.arange(s, dtype=torch.int32,
@@ -261,7 +275,7 @@ def forward(cfg, params, tokens, *, masks=None, patch_embeds=None,
                                          len(lay))):
             x, a = layer(p_l, m_l, x, cfg.sliding_window)
             aux = aux + a
-    return logits_from_hidden(cfg, params, x), aux
+    return logits_from_hidden(cfg, params, x, dist), aux
 
 
 def embed_inputs(cfg, params, tokens, patch_embeds=None, dist=None):
@@ -271,14 +285,13 @@ def embed_inputs(cfg, params, tokens, patch_embeds=None, dist=None):
     ``dist`` with a vocab-sharded table each rank looks up the tokens in
     its slice, zeros the rest, and the all-reduce sums in the one rank's
     row that holds each token (exact)."""
-    check_serving(cfg, dist)
     if dist is not None and dist.shards(cfg.vocab_size):
         table = params["embed"]
         n = table.shape[0]
         local = tokens.long() - dist.model_rank * n
         mine = (local >= 0) & (local < n)
         x = table[local.clamp(0, n - 1)].to(DTYPES[cfg.compute_dtype])
-        x = dist.all_reduce(torch.where(mine[..., None], x, 0.0))
+        x = dist.reduce_from_model(torch.where(mine[..., None], x, 0.0))
     else:
         x = params["embed"][tokens.long()].to(DTYPES[cfg.compute_dtype])
     if cfg.scale_embeddings:
@@ -289,10 +302,12 @@ def embed_inputs(cfg, params, tokens, patch_embeds=None, dist=None):
     return x
 
 
-def logits_from_hidden(cfg, params, x):
+def logits_from_hidden(cfg, params, x, dist=None):
     """Final norm + (tied) LM head -> f32 logits (a sharded rank's head
     is its vocab slice, so its logits are too)."""
     xf = norm(cfg.norm_kind, x, params["ln_f_scale"], params.get("ln_f_bias"))
+    if dist is not None and dist.shards(cfg.vocab_size):
+        xf = dist.copy_to_model(xf)
     head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
     logits = xf @ head.to(xf.dtype)
     return softcap(logits.float(), cfg.final_logit_softcap)
@@ -364,6 +379,7 @@ def decode_step(cfg, params, cache, tokens, pos, *, offsets=None,
     (per-lane frontiers; slots >= max_len drop the write); ``offsets``
     (B,) makes the batch ragged. Returns (logits (B,1,V) f32, cache),
     the cache updated in place."""
+    check_serving(cfg, dist)
     x = embed_inputs(cfg, params, tokens, dist=dist)
 
     def attn_fn(p_a, h, ck, cv, window):
@@ -380,6 +396,7 @@ def prefill_chunk(cfg, params, cache, tokens, slot, offsets, *,
     chunk of right-aligned prompt tokens writes K/V at slots [slot,
     slot+C); lanes outside ``lane_mask`` keep their rows. Returns (logits
     (B,C,V) f32, cache), the cache updated in place."""
+    check_serving(cfg, dist)
     x = embed_inputs(cfg, params, tokens, dist=dist)
 
     def attn_fn(p_a, h, ck, cv, window):
@@ -397,6 +414,7 @@ def paged_decode_step(cfg, params, cache, tokens, pos, block_tables, *,
     drops); block_tables (B, max_pages) int32; attention reads each
     lane's first ``read_pages`` pages. Returns (logits (B,1,V) f32,
     cache), the cache updated in place."""
+    check_serving(cfg, dist)
     x = embed_inputs(cfg, params, tokens, dist=dist)
 
     def attn_fn(p_a, h, ck, cv, window):
@@ -417,6 +435,7 @@ def paged_prefill_chunk(cfg, params, cache, tokens, slot, offsets,
     query runs ragged (the mixed decode+prefill batch). Attention reads
     each lane's first ``read_pages`` pages (must cover every start +
     C). Returns (logits (B,C,V) f32, cache), updated in place."""
+    check_serving(cfg, dist)
     x = embed_inputs(cfg, params, tokens, dist=dist)
 
     def attn_fn(p_a, h, ck, cv, window):

@@ -206,6 +206,21 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def abstract_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
+                   enc_len: int | None = None):
+    """Shapes and dtypes of the whole decode cache (no allocation), as
+    the reference lays it out: the self-attention 'k'/'v' of
+    ``init_cache`` and the encoder memory 'ck'/'cv' of ``enc_len``
+    (default ``max_len``) positions that ``prefill_cross`` makes."""
+    from repro_torch.models.params import AbstractParam
+    _, kv = attn.eff_heads(cfg)
+    n = cfg.num_layers
+    self_ = AbstractParam((n, batch, max_len, kv, cfg.head_dim), dtype)
+    cross = AbstractParam((n, batch, enc_len or max_len, kv, cfg.head_dim),
+                          dtype)
+    return {"k": self_, "v": self_, "ck": cross, "cv": cross}
+
+
 def decode_step(cfg, params, cache, tokens, pos, *, masks=None, **_):
     """One decoder token per lane. tokens (B,1); ``pos`` an int, the cache
     slot and the learned position of every lane (a synchronized batch, as

@@ -255,6 +255,21 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
     }
 
 
+def abstract_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16):
+    """Shapes and dtypes of ``init_cache``'s state (no allocation)."""
+    from repro_torch.models.params import AbstractParam
+    d_inner, nheads, headdim, state = _dims(cfg)
+    _, kv = attn_mod.eff_heads(cfg)
+    n = cfg.num_layers
+    kv_shape = (n_shared_applications(cfg), batch, max_len, kv, cfg.head_dim)
+    return {"ssm": AbstractParam((n, batch, nheads, state, headdim),
+                                 torch.float32),
+            "conv": AbstractParam((n, batch, cfg.conv_kernel - 1,
+                                   d_inner + 2 * state), dtype),
+            "k": AbstractParam(kv_shape, dtype),
+            "v": AbstractParam(kv_shape, dtype)}
+
+
 def decode_step(cfg, params, cache, tokens, pos, **_):
     """One decode step: each application of the shared block (over its own
     KV cache, the new token at slot ``pos``) followed by its span of Mamba

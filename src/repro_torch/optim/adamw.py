@@ -71,22 +71,33 @@ def init(params) -> dict:
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params)}
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, dist=None, sharded=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32 (a device
-    scalar)."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree_leaves(tree)))
+    scalar). Under ``dist``, ``sharded`` (a tree of bools parallel to
+    ``tree``, ``sharding.shard_flags``) marks the leaves split over the
+    model axis: their squares are summed over it in one all-reduce."""
+    leaves = tree_leaves(tree)
+    if dist is None or dist.tp == 1:
+        return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                              for x in leaves))
+    flags = tree_leaves(sharded)
+    sq = [torch.sum(torch.square(x.float())) for x in leaves]
+    split = torch.stack([q for q, f in zip(sq, flags) if f] or
+                        [sq[0].new_zeros(())]).sum()
+    rep = sum(q for q, f in zip(sq, flags) if not f)
+    return torch.sqrt(dist.all_reduce(split) + rep)
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, dist=None, sharded=None):
+    norm = global_norm(grads, dist, sharded)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return tree_map(lambda g: g * scale, grads), norm
 
 
-def update(c: AdamWConfig, grads, opt_state, params, step: int):
+def update(c: AdamWConfig, grads, opt_state, params, step: int, dist=None,
+           sharded=None):
     """One AdamW step. Returns (new_params, new_opt_state, metrics)."""
-    grads, gnorm = clip_by_global_norm(grads, c.grad_clip)
+    grads, gnorm = clip_by_global_norm(grads, c.grad_clip, dist, sharded)
     lr = lr_at(c, step)
     t = _F(step) + _F(1.0)
     bc1 = float(_F(1.0) - _F(c.b1) ** t)

@@ -218,15 +218,33 @@ def run_child(spec: dict, spec_path: str,
               timeout: float = 600) -> subprocess.CompletedProcess:
     """Write ``spec`` to ``spec_path`` and run the chaos child on it in a
     subprocess (a ``hard_kill`` SIGKILLs the child, not the caller). A
-    killed child has ``returncode == -SIGKILL``."""
+    killed child has ``returncode == -SIGKILL``. The child dies with the
+    caller's process (``_die_with_parent``)."""
     with open(spec_path, "w") as f:
         json.dump(spec, f)
     env = dict(os.environ)
+    env[_PARENT_ENV] = str(os.getpid())
     env["PYTHONPATH"] = (_src_root() + os.pathsep
                          + env.get("PYTHONPATH", ""))
     return subprocess.run(
         [sys.executable, "-m", "repro_torch.training.faults", spec_path],
         capture_output=True, text=True, env=env, timeout=timeout)
+
+
+_PARENT_ENV = "REPRO_CHAOS_PARENT_PID"
+
+
+def _die_with_parent() -> None:
+    """On Linux, have the kernel SIGKILL this child when the process that
+    ran ``run_child`` ends, so no child outlives a killed caller; exit at
+    once if that process is already gone."""
+    parent = os.environ.get(_PARENT_ENV)
+    if parent is None or not sys.platform.startswith("linux"):
+        return
+    import ctypes
+    ctypes.CDLL(None, use_errno=True).prctl(1, signal.SIGKILL)  # PDEATHSIG
+    if os.getppid() != int(parent):
+        os._exit(1)
 
 
 def chaos_child_main(argv: list[str]) -> None:
@@ -236,6 +254,7 @@ def chaos_child_main(argv: list[str]) -> None:
     ``meta_out``. Deterministic algorithms are switched on first, before
     CUDA starts; an op without a deterministic variant warns instead of
     raising, and the warnings are kept in the metadata."""
+    _die_with_parent()
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import warnings
 

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import distill, sparse_mlp as sm
+from repro_torch.distributed.context import check_training
 from repro_torch.models import registry
 from repro_torch.optim import adamw
 
@@ -35,32 +36,78 @@ class TrainState:
     generator: torch.Generator
 
 
-def init_state(cfg, seed: int = 0, device="cuda") -> TrainState:
-    """Seeded f32 params, all-kept masks and zero moments on ``device``."""
+def init_state(cfg, seed: int = 0, device="cuda", dist=None) -> TrainState:
+    """Seeded f32 params, all-kept masks and zero moments on ``device``.
+    Under ``dist`` the whole params are drawn (the same numbers as one
+    device), then cut to this rank's shard, and the masks and moments
+    are made at the shard's shapes."""
     params = registry.init_params(cfg, seed, device)
+    if dist is not None:
+        from repro_torch.distributed import sharding
+        check_training(cfg, dist)
+        params = sharding.shard_tree(
+            params, sharding.state_shardings(cfg, dist.mesh).params)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     return TrainState(step=0, params=params, opt_state=adamw.init(params),
                       masks=registry.init_masks(cfg, params), generator=gen)
 
 
+def abstract_state(cfg) -> TrainState:
+    """Shapes and dtypes of the logical train state (no allocation):
+    params, the moments 'm'/'v', the masks and the step (a () int32, as
+    in the reference); ``generator`` is None (the port keeps a
+    ``torch.Generator``, not JAX's (2,) uint32 key)."""
+    from repro_torch.models.params import AbstractParam
+    params = registry.abstract_params(cfg)
+    masks = {}
+    if cfg.blast.enabled:
+        for path in registry.sparse_paths(cfg):
+            w = sm.get_path(params, path)
+            bi, bo = sm.block_dims_for(cfg.blast, path)
+            masks[path] = AbstractParam(
+                w.shape[:-2] + (w.shape[-2] // bi, w.shape[-1] // bo),
+                torch.bool)
+    same = lambda t: adamw.tree_map(                      # noqa: E731
+        lambda x: AbstractParam(x.shape, x.dtype), t)
+    return TrainState(step=AbstractParam((), torch.int32), params=params,
+                      opt_state={"m": same(params), "v": same(params)},
+                      masks=masks, generator=None)
+
+
 def loss_fn(cfg, params, masks, batch, teacher_logits=None, kd_alpha=1.0,
-            kd_beta=0.0):
+            kd_beta=0.0, dist=None, count_over_data=True):
     """The distillation loss (plus an MoE model's aux term) of one batch;
     whisper's forward also takes ``batch["frames"]`` and a VLM's
-    ``batch["patch_embeds"]``."""
+    ``batch["patch_embeds"]``. Under ``dist`` the forward is the
+    rank's shard and the loss this rank's share of the global mean
+    (``count_over_data``; False: of its own rows, the deferred step's)."""
     kw = {}
     if cfg.family == "audio":
         kw["frames"] = batch["frames"]
     if cfg.family == "vlm":
         kw["patch_embeds"] = batch["patch_embeds"]
     logits, aux = registry.forward(cfg, params, batch["tokens"],
-                                   masks=masks or None, **kw)
+                                   masks=masks or None, dist=dist, **kw)
+    vp = dist is not None and dist.shards(cfg.vocab_size)
     loss = distill.distill_loss(logits, batch["labels"], teacher_logits,
-                                alpha=kd_alpha, beta=kd_beta)
+                                alpha=kd_alpha, beta=kd_beta, dist=dist,
+                                vocab_parallel=vp,
+                                count_over_data=count_over_data)
     if cfg.is_moe:
         loss = loss + 0.01 * aux
     return loss, (logits, aux)
+
+
+def check_dist_options(cfg, dist, kd_beta=0.0, teacher_params_static=None):
+    """Refuse what the sharded train step does not cover, before any
+    collective: other families (``check_training``) and distillation."""
+    check_training(cfg, dist)
+    if dist is not None and (kd_beta != 0.0
+                             or teacher_params_static is not None):
+        raise NotImplementedError(
+            "knowledge distillation under dist= is not ported (ROADMAP §1 "
+            "item 4: the KD term under dist=)")
 
 
 def _leaf_params(params):
@@ -69,7 +116,77 @@ def _leaf_params(params):
     return adamw.tree_map(lambda p: p.detach().requires_grad_(True), params)
 
 
-def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, kd_alpha=1.0,
+def dense_flags_on(cfg):
+    """device -> the model's dense-layer flags there (cached per device):
+    None (every layer may be pruned: zamba's one shared MLP), a (L,)
+    bool tensor, or a dict of them per stack (whisper's encoder and
+    decoder); None too without BLaST."""
+    cpu = registry.dense_layer_flags(cfg) if cfg.blast.enabled else None
+    cache = {"cpu": cpu}
+
+    def on(device):
+        if cpu is None:
+            return None
+        if str(device) not in cache:
+            cache[str(device)] = ({k: v.to(device) for k, v in cpu.items()}
+                                  if isinstance(cpu, dict)
+                                  else cpu.to(device))
+        return cache[str(device)]
+    return on
+
+
+def dist_layout(cfg, dist):
+    """(per-leaf model-split flags of the params, of the masks, the mask
+    specs) of the train state under ``dist``; Nones without one."""
+    if dist is None:
+        return None, None, None
+    from repro_torch.distributed import sharding
+    sh = sharding.state_shardings(cfg, dist.mesh)
+    return (sharding.shard_flags(sh.params), sharding.shard_flags(sh.masks),
+            {p: s.spec for p, s in sh.masks.items()})
+
+
+def loss_and_grads(cfg, state: TrainState, batch, dist=None,
+                   microbatches: int = 1, teacher_logits=None, kd_alpha=1.0,
+                   kd_beta=0.0, poison=0.0, over_data: bool = True):
+    """(loss, aux, dense gradients) of ``batch``, averaged over
+    ``microbatches`` slices of it. ``poison`` multiplies the loss before
+    the backward (the reported loss too). Under ``dist`` with
+    ``over_data``, each rank's loss is its share of the global mean and
+    every microbatch's loss and gradients are summed over the data axes
+    (as GSPMD reduces them in the reference); without, they stay this
+    rank's own, the mean over its rows (the deferred step's)."""
+    n = max(microbatches, 1)
+    cut = {k: v.chunk(n) for k, v in batch.items()}
+    chunks = [{k: v[i] for k, v in cut.items()} for i in range(n)]
+    tls = (teacher_logits.chunk(n) if teacher_logits is not None
+           else [None] * n)
+    reduce = over_data and dist is not None and dist.data_size > 1
+    total, loss, aux = None, 0.0, 0.0
+    for b, tl in zip(chunks, tls):
+        leaves = _leaf_params(state.params)
+        l_i, (_, a_i) = loss_fn(cfg, leaves, state.masks, b, tl, kd_alpha,
+                                kd_beta, dist, count_over_data=over_data)
+        l_i = l_i * (1.0 + poison)       # the reported loss is poisoned too
+        ps = adamw.tree_leaves(leaves)
+        gs = torch.autograd.grad(l_i, ps, allow_unused=True)
+        it = iter(g if g is not None else torch.zeros_like(p)
+                  for p, g in zip(ps, gs))
+        g_i = adamw.tree_map(lambda _: next(it), leaves)
+        l_i = l_i.detach()
+        if reduce:
+            for g in adamw.tree_leaves(g_i):
+                dist.sum_over_data(g)
+            l_i = dist.sum_over_data(l_i.clone())
+        if n == 1:
+            return l_i, a_i, g_i
+        total = (g_i if total is None
+                 else adamw.tree_map(torch.add, total, g_i))
+        loss, aux = loss + l_i, aux + a_i
+    return loss / n, aux / n, adamw.tree_map(lambda g: g / n, total)
+
+
+def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, dist=None, kd_alpha=1.0,
                     kd_beta=0.0, teacher_cfg=None, teacher_params_static=None,
                     microbatches: int = 1, guard: bool = True,
                     grad_norm_limit: float | None = None):
@@ -81,42 +198,20 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, kd_alpha=1.0,
     backward (NaN/Inf poisons every gradient; 0.0 is an exact identity),
     ``loss_poison`` is added to the REPORTED loss only, ``force_skip``
     forces the skip path. ``microbatches`` > 1 accumulates gradients over
-    batch slices. With ``teacher_params_static`` an in-step dense teacher
-    forward supplies the KD logits; a batch may also carry
-    'teacher_logits'.
+    batch slices. ``dist``: the sharded step (module docstring); ``state``
+    and ``batch`` are then this rank's shard and rows. With
+    ``teacher_params_static`` an in-step dense teacher forward supplies
+    the KD logits; a batch may also carry 'teacher_logits'.
 
     Anomaly guard (``guard``): a non-finite loss or gradient norm, or a
     norm over ``grad_norm_limit``, skips the update. Metrics: 'loss',
     'aux', 'grad_norm', 'lr', 'anomaly' as host numbers; 'sparsity' as a
     device scalar made after the update (0 without BLaST), so that its
     read waits for the whole step on the device."""
+    check_dist_options(cfg, dist, kd_beta, teacher_params_static)
+    p_flags, m_flags, m_specs = dist_layout(cfg, dist)
     spec = cfg.blast
-    # None: every layer may be pruned (zamba's one shared MLP); a dict:
-    # flags per stack (whisper's encoder and decoder)
-    cpu_flags = registry.dense_layer_flags(cfg) if spec.enabled else None
-    flags = None if cpu_flags is None else {"cpu": cpu_flags}
-
-    def dense_flags(device):
-        if flags is None:
-            return None
-        if str(device) not in flags:
-            cpu = flags["cpu"]
-            flags[str(device)] = ({k: v.to(device) for k, v in cpu.items()}
-                                  if isinstance(cpu, dict)
-                                  else cpu.to(device))
-        return flags[str(device)]
-
-    def grads_of(state, b, tl, poison):
-        leaves = _leaf_params(state.params)
-        loss, (_, aux) = loss_fn(cfg, leaves, state.masks, b, tl, kd_alpha,
-                                 kd_beta)
-        loss = loss * (1.0 + poison)       # the reported loss is poisoned too
-        ps = adamw.tree_leaves(leaves)
-        gs = torch.autograd.grad(loss, ps, allow_unused=True)
-        it = iter(g if g is not None else torch.zeros_like(p)
-                  for p, g in zip(ps, gs))
-        return loss.detach(), aux, adamw.tree_map(lambda _: next(it),
-                                                  leaves)
+    dense_flags = dense_flags_on(cfg)
 
     def train_step(state: TrainState, batch):
         batch = dict(batch)
@@ -128,28 +223,11 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, kd_alpha=1.0,
                     teacher_cfg or cfg, teacher_params_static,
                     batch["tokens"])
 
-        if microbatches <= 1:
-            loss, aux, dense_grads = grads_of(state, batch, teacher_logits,
-                                              poison["grad_poison"])
-        else:
-            n = microbatches
-            chunks = {k: v.chunk(n) for k, v in batch.items()}
-            tls = (teacher_logits.chunk(n) if teacher_logits is not None
-                   else [None] * n)
-            dense_grads = adamw.tree_map(
-                lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                      device=p.device), state.params)
-            loss, aux = 0.0, 0.0
-            for i in range(n):
-                l_i, a_i, g_i = grads_of(
-                    state, {k: v[i] for k, v in chunks.items()}, tls[i],
-                    poison["grad_poison"])
-                dense_grads = adamw.tree_map(torch.add, dense_grads, g_i)
-                loss, aux = loss + l_i, aux + a_i
-            dense_grads = adamw.tree_map(lambda g: g / n, dense_grads)
-            loss, aux = loss / n, aux / n
+        loss, aux, dense_grads = loss_and_grads(
+            cfg, state, batch, dist, microbatches, teacher_logits, kd_alpha,
+            kd_beta, poison["grad_poison"])
 
-        gnorm = adamw.global_norm(dense_grads)
+        gnorm = adamw.global_norm(dense_grads, dist, p_flags)
         # the step's one host read: loss and norm together, and an MoE
         # model's aux (a dense model's is the host float 0.0)
         if torch.is_tensor(aux):
@@ -175,22 +253,23 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, kd_alpha=1.0,
             # masked grads
             masks, params, _ = sm.maybe_refresh(
                 spec, state.params, dense_grads, state.masks, state.step,
-                dense_flags(loss.device))
+                dense_flags(loss.device), dist, m_specs)
             grads = sm.mask_grads(masks, dense_grads, spec)
             opt_state = adamw.mask_moments(state.opt_state, masks, spec)
             params, opt_state, _ = adamw.update(opt_cfg, grads, opt_state,
-                                                params, state.step)
+                                                params, state.step, dist,
+                                                p_flags)
         else:
             masks = state.masks
             params, opt_state, _ = adamw.update(
                 opt_cfg, dense_grads, state.opt_state, state.params,
-                state.step)
+                state.step, dist, p_flags)
 
         metrics = {"loss": float(np.float32(loss_h)
                                  + np.float32(poison["loss_poison"])),
                    "aux": aux_h,
-                   "sparsity": (sm.tree_sparsity(masks) if spec.enabled
-                                else loss.new_zeros(())),
+                   "sparsity": (sm.tree_sparsity(masks, dist, m_flags)
+                                if spec.enabled else loss.new_zeros(())),
                    "grad_norm": gnorm_h,
                    "lr": adamw.lr_at(opt_cfg, state.step),
                    "anomaly": int(anomaly)}

@@ -21,9 +21,17 @@ watchdog.
     ``MetricsRegistry(namespace="blast_train")`` (or the ``metrics=``
     one a caller injects, to scrape it).
 
-Not ported yet: ``dist=``, the sharded train step. Multi-device serving
-is ported (``distributed/*``, ``serving`` with ``dist=``); training runs
-on one device.
+Multi-device (``dist=``, a ``DistContext`` on a (data, model) mesh; the
+dense GLU family): every rank runs this loop on its shard of the state
+(``sharding.state_shardings``) with the sharded train step. Batches are
+``source.batch(step)``, the same global batch as one device's, cut to
+the data rank's rows (``sharding.slice_batch``). A checkpoint gathers
+the logical state (a collective) and the mesh's rank 0 writes it,
+blocking, before every rank goes on, so all ranks see the same files;
+resume and rewind restore it onto whatever mesh the run has. Every host
+decision reads values equal on all ranks: the loss and the anomaly flag
+(reduced in the step), the slowest rank's step time and any rank's stop
+signal (one small max all-reduce per step).
 
 Two host reads per step: the step reads its loss and gradient norm
 together to decide skip or update (``training/step.py``), and the loop
@@ -49,7 +57,8 @@ from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.optim import adamw
 from repro_torch.training import step as step_mod
-from repro_torch.training.faults import TrainingDivergedError
+from repro_torch.training.faults import (CheckpointCorruptionError,
+                                        TrainingDivergedError)
 from repro_torch.training.guard import AnomalyGuard, GuardConfig
 
 # the loop's counters, registered with their help on its metrics registry
@@ -80,7 +89,7 @@ def train(cfg, opt_cfg: adamw.AdamWConfig, source, loop: TrainLoopConfig,
           state=None, log_fn: Callable[[dict], None] | None = None,
           teacher_params=None, teacher_cfg=None, kd_beta: float = 0.0,
           faults=None, device="cuda", seed: int = 0, tracer=None,
-          metrics=None):
+          metrics=None, dist=None):
     """Returns (final_state, history).
 
     ``source.batch(step)`` gives numpy 'tokens' and 'labels'. Without a
@@ -98,30 +107,49 @@ def train(cfg, opt_cfg: adamw.AdamWConfig, source, loop: TrainLoopConfig,
     ``tracer`` (obs/trace.py) records the ``train.step`` spans and the
     ``train.*`` events and dumps the rewind and divergence postmortems;
     ``metrics`` injects the ``MetricsRegistry`` behind the counters (by
-    default a private one), so a caller can scrape them."""
+    default a private one), so a caller can scrape them.
+
+    ``dist``: the sharded run (module docstring); ``state``, when given,
+    is then this rank's shard."""
     tr = NULL_TRACER if tracer is None else tracer
     reg = metrics if metrics is not None else MetricsRegistry(
         namespace="blast_train")
     gcfg = loop.guard if (loop.guard and loop.guard.enabled) else None
     step_fn = step_mod.make_train_step(
-        cfg, opt_cfg, kd_beta=kd_beta, teacher_cfg=teacher_cfg,
+        cfg, opt_cfg, dist=dist, kd_beta=kd_beta, teacher_cfg=teacher_cfg,
         teacher_params_static=teacher_params, guard=gcfg is not None,
         grad_norm_limit=gcfg.grad_norm_limit if gcfg else None)
     if state is None:
-        state = step_mod.init_state(cfg, seed, device)
+        state = step_mod.init_state(cfg, seed, device, dist=dist)
     dev = adamw.tree_leaves(state.params)[0].device
+    shardings = None
+    if dist is not None:
+        from repro_torch.distributed import sharding
+        shardings = sharding.state_shardings(cfg, dist.mesh)
 
-    ckpt = Checkpointer(loop.ckpt_dir, keep=loop.keep) \
-        if loop.ckpt_dir else None
+    ckpt = None
+    if loop.ckpt_dir:
+        writer = dist is None or dist.mesh.rank == 0
+        if not writer:       # the writer recovers a killed run's leftovers
+            _mesh_max(dist, dev, 0.0)
+        ckpt = Checkpointer(loop.ckpt_dir, keep=loop.keep, writer=writer)
+        if writer and dist is not None:
+            _mesh_max(dist, dev, 0.0)
     if ckpt is not None:
         ckpt.tracer = tr
         if faults is not None:
             ckpt.fault_hook = faults.on_ckpt_saved
     start = 0
-    if ckpt and ckpt.latest_intact_step() is not None:
-        state = ckpt.restore_state(state)
-        start = state.step
-        print(f"[resume] restored step {start} from {loop.ckpt_dir}")
+    if ckpt and ckpt.steps():
+        # the newest intact checkpoint, verified as it is read (one pass
+        # over its file); none intact: start afresh
+        try:
+            state = ckpt.restore_state(state, shardings=shardings)
+        except CheckpointCorruptionError:
+            pass
+        else:
+            start = state.step
+            print(f"[resume] restored step {start} from {loop.ckpt_dir}")
 
     guard = AnomalyGuard(
         gcfg, step_size=(cfg.blast.step_size if cfg.blast.enabled
@@ -165,6 +193,8 @@ def train(cfg, opt_cfg: adamw.AdamWConfig, source, loop: TrainLoopConfig,
                 faults.on_host_step(i)
             batch = {k: torch.as_tensor(v, device=dev)
                      for k, v in source.batch(i).items()}
+            if dist is not None:
+                batch = sharding.slice_batch(batch, dist)
             if faults is not None:
                 batch.update(faults.step_scalars(i))
             t0 = time.monotonic()
@@ -175,6 +205,10 @@ def train(cfg, opt_cfg: adamw.AdamWConfig, source, loop: TrainLoopConfig,
             # the update, this read closes the step on the device
             m = {k: float(v) for k, v in out.items()}
             dt = time.monotonic() - t0
+            if dist is not None:
+                # the slowest rank's time and any rank's stop signal
+                dt, flag = _mesh_max(dist, dev, dt, float(stop["flag"]))
+                stop["flag"] = flag > 0
             durations.append(dt)
             med = float(np.median(durations[-50:]))
             if len(durations) > 5 and dt > loop.straggler_factor * med:
@@ -201,7 +235,8 @@ def train(cfg, opt_cfg: adamw.AdamWConfig, source, loop: TrainLoopConfig,
                         tr.postmortem("train_rewind", step=i,
                                       consecutive=guard.consecutive,
                                       rewinds=guard.counters["rewinds"])
-                        state = ckpt.restore_state(state)
+                        state = ckpt.restore_state(state,
+                                                   shardings=shardings)
                         counters["ckpt_fallbacks"] = ckpt.fallbacks
                         new_i = state.step
                         guard.note_rewind(i, new_i)
@@ -233,11 +268,12 @@ def train(cfg, opt_cfg: adamw.AdamWConfig, source, loop: TrainLoopConfig,
                     print(f"step {i:5d} loss {m['loss']:.4f} "
                           f"sparsity {m['sparsity']:.3f} {dt:.2f}s")
             if ckpt and ((i + 1) % loop.ckpt_every == 0):
-                ckpt.save(i + 1, state)
+                _save(ckpt, i + 1, state, dist, shardings, dev)
             if stop["flag"]:
                 print(f"[preempt] signal at step {i}; checkpointing")
                 if ckpt:
-                    ckpt.save(i + 1, state, blocking=True)
+                    _save(ckpt, i + 1, state, dist, shardings, dev,
+                          blocking=True)
                 break
             i += 1
     finally:
@@ -253,3 +289,29 @@ def train(cfg, opt_cfg: adamw.AdamWConfig, source, loop: TrainLoopConfig,
         for sig, h in old_handlers.items():
             signal.signal(sig, h)
     return state, history
+
+
+def _mesh_max(dist, dev, *vals):
+    """The maxima of host numbers over every rank of the mesh (one small
+    all-reduce per mesh axis; a barrier too)."""
+    t = torch.tensor(vals, dtype=torch.float64, device=dev)
+    return dist.max_over_mesh(t).tolist()
+
+
+def _save(ckpt, step, state, dist, shardings, dev, blocking=False):
+    """One device: the checkpointer's own save. Sharded: the logical
+    state is gathered leaf by leaf, each whole leaf copied to the
+    writer's host memory and dropped on the device at once (the other
+    ranks drop it), the writer saves the host copy blocking, and no rank
+    goes on before the files are in place."""
+    if dist is None:
+        ckpt.save(step, state, blocking=blocking)
+        return
+    from repro_torch.distributed import sharding
+    host = sharding.gather_state(
+        state, shardings,
+        (lambda t: t.cpu()) if ckpt.writer else (lambda t: None))
+    if ckpt.writer:
+        ckpt.save(step, host, blocking=True)
+    del host
+    _mesh_max(dist, dev, 0.0)

@@ -54,10 +54,12 @@ def test_no_file_imports_jax_or_repro(rel):
 
 
 def test_multi_device_modules_are_scanned():
-    """The multi-device slice's modules are among the files above."""
+    """The multi-device slices' modules are among the files above."""
     for rel in ("repro_torch/distributed/context.py",
                 "repro_torch/distributed/sharding.py",
-                "repro_torch/launch/mesh.py"):
+                "repro_torch/launch/mesh.py",
+                "repro_torch/training/deferred.py",
+                "repro_torch/optim/compress.py"):
         assert rel in FILES
 
 
