@@ -71,8 +71,14 @@ and a short run of the joint artifact: on every rank, the streams equal
 the single-device runs' (a first divergence only at a near-tie), the
 block tables and page accounting equal theirs (a digest), the full-depth
 logits within 2**-5 of their magnitude, every kernel of the path
-launched, each rank holding about half the weight and KV bytes; then the
-kernels at a rank's local shapes (``tp_kernel`` lines).
+launched, each rank holding about half the weight and KV bytes. In the
+same ranks, ``serving/step.py::make_prefill_step`` with ``dist=`` on 8
+prompts of 128 tokens over the shard-local packed params: sequence
+parallelism (on by default, as in the reference) splits the stream
+along S, the ranks reduce-scatter, and the gathered last-token logits
+hold to the same bound against one device's ``make_prefill_step`` with
+the greedy tokens equal but at near-ties. Then the kernels at a rank's
+local shapes (``tp_kernel`` lines).
 
 Training: 12 steps of the BLaST trainer (``train_loop.train``: masked
 dense with in-step prune-and-grow, f32 params, bf16 compute) on 8 x 128
@@ -92,23 +98,30 @@ compared by their states and never by their time, run side by side.
 The sharded train step (``train_tp``, after the chaos children, beside
 which its ranks start and warm up on a small model): two spawned ranks
 (NCCL with a card each, gloo sharing card 0 with one) run one process
-group and two meshes over it. (a) A model axis of 2:
-full-width, full-depth Llama-3.2-1B trained through ``train_loop.train(
-dist=)`` exactly as ``train`` trains it on one device, for that run's
-first five steps (its refreshes at steps 0 and 4): the losses and
-gradient norms within a bf16 tolerance of the one-device run's, so is
-every layer's gradient history (AdamW's v summed over the layer), the
-gathered masks after both refreshes equal to its masks but for blocks
-that were near-ties in its own block scores. (b) A data axis of 2: two
-steps (3 and 4, the second a refresh) of the deferred step
+group and two meshes over it. (a) A model axis of 2, sequence-parallel
+(the default, as the reference's launcher trains): full-width,
+full-depth Llama-3.2-1B trained through ``train_loop.train(dist=)``
+exactly as ``train`` trains it on one device, for that run's first five
+steps (its refreshes at steps 0 and 4): the losses and gradient norms
+within a bf16 tolerance of the one-device run's, so is every layer's
+gradient history (AdamW's v summed over the layer), the gathered masks
+after both refreshes equal to its masks but for blocks that were
+near-ties in its own block scores, and every step reduce-scatters.
+Then distillation on the same axis (the paper's compression setting):
+two steps with KD weight 0.5 and temperature 2 of the seeded init pruned
+once to 0.5, its teacher that init dense and sharded like it (its
+forward in the step, sequence-parallel too), against two one-device KD
+steps from the same state that the script runs once the ranks have
+exited, under the same tolerances. (b) A data axis of 2: two steps (3 and 4, the second a
+refresh and distilled from the 4-layer dense init) of the deferred step
 (``training/deferred.py``) with two microbatches and int8 error-feedback
 compression on two whole 4-layer replicas: each leaf's compressed mean
 within half a quantization step of the f32 mean over the same ranks,
 the new params and masks those of the one-device refresh and AdamW
-update applied to that compressed mean, the first loss within the bf16
-tolerance of the one-device loss on the whole batch. The line prints
-the collectives per step and their bytes, each rank's bytes and the
-phase's seconds.
+update applied to that compressed mean, each step's loss within the
+bf16 tolerance of the one-device loss on the whole batch (with the KD
+term on the second). The line prints the collectives per step by kind
+and their bytes, each rank's bytes and the phase's seconds.
 
 Observability (``repro_torch/obs``): ``obs_serve`` serves the 12
 requests at full depth in three rounds, each an untraced and a traced
@@ -308,6 +321,17 @@ TRAIN_DP_START, TRAIN_DP_STEPS = 3, 2
 TRAIN_TP_TOL, TRAIN_TP_LAYER_TOL = 2.0 ** -8, 2.0 ** -6
 TRAIN_TP_TIE, TRAIN_DP_UPDATE_TOL = 2.0 ** -5, 1e-3
 TRAIN_TP_DIR = os.path.join(ROOT, "build", "chip_train_tp")
+# distillation in train_tp (the paper's compression setting, §5.2): the
+# student starts from the seeded init pruned once by magnitude to
+# KD_SPARSITY (the dense_last layers kept), the teacher is that seeded
+# init dense; KD_STEPS steps from step KD_START (no refresh at either) at
+# KD weight KD_BETA and temperature KD_TEMPERATURE, sharded against one
+# device under (a)'s tolerances; (b)'s second step adds the KD term
+KD_SPARSITY, KD_START, KD_STEPS = 0.5, 5, 2
+KD_BETA, KD_TEMPERATURE = 0.5, 2.0
+# serve_tp's full-sequence prefill (make_prefill_step with dist=, so
+# sequence-parallel): SP_PREFILL prompts of SP_PREFILL_LEN tokens
+SP_PREFILL, SP_PREFILL_LEN = 8, 128
 
 
 T0 = time.monotonic()
@@ -1560,9 +1584,9 @@ def _mlp_inputs(torch, cfg, params, prompts):
     seen = []
     forward = transformer.mlp_forward
 
-    def recording(cfg_, p, x, masks=None, dist=None):
+    def recording(cfg_, p, x, masks=None, **kw):
         seen.append(x.clone())
-        return forward(cfg_, p, x, masks, dist=dist)
+        return forward(cfg_, p, x, masks, **kw)
 
     transformer.mlp_forward = recording
     try:
@@ -2054,9 +2078,9 @@ def _train_mlp_inputs(torch, cfg, state, tokens):
     seen = []
     forward = transformer.mlp_forward
 
-    def recording(cfg_, p, x, masks=None, dist=None):
+    def recording(cfg_, p, x, masks=None, **kw):
         seen.append(x.reshape(-1, x.shape[-1]).clone())
-        return forward(cfg_, p, x, masks, dist=dist)
+        return forward(cfg_, p, x, masks, **kw)
 
     transformer.mlp_forward = recording
     try:
@@ -2592,6 +2616,7 @@ def _tp_rank(rank, world, backend, cfg, dirs, prompts, loop_prompts):
                                   tok_per_s=st["tok_per_s"])
         out["logits"] = [_last_logits(torch, cfg, params, p, dist)
                          .cpu().numpy() for p in prompts[:4]]
+        out["sp_prefill"] = _sp_prefill(torch, tdist, cfg, params, dist)
         del params
         params = shard("joint")
         _reset_counts()
@@ -2608,6 +2633,38 @@ def _tp_rank(rank, world, backend, cfg, dirs, prompts, loop_prompts):
         tdist.destroy_process_group()
     with open(os.path.join(TP_DIR, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
+
+
+def _sp_prefill_tokens(torch, cfg):
+    """``SP_PREFILL`` seeded prompts of ``SP_PREFILL_LEN`` tokens, on the
+    card."""
+    rng = np.random.default_rng(SEED + 27)
+    return torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(
+        SP_PREFILL, SP_PREFILL_LEN)).astype(np.int32), device=DEVICE)
+
+
+def _sp_prefill(torch, tdist, cfg, params, dist):
+    """``serving/step.py::make_prefill_step`` with ``dist=`` (sequence
+    parallelism on, the reference's default) over this rank's packed
+    shard on ``_sp_prefill_tokens``: the gathered last-token logits, the
+    collectives by kind (counted from here on in this rank), the kernel
+    launches and the seconds of the call."""
+    from repro_torch.serving.step import make_prefill_step
+    counts = _count_collectives(tdist)
+    tokens = _sp_prefill_tokens(torch, cfg)
+    torch.cuda.synchronize()
+    _reset_counts()
+    counts.clear()
+    t0 = time.monotonic()
+    with torch.inference_mode():
+        last = make_prefill_step(cfg, dist)(params, tokens)
+    torch.cuda.synchronize()
+    return dict(logits=last.float().cpu().numpy(),
+                wall_s=time.monotonic() - t0,
+                seq_split=dist.seq_split(tuple(tokens.shape)
+                                         + (cfg.d_model,)),
+                collectives={k: dict(v) for k, v in counts.items()},
+                launches=_read_counts())
 
 
 def _die_with_parent():
@@ -2812,6 +2869,8 @@ def phase_serve_tp(torch, card, cfg, packed, joint, prompts, loop_prompts,
         check(r["weight_bytes"] <= TP_BYTES_FRACTION * full_bytes + whole,
               f"serve_tp: rank {r['rank']} holds {r['weight_bytes']} bytes "
               f"of {full_bytes} ({whole} held whole)")
+    sp = _check_sp_prefill(torch, cfg, packed, ranks)
+    counts += [r["sp_prefill"]["launches"] for r in ranks]
     lines = _tp_kernel_lines(torch, card, cfg, packed, joint, world)
     emit(phase="serve_tp", model=cfg.name, depth=cfg.num_layers, tp=world,
          backend=backend, devices=[r["device"] for r in ranks],
@@ -2834,9 +2893,68 @@ def phase_serve_tp(torch, card, cfg, packed, joint, prompts, loop_prompts,
                for name in ("phased", "mixed", "serve_loop", "joint")},
          kernel_lines={k: {"ms": v["ms"], "max_abs_err": v["max_abs_err"]}
                        for k, v in lines.items()},
+         sp_prefill=sp,
          tok_per_s_note="two ranks on one card over gloo: the phase's "
                         "own rate, not a tensor-parallel speed")
     return counts
+
+
+def _check_sp_prefill(torch, cfg, packed, ranks) -> dict:
+    """The ranks' sequence-parallel ``make_prefill_step`` (``_sp_prefill``)
+    against one device's on the same packed weights and tokens: on every
+    rank the stream split along S, reduce-scatters issued, the split GLU
+    and ``bspmm`` launched, the last-token logits within ``serve_tp``'s
+    bound (2**-5 of the one-device logits' magnitude) and the greedy
+    tokens equal but where one device's top-2 margin is below
+    ``TP_NEAR_TIE`` times that bound. Returns the line's readings."""
+    from repro_torch.serving.step import make_prefill_step
+    tokens = _sp_prefill_tokens(torch, cfg)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with torch.inference_mode():
+        single = make_prefill_step(cfg)(packed, tokens).float()
+    torch.cuda.synchronize()
+    single_s = time.monotonic() - t0
+    top2 = torch.topk(single, 2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+    want = single.argmax(-1).cpu().numpy()
+    single = single.cpu().numpy()
+    tol = 2.0 ** -5 * float(np.abs(single).max())
+    near_tie = TP_NEAR_TIE * tol
+    err, accepted = 0.0, []
+    for r in ranks:
+        p = r["sp_prefill"]
+        at = f"serve_tp sp prefill: rank {r['rank']}"
+        check(p["seq_split"], f"{at}: the stream was not split along S")
+        rs = sum(p["collectives"].get("reduce_scatter", {}).values())
+        check(rs > 0, f"{at}: no reduce-scatter ({p['collectives']})")
+        check(p["launches"]["bspmm"] > 0
+              and p["launches"]["fused_glu_split"] > 0,
+              f"{at}: launches {p['launches']}")
+        check(p["logits"].shape == single.shape,
+              f"{at}: logits {p['logits'].shape}")
+        err = max(err, float(np.abs(p["logits"] - single).max()))
+        got = p["logits"].argmax(-1)
+        for row in np.nonzero(got != want)[0]:
+            check(margin[row] < near_tie,
+                  f"{at}: row {row} greedy {got[row]} != {want[row]} at "
+                  f"margin {margin[row]} (near-tie {near_tie})")
+            accepted.append((r["rank"], int(row), float(margin[row])))
+    check(err <= tol, f"serve_tp sp prefill: logits differ by {err} > {tol}")
+    r0 = ranks[0]["sp_prefill"]
+    return dict(prompts=SP_PREFILL, tokens=SP_PREFILL_LEN,
+                seq_split=r0["seq_split"], logits_max_abs_err=err,
+                logits_tol=tol, logits_err_over_tol=err / tol,
+                near_tie=near_tie, accepted_divergences=accepted,
+                greedy_equal_rows=int(sum(
+                    (r["sp_prefill"]["logits"].argmax(-1) == want).sum()
+                    for r in ranks)),
+                collectives_per_rank=[r["sp_prefill"]["collectives"]
+                                      for r in ranks],
+                launches_per_rank=[r["sp_prefill"]["launches"]
+                                   for r in ranks],
+                wall_s_per_rank=[r["sp_prefill"]["wall_s"] for r in ranks],
+                single_device_s=single_s)
 
 
 def _train_tp_warm(torch, cfg, opt, src, dist, dp):
@@ -2866,11 +2984,13 @@ def _train_tp_warm(torch, cfg, opt, src, dist, dp):
 
 
 def _count_collectives(tdist) -> dict:
-    """Count every all-reduce and all-gather this process issues from now
-    on: ``torch.distributed``'s two functions wrapped, each call noted
-    under its kind by the bytes this rank puts in (the tensor reduced, or
-    its part of the gather). Returns the counts, {kind: {bytes: calls}},
-    which the caller clears."""
+    """Count every all-reduce, all-gather and reduce-scatter this process
+    issues from now on: ``torch.distributed``'s functions wrapped, each
+    call noted under its kind by the bytes this rank puts in (the tensor
+    reduced, its part of the gather, or the whole tensor it
+    reduce-scatters: ``reduce_scatter_tensor``, ``reduce_scatter_single``
+    from torch 2.13, which gloo takes on CUDA tensors too). Returns the
+    counts, {kind: {bytes: calls}}, which the caller clears."""
     stats = {}
 
     def wrap(kind, fn, part):
@@ -2885,6 +3005,10 @@ def _count_collectives(tdist) -> dict:
     tdist.all_reduce = wrap("all_reduce", tdist.all_reduce, lambda t, *_: t)
     tdist.all_gather = wrap("all_gather", tdist.all_gather,
                             lambda parts, t, *_: t)
+    for name in ("reduce_scatter_tensor", "reduce_scatter_single"):
+        if hasattr(tdist, name):
+            setattr(tdist, name, wrap("reduce_scatter", getattr(tdist, name),
+                                      lambda out, t, *_: t))
     return stats
 
 
@@ -2902,7 +3026,9 @@ def _train_tp_rank(rank, world, backend, cfg, opt, src, go):
     (int8 and f32, timed), then the step, and its new params and masks
     against the one-device refresh and AdamW update applied to the
     compressed mean; on data rank 0 the one-device loss of the whole
-    batch. Pickles what it saw to ``rank<r>.pkl`` in ``TRAIN_TP_DIR``."""
+    batch. Between (a) and (b) the sharded KD steps (``_kd_state``,
+    ``_kd_steps``). Pickles what it saw to ``rank<r>.pkl`` in
+    ``TRAIN_TP_DIR``."""
     import pickle
     _die_with_parent()
 
@@ -2977,7 +3103,27 @@ def _train_tp_rank(rank, world, backend, cfg, opt, src, go):
             state_bytes=sharding.count_bytes(
                 {"params": state.params, "opt": state.opt_state}),
             peak_bytes=torch.cuda.max_memory_allocated())
+        out["a"]["sp"] = dict(on=dist.sp, seq_split=dist.seq_split(
+            (TRAIN_BATCH, TRAIN_SEQ, cfg.d_model)))
         del state, seen
+        torch.cuda.empty_cache()
+
+        # distillation on the model axis, sequence-parallel: the teacher
+        # sharded like the student, its forward in the step
+        t0 = time.monotonic()
+        torch.cuda.reset_peak_memory_stats()
+        kst, teacher = _kd_state(torch, cfg, dist)
+        kstep = ts.make_train_step(
+            cfg, opt, dist=dist, kd_beta=KD_BETA, teacher_cfg=cfg,
+            teacher_params_static=teacher, kd_temperature=KD_TEMPERATURE)
+        out["kd"] = _kd_steps(torch, src, kst, kstep, counts, dist)
+        whole = sharding.gather_tree(out["kd"].pop("last_masks"), shd.masks)
+        out["kd"].update(
+            wall_s=time.monotonic() - t0,
+            teacher_bytes=sharding.count_bytes(teacher),
+            peak_bytes=torch.cuda.max_memory_allocated(),
+            masks={p: m.cpu() for p, m in whole.items()})
+        del kst, teacher, kstep, whole
         torch.cuda.empty_cache()
 
         # (b) the data axis: deferred, int8, two microbatches
@@ -2996,14 +3142,33 @@ def _train_tp_rank(rank, world, backend, cfg, opt, src, go):
         if dp.data_rank == 0:
             with torch.no_grad():
                 one = float(ts.loss_fn(cfg4, st.params, st.masks, full)[0])
-        cstep = deferred.make_train_step_deferred(cfg4, opt, dp,
-                                                  microbatches=2,
-                                                  compress_grads=True)
+        # the second step distills from the 4-layer dense seeded init
+        teacher4 = registry.init_params(cfg4, SEED, DEVICE)
+        kd4 = dict(kd_beta=KD_BETA, teacher_cfg=cfg4,
+                   kd_temperature=KD_TEMPERATURE)
+        csteps = [deferred.make_train_step_deferred(
+            cfg4, opt, dp, microbatches=2, compress_grads=True, **kw)
+            for kw in ({}, dict(kd4, teacher_params_static=teacher4))]
         out["b"] = dict(layers=TRAIN_DP_LAYERS, one_device_loss=one,
-                        steps=[], traffic=None)
-        for _ in range(TRAIN_DP_STEPS):
-            loss_l, _, g = ts.loss_and_grads(cfg4, st, b, dp, 2,
-                                             over_data=False)
+                        steps=[], traffic=None,
+                        sp=dict(on=dp.sp, seq_split=dp.seq_split(
+                            (TRAIN_BATCH // world, TRAIN_SEQ,
+                             cfg.d_model))))
+        for k in range(TRAIN_DP_STEPS):
+            kd = k == 1
+            cstep = csteps[1 if kd else 0]
+            tl = (ts.teacher_logits_of(cfg4, b, cfg4, teacher4, dp)
+                  if kd else None)
+            if kd and dp.data_rank == 0:
+                with torch.no_grad():
+                    one = float(ts.loss_fn(
+                        cfg4, st.params, st.masks, full,
+                        ts.teacher_logits_of(cfg4, full, cfg4, teacher4),
+                        1.0, KD_BETA, kd_temperature=KD_TEMPERATURE)[0])
+            loss_l, _, g = ts.loss_and_grads(
+                cfg4, st, b, dp, 2, tl, 1.0, KD_BETA if kd else 0.0,
+                over_data=False, kd_temperature=KD_TEMPERATURE)
+            del tl
             worst, times = 0.0, {"int8": 0.0, "f32": 0.0}
             counts.clear()
 
@@ -3049,7 +3214,8 @@ def _train_tp_rank(rank, world, backend, cfg, opt, src, go):
             del want, masks
             torch.cuda.synchronize()
             out["b"]["steps"].append(dict(
-                step=st.step, loss=m["loss"], local_loss=float(loss_l),
+                step=st.step, kd=kd, one_device_loss=one,
+                loss=m["loss"], local_loss=float(loss_l),
                 grad_norm=m["grad_norm"], lr=lr, err_over_bound=worst,
                 update_err=upd_err, least_leaf_move=moved,
                 masks_equal=same_masks, reduce_s=times,
@@ -3066,6 +3232,79 @@ def _train_tp_rank(rank, world, backend, cfg, opt, src, go):
         tdist.destroy_process_group()
     with open(os.path.join(TRAIN_TP_DIR, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
+
+
+def _kd_state(torch, cfg, dist=None):
+    """The distillation check's start (``KD_*``): the seeded init, its
+    MLP masks the one-shot magnitude prune at ``KD_SPARSITY`` (the
+    ``dense_last`` layers kept whole), step ``KD_START``, zero moments;
+    and the teacher, that seeded init dense. -> (state, teacher), under
+    ``dist`` each this rank's shard (the masks chosen on the whole
+    weights first, as one device chooses them)."""
+    from repro_torch.core import sparse_mlp as sm
+    from repro_torch.core.prune_grow import initial_mask
+    from repro_torch.distributed import sharding
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw
+    from repro_torch.training import step as ts
+    whole = registry.init_params(cfg, SEED, DEVICE)
+    spec = dataclasses.replace(cfg.blast, s_init=KD_SPARSITY)
+    keep = registry.dense_layer_flags(cfg).to(DEVICE)
+    masks = {}
+    for path in registry.sparse_paths(cfg):
+        bi, bo = sm.block_dims_for(spec, path)
+        m = initial_mask(dataclasses.replace(spec, b_in=bi, b_out=bo),
+                         sm.get_path(whole, path))
+        masks[path] = m | keep.view(-1, *[1] * (m.dim() - 1))
+    if dist is None:
+        params, teacher = adamw.tree_map(torch.clone, whole), whole
+    else:
+        shd = sharding.state_shardings(cfg, dist.mesh)
+        params = sharding.shard_tree(whole, shd.params)
+        masks = sharding.shard_tree(masks, shd.masks)
+        teacher = sharding.shard_teacher(cfg, whole, dist.mesh)
+        del whole
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED)
+    return ts.TrainState(step=KD_START, params=params,
+                         opt_state=adamw.init(params), masks=masks,
+                         generator=gen), teacher
+
+
+def _kd_steps(torch, src, state, step, counts, dist=None,
+              teacher_logits=None) -> dict:
+    """``KD_STEPS`` steps of ``step`` from ``state`` on the source's
+    batches ``KD_START``... (this rank's rows under ``dist``), each with
+    its ``teacher_logits[i]`` where given: losses, gradient norms, each
+    step's ``_grad_history`` and collectives, the masks after the last
+    step (under 'last_masks')."""
+    from repro_torch.distributed import sharding
+    out = dict(losses=[], grad_norms=[], history=[], collectives=[],
+               sec_per_step=[])
+    for i in range(KD_START, KD_START + KD_STEPS):
+        batch = {k: torch.as_tensor(v, device=DEVICE)
+                 for k, v in src.batch(i).items()}
+        if dist is not None:
+            batch = sharding.slice_batch(batch, dist)
+        if teacher_logits is not None:
+            batch["teacher_logits"] = teacher_logits[i]
+        if counts is not None:
+            counts.clear()
+        t0 = time.monotonic()
+        state, m = step(state, batch)
+        float(m["sparsity"])
+        out["sec_per_step"].append(time.monotonic() - t0)
+        if counts is not None:
+            out["collectives"].append({k: dict(v)
+                                       for k, v in counts.items()})
+        out["losses"].append(m["loss"])
+        out["grad_norms"].append(m["grad_norm"])
+        out["anomalies"] = out.get("anomalies", 0) + int(m["anomaly"])
+        out["history"].append({p: x.cpu().numpy() for p, x in
+                               _grad_history(torch,
+                                             state.opt_state["v"]).items()})
+    out["last_masks"] = state.masks
+    return out
 
 
 def _tie_margin(torch, spec, wn, gn, step, kb_col):
@@ -3108,33 +3347,36 @@ def _train_tp_start(torch, cfg, opt, src):
                          (world, backend, cfg, opt, src, go)), go, backend)
 
 
-def _train_tp_readings(torch, ranks, ref) -> dict:
-    """(a)'s distances from the one-device record ``ref``, over every
-    rank: the largest relative error of the losses, of the gradient
-    norms and of a layer's gradient history (the ranks' ``_grad_history``
-    summed over the model axis where a leaf is split, the square roots
-    compared) with the leaf and step where it lies, and the gathered
+def _train_tp_readings(torch, ranks, ref, run="a") -> dict:
+    """The distances of the ranks' run ``run`` ((a), or 'kd') from the
+    one-device record ``ref``, over every rank: the largest relative
+    error of the losses, of the gradient norms and of a layer's gradient
+    history (the ranks' ``_grad_history`` summed over the model axis
+    where a leaf is split, the square roots compared) with the leaf and
+    step where it lies, and, where ``ref`` has masks, the gathered
     masks' blocks that differ from one device's, each with its tie
     margin (``_tie_margin``)."""
     out = {"loss": 0.0, "grad_norm": 0.0, "history": 0.0,
            "history_at": None, "differing": [], "blocks": 0}
     for r in ranks:
-        a = r["a"]
+        a = r[run]
         for key, got, want in (("loss", a["losses"], ref["losses"]),
                                ("grad_norm", a["grad_norms"],
                                 ref["grad_norms"])):
             out[key] = max([out[key]] + [abs(x - y) / abs(y)
                                          for x, y in zip(got, want)])
-    a0 = ranks[0]["a"]
+    a0, split = ranks[0][run], ranks[0]["a"]["split"]
     for k, want in enumerate(ref["history"]):
         for p, w in want.items():
-            got = (sum(r["a"]["history"][k][p] for r in ranks)
-                   if a0["split"][p] else a0["history"][k][p])
+            got = (sum(r[run]["history"][k][p] for r in ranks)
+                   if split[p] else a0["history"][k][p])
             w = np.sqrt(w)
             e = float(np.max(np.abs(np.sqrt(got) - w)
                              / np.maximum(w, 1e-30)))
             if e > out["history"]:
                 out["history"], out["history_at"] = e, (k, p)
+    if "masks" not in ref:
+        return out
     for st, masks in a0["masks"].items():
         for p, m in masks.items():
             want = ref["masks"][st][p].numpy()
@@ -3149,7 +3391,7 @@ def _train_tp_readings(torch, ranks, ref) -> dict:
     return out
 
 
-def phase_train_tp(torch, cfg, ref, started):
+def phase_train_tp(torch, cfg, opt, src, ref, started):
     """The sharded train step on the card (see the module docstring):
     ``started`` is ``_train_tp_start``'s (ranks warmed up beside the
     chaos chain, which has ended), ``ref`` the train phase's
@@ -3166,7 +3408,9 @@ def phase_train_tp(torch, cfg, ref, started):
     refresh and update applied to the compressed mean, the masks equal
     to its, every leaf moved by over a quarter of the learning rate; the
     first loss within ``TRAIN_TP_TOL`` of the one-device loss on the
-    whole batch."""
+    whole batch, and so the second (KD) step's; (a)'s sequence
+    parallelism and the KD steps as ``_check_train_tp_sp_kd`` holds
+    them."""
     from repro_torch.models import registry
     procs, go, backend = started
     t0 = time.monotonic()
@@ -3174,6 +3418,7 @@ def phase_train_tp(torch, cfg, ref, started):
     ranks = _join_ranks("train_tp", TRAIN_TP_DIR, procs)
     wall = time.monotonic() - t0
     world = len(ranks)
+    kd_ref = _kd_one_device(torch, cfg, opt, src, ranks[0]["kd"]["masks"])
     for r in ranks:
         a = r["a"]
         check(len(a["losses"]) == TRAIN_TP_STEPS and a["anomalies"] == 0,
@@ -3225,7 +3470,14 @@ def phase_train_tp(torch, cfg, ref, started):
     check(b_err <= TRAIN_TP_TOL,
           f"train_tp (b): deferred loss {b0['steps'][0]['loss']} vs one "
           f"device {one}")
+    kd_b = b0["steps"][1]
+    kd_b_err = abs(kd_b["loss"] - kd_b["one_device_loss"]) / abs(
+        kd_b["one_device_loss"])
+    check(kd_b["kd"] and kd_b_err <= TRAIN_TP_TOL,
+          f"train_tp (b): deferred KD loss {kd_b['loss']} vs one device "
+          f"{kd_b['one_device_loss']}")
     per_step = a0["collectives"][1]          # a step without a refresh
+    sp, kd = _check_train_tp_sp_kd(torch, ranks, kd_ref)
     emit(phase="train_tp", model=cfg.name, backend=backend, ranks=world,
          devices=[r["device"] for r in ranks], wall_s=wall,
          warm_up_s=[r["warm_s"] for r in ranks],
@@ -3248,7 +3500,9 @@ def phase_train_tp(torch, cfg, ref, started):
                 param_bytes_per_rank=[r["a"]["param_bytes"] for r in ranks],
                 state_bytes_per_rank=[r["a"]["state_bytes"] for r in ranks],
                 single_device_param_bytes=4 * full,
-                peak_bytes_per_rank=[r["a"]["peak_bytes"] for r in ranks]),
+                peak_bytes_per_rank=[r["a"]["peak_bytes"] for r in ranks],
+                sp=sp),
+         kd=kd,
          b=dict(mesh={"data": world, "model": 1}, layers=TRAIN_DP_LAYERS,
                 microbatches=2, compress_grads=True,
                 one_device_loss=one, loss_rel_err=b_err,
@@ -3260,12 +3514,120 @@ def phase_train_tp(torch, cfg, ref, started):
                     reduce_s=[r["b"]["steps"][k]["reduce_s"]
                               for r in ranks])
                        for k, bs in enumerate(b0["steps"])],
-                traffic=b0["traffic"],
+                traffic=b0["traffic"], sp=b0["sp"],
+                kd_step=dict(step=kd_b["step"], beta=KD_BETA,
+                             temperature=KD_TEMPERATURE,
+                             one_device_loss=kd_b["one_device_loss"],
+                             loss_rel_err=kd_b_err),
                 wall_s=[r["b"]["wall_s"] for r in ranks],
                 state_bytes_per_rank=[r["b"]["state_bytes"] for r in ranks],
                 peak_bytes_per_rank=[r["b"]["peak_bytes"] for r in ranks]),
          note="two ranks sharing one card over gloo: the phase's own "
               "times, not a parallel speed" if backend == "gloo" else "")
+
+
+def _collective_sums(stats: dict) -> dict:
+    """{kind: {bytes: calls}} -> {kind: [calls, bytes]}."""
+    return {k: [sum(v.values()), sum(b * n for b, n in v.items())]
+            for k, v in stats.items()}
+
+
+def _kd_one_device(torch, cfg, opt, src, masks) -> dict:
+    """The one-device KD steps that ``train_tp``'s sharded ones are held
+    against (``_kd_state``, ``_kd_steps``), run in the script's own
+    process once the ranks have exited: a whole step of the full model
+    needs ≈70 GB of the card (rank 0 beside rank 1 ran it out of
+    memory). The teacher's logits of the steps' batches are taken first
+    (the forward the step would run, with no gradient) and the teacher
+    freed, so the steps carry them as the batches' ``teacher_logits``.
+    ``masks``: the ranks' gathered masks after their KD steps, compared
+    bitwise."""
+    from repro_torch.training import step as ts
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    kst, teacher = _kd_state(torch, cfg)
+    logits = {i: ts.teacher_logits_of(
+        cfg, {"tokens": torch.as_tensor(src.batch(i)["tokens"],
+                                        device=DEVICE)}, cfg, teacher)
+        for i in range(KD_START, KD_START + KD_STEPS)}
+    del teacher
+    kstep = ts.make_train_step(cfg, opt, kd_beta=KD_BETA, teacher_cfg=cfg,
+                               kd_temperature=KD_TEMPERATURE)
+    ref = _kd_steps(torch, src, kst, kstep, None, teacher_logits=logits)
+    last = ref.pop("last_masks")
+    ref["masks_equal"] = all(bool(torch.equal(masks[p], m.cpu()))
+                             for p, m in last.items())
+    ref.update(wall_s=time.monotonic() - t0,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    del kst, kstep, last, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref
+
+
+def _check_train_tp_sp_kd(torch, ranks, ref) -> tuple[dict, dict]:
+    """(a)'s sequence parallelism and the distillation steps of
+    ``train_tp``: (a)'s stream split along S with reduce-scatters in
+    every step; the sharded KD steps' losses and gradient norms within
+    ``TRAIN_TP_TOL`` and every layer's gradient history within
+    ``TRAIN_TP_LAYER_TOL`` of rank 0's one-device KD steps from the same
+    state and batches (``ref``, ``_kd_one_device``), no anomaly, the
+    masks (no refresh) equal to its, reduce-scatters in every KD step.
+    -> (the sp readings, the KD readings) for the line."""
+    a0, r0 = ranks[0]["a"], ranks[0]
+    check(a0["sp"]["on"] and a0["sp"]["seq_split"],
+          f"train_tp (a): sequence parallelism not engaged {a0['sp']}")
+    for r in ranks:
+        for k, st in enumerate(r["a"]["collectives"]):
+            check(sum(st.get("reduce_scatter", {}).values()) > 0,
+                  f"train_tp (a): rank {r['rank']} step {k} issued no "
+                  f"reduce-scatter ({st})")
+        for k, st in enumerate(r["kd"]["collectives"]):
+            check(sum(st.get("reduce_scatter", {}).values()) > 0,
+                  f"train_tp kd: rank {r['rank']} step {k} issued no "
+                  f"reduce-scatter ({st})")
+        check(r["kd"]["anomalies"] == 0 and len(r["kd"]["losses"])
+              == KD_STEPS, f"train_tp kd: rank {r['rank']} {r['kd']['losses']}")
+    check(ref["masks_equal"], "train_tp kd: the masks differ from one "
+          "device's")
+    got = _train_tp_readings(torch, ranks, ref, run="kd")
+    for key in ("loss", "grad_norm"):
+        check(got[key] <= TRAIN_TP_TOL,
+              f"train_tp kd: {key} rel err {got[key]} (tol {TRAIN_TP_TOL})"
+              f": {r0['kd']['losses']} / {r0['kd']['grad_norms']} vs one "
+              f"device {ref['losses']} / {ref['grad_norms']}")
+    check(got["history"] <= TRAIN_TP_LAYER_TOL,
+          f"train_tp kd: gradient history rel err {got['history']} at "
+          f"(step, leaf) {got['history_at']}")
+    sp = dict(on=True, stream_split=True,
+              collectives_per_step=_collective_sums(a0["collectives"][1]),
+              collectives_refresh_step=_collective_sums(
+                  a0["collectives"][0]))
+    kd = dict(mesh={"data": 1, "model": len(ranks)}, start=KD_START,
+              steps=KD_STEPS, beta=KD_BETA, temperature=KD_TEMPERATURE,
+              student_sparsity=KD_SPARSITY, teacher="the seeded init, dense",
+              one_device_reference="the script's process after the ranks "
+                                   "exited, from the same seeded state "
+                                   "and batches",
+              losses=r0["kd"]["losses"], one_device_losses=ref["losses"],
+              grad_norms=r0["kd"]["grad_norms"],
+              one_device_grad_norms=ref["grad_norms"],
+              loss_rel_err=got["loss"], grad_norm_rel_err=got["grad_norm"],
+              history_rel_err=got["history"],
+              history_worst_at=got["history_at"], masks_equal=True,
+              collectives_per_step=[_collective_sums(s)
+                                    for s in r0["kd"]["collectives"]],
+              sec_per_step=[r["kd"]["sec_per_step"] for r in ranks],
+              one_device_sec_per_step=ref["sec_per_step"],
+              wall_s=[r["kd"]["wall_s"] for r in ranks],
+              one_device_wall_s=ref["wall_s"],
+              teacher_bytes_per_rank=[r["kd"]["teacher_bytes"]
+                                      for r in ranks],
+              peak_bytes_per_rank=[r["kd"]["peak_bytes"] for r in ranks],
+              one_device_peak_bytes=ref["peak_bytes"])
+    return sp, kd
 
 
 def _pinned_bytes(torch) -> dict:
@@ -4022,7 +4384,7 @@ def phase_serve_moe(torch, card):
         # the same traffic with every MLP a zero stub: the engine's own
         # synchronizing calls (eos is off, so the steps are the same)
         transformer.mlp_forward = (
-            lambda cfg_, p, x, masks=None, dist=None:
+            lambda cfg_, p, x, masks=None, **kw:
             (torch.zeros_like(x), 0.0))
         try:
             stub = _moe_serve_run(torch, cfg, packed, launcher.build_parser()
@@ -4660,7 +5022,7 @@ def phase_training(torch, cfg):
     with _killed_on_failure(tp[0]):
         phase_train_chaos(torch, cfg,
                           beside=ckpt if layout["beside_chaos"] else None)
-    phase_train_tp(torch, tcfg, train_ref, tp)
+    phase_train_tp(torch, tcfg, opt, src, train_ref, tp)
     return ft
 
 

@@ -74,6 +74,17 @@ class ModelConfig:
     def is_moe(self) -> bool:
         return self.num_experts > 0
 
+    def n_params(self) -> int:
+        """Total parameter count (from the param spec tree)."""
+        from repro_torch.models import registry
+        return registry.count_params(self)
+
+    def n_active_params(self) -> int:
+        """Params touched per token (MoE: only the routed top_k
+        experts)."""
+        from repro_torch.models import registry
+        return registry.count_params(self, active_only=True)
+
 
 @dataclasses.dataclass(frozen=True)
 class ShapeConfig:

@@ -24,3 +24,12 @@ LLAMA32_1B = with_blast(ModelConfig(
 
 GPT2_SMALL_SMOKE = reduced(GPT2_SMALL)
 LLAMA32_1B_SMOKE = reduced(LLAMA32_1B)
+
+# Llama 3.x MLP dims (d_model, d_ff), the Fig. 5 MLP-speedup benchmark's
+LLAMA_FAMILY_MLP = {
+    "llama3.2-1b": (2048, 8192),
+    "llama3.2-3b": (3072, 8192),
+    "llama3.1-8b": (4096, 14336),
+    "llama3.1-70b": (8192, 28672),
+    "llama3.1-405b": (16384, 53248),
+}

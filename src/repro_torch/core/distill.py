@@ -9,7 +9,18 @@ each cross the model axis once (three small all-reduces, the last two
 differentiable), so the f32 logits never exist whole on one rank. Its
 mean divides by the token count summed over the batch axes, so a
 gradient summed over the data ranks is the one-device gradient even
-where labels are masked. The KD term is not ported under ``dist``.
+where labels are masked.
+
+The KD term under ``dist`` runs on the vocab shards of both the
+student's and the teacher's logits: each temperature-scaled
+log-softmax takes its max and its sum of exponentials over the model
+axis (``_vp_log_softmax``), and the KL per token is the model-axis sum
+of each rank's share of ``p_t · (log p_t - x_s / T)`` plus the student's
+global logsumexp times the teacher's total mass (1 up to rounding). The
+logsumexp stands outside the local sums so that its gradient reaches
+every rank's logits with the whole mass: summed inside them, each rank
+would weight its term by its own share of the teacher's mass only. The
+mean over tokens divides by the token count over every data rank.
 """
 from __future__ import annotations
 
@@ -53,14 +64,46 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return num / cnt.clamp_min(1.0)
 
 
+def _vp_log_softmax(x, dist):
+    """(x - logsumexp(x), logsumexp(x)) over the vocab of vocab-sharded
+    rows ``x`` (..., V / tp), f32: the max and the sum of exponentials
+    cross the model axis (two small all-reduces, the sum
+    differentiable)."""
+    with torch.no_grad():
+        m = dist.all_reduce(x.max(dim=-1).values, op="max")
+    z = dist.reduce_from_model(torch.exp(x - m[..., None]).sum(-1))
+    lse = torch.log(z) + m
+    return x - lse[..., None], lse
+
+
 def kl_to_teacher(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
-                  temperature: float = 1.0) -> torch.Tensor:
-    """KL(teacher || student), mean over tokens, times T^2."""
+                  temperature: float = 1.0, dist=None,
+                  vocab_parallel: bool = False,
+                  count_over_data: bool = True) -> torch.Tensor:
+    """KL(teacher || student), mean over tokens, times T^2. Under
+    ``dist``: ``vocab_parallel`` when both logits are the rank's vocab
+    shard (the module docstring), and ``count_over_data`` as in
+    ``cross_entropy`` (every token counts: the reference's mean has no
+    mask)."""
     t = temperature
-    sp = torch.log_softmax(student_logits.float() / t, dim=-1)
-    tp = torch.log_softmax(teacher_logits.float() / t, dim=-1)
-    kl = (torch.exp(tp) * (tp - sp)).sum(dim=-1)
-    return (t * t) * kl.mean()
+    s = student_logits.float() / t
+    with torch.no_grad():
+        tl = teacher_logits.float() / t
+    if vocab_parallel:
+        with torch.no_grad():
+            tp, _ = _vp_log_softmax(tl, dist)
+            pt = torch.exp(tp)
+            mass = dist.all_reduce(pt.sum(-1))
+        _, lse = _vp_log_softmax(s, dist)
+        kl = dist.reduce_from_model((pt * (tp - s)).sum(-1)) + lse * mass
+    else:
+        sp = torch.log_softmax(s, dim=-1)
+        tp = torch.log_softmax(tl, dim=-1)
+        kl = (torch.exp(tp) * (tp - sp)).sum(dim=-1)
+    if dist is None:
+        return (t * t) * kl.mean()
+    n = kl.numel() * (dist.data_size if count_over_data else 1)
+    return (t * t) * (kl.sum() / n)
 
 
 def distill_loss(student_logits, labels, teacher_logits=None, *,
@@ -74,10 +117,7 @@ def distill_loss(student_logits, labels, teacher_logits=None, *,
     loss = alpha * cross_entropy(student_logits, labels, ignore_index, dist,
                                  vocab_parallel, count_over_data)
     if teacher_logits is not None and beta != 0.0:
-        if dist is not None:
-            raise NotImplementedError(
-                "the KD term under dist= is not ported (ROADMAP §1 item 4: "
-                "the KD term under dist=)")
         loss = loss + beta * kl_to_teacher(student_logits, teacher_logits,
-                                           temperature)
+                                           temperature, dist, vocab_parallel,
+                                           count_over_data)
     return loss

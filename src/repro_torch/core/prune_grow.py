@@ -38,6 +38,13 @@ class BlastSpec:
     grow_frac: float = 0.3     # fraction of kept budget regrown by |G|
     grow_frac_end: float = 0.0 # cosine-decayed to this by total_steps
 
+    def block_grid(self, k: int, n: int) -> tuple[int, int]:
+        """(Kb, Nb): the block counts of a (k, n) weight."""
+        if k % self.b_in or n % self.b_out:
+            raise ValueError(f"weight {(k, n)} not tiled by block "
+                             f"({self.b_in},{self.b_out})")
+        return k // self.b_in, n // self.b_out
+
 
 def grow_count(spec: BlastSpec, step, kept: int) -> int:
     """Number of blocks regrown by gradient at this refresh (cosine decay

@@ -81,16 +81,18 @@ def _flat(x: torch.Tensor) -> torch.Tensor:
 
 
 def glu_mlp(x, w_gate, w_up, w_down, *, act="silu", masks=None,
-            spec: BlastSpec | None = None, dist=None, d_ff: int = 0):
+            spec: BlastSpec | None = None, dist=None, d_ff: int = 0,
+            seq: bool = False):
     """(act(x W_g) * (x W_u)) W_d — paper Eq. (1) for silu. ``masks``:
     optional block masks keyed 'w_gate', 'w_up', 'w_down', applied
     through the STE before the cast to x's dtype. Packed weights
     dispatch to the fused BSpMM path over (M, d) rows. ``dist`` (with
     the model's ``d_ff``) takes the tensor-parallel path,
-    ``_glu_mlp_tp``, masked or not."""
+    ``_glu_mlp_tp``, masked or not; with ``seq`` its input and output
+    are this rank's S shard of a (B, S, D) stream."""
     if dist is not None and dist.tp > 1:
         return _glu_mlp_tp(x, w_gate, w_up, w_down, act, dist, d_ff, masks,
-                           spec)
+                           spec, seq)
     if isinstance(w_gate, PackedBCSC):
         from repro_torch.kernels import ops
         y = ops.sparse_mlp_apply(_flat(x), w_gate, w_up, w_down, act=act)
@@ -105,7 +107,7 @@ def glu_mlp(x, w_gate, w_up, w_down, *, act="silu", masks=None,
 
 
 def _glu_mlp_tp(x, w_gate, w_up, w_down, act, dist, d_ff, masks=None,
-                spec=None):
+                spec=None, seq=False):
     """One rank's GLU under tensor parallelism, its output replicated.
 
     Packed (the layout of ``serving/export.py::shard_params``): the
@@ -120,26 +122,31 @@ def _glu_mlp_tp(x, w_gate, w_up, w_down, act, dist, d_ff, masks=None,
     ``copy_to_model``, down row-parallel, then ``reduce_from_model``,
     where this rank holds a d_ff slice (the train state splits d_ff only
     in whole blocks, ``sharding.train_specs``); otherwise every rank
-    computes the whole MLP."""
+    computes the whole MLP.
+
+    With ``seq`` (sequence parallelism) ``x`` is this rank's S shard of
+    a (B, S, D) stream: it is gathered along S first (so the kernels see
+    M = B·S rows, as without), and the output's sum over the model axis
+    is reduce-scattered back to the shard (a whole output is sliced);
+    ``DistContext.to_parallel`` / ``from_parallel``."""
     if isinstance(w_gate, PackedBCSC):
         from repro_torch.kernels import ops
+        x = dist.to_parallel(x, True, seq)
         h = ops.fused_glu(_flat(x), w_gate, w_up, act=act)
         if h.shape[-1] < w_down.kb * w_down.b_in:
             h = dist.all_gather(h, dim=-1)
         y = ops.bspmm(h, w_down)
-        if w_down.partial:
-            y = dist.all_reduce(y)
-        return y.reshape(*x.shape[:-1], y.shape[-1])
+        return dist.from_parallel(y.reshape(*x.shape[:-1], y.shape[-1]),
+                                  w_down.partial, seq)
     dt = x.dtype
     split = w_gate.shape[-1] < d_ff
-    if split:
-        x = dist.copy_to_model(x)
+    x = dist.to_parallel(x, split, seq)
     m = masks or {}
     wg = maybe_mask(w_gate, m.get("w_gate"), spec).to(dt)
     wu = maybe_mask(w_up, m.get("w_up"), spec).to(dt)
     wd = maybe_mask(w_down, m.get("w_down"), spec, swapped=True).to(dt)
     y = (act_fn(act)(x @ wg) * (x @ wu)) @ wd
-    return dist.reduce_from_model(y) if split else y
+    return dist.from_parallel(y, split, seq)
 
 
 def mlp2(x, w_in, w_out, b_in_=None, b_out_=None, *, act="gelu",

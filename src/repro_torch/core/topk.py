@@ -58,3 +58,8 @@ def apply_block_mask(w: torch.Tensor, block_mask: torch.Tensor,
                      b_in: int, b_out: int) -> torch.Tensor:
     """Zero out pruned blocks of ``w`` (mask may have leading dims)."""
     return w * expand_mask(block_mask, b_in, b_out).to(w.dtype)
+
+
+def mask_sparsity(block_mask: torch.Tensor) -> torch.Tensor:
+    """Fraction of pruned blocks (f32 scalar)."""
+    return 1.0 - block_mask.float().mean()

@@ -15,13 +15,22 @@ the collectives itself over the ``model`` axis:
   * ``all_gather`` (concatenated along a dim, in rank order) where a
     column-parallel output must be whole (the packed GLU's output before
     ``bspmm``, vocab-sharded logits before a draw);
+  * ``reduce_scatter`` (the sum, of which each rank keeps its slice of a
+    dim) after a row-parallel product under ``sp``;
   * ``vocab_argmax``: the greedy token over vocab-sharded logits, one
     small all-gather of each rank's best (value, index, finite) per row.
 
-What the two hints meant becomes: the residual stream stays replicated
-over the model axis (``sp``, sequence parallelism, is not ported: the
-field is kept and must stay False), and the logits are vocab-sharded
-wherever the vocabulary divides the model axis.
+What the two hints mean in the port: the logits are vocab-sharded
+wherever the vocabulary divides the model axis, and ``sp`` (sequence
+parallelism, Megatron-SP; on by default, as in the reference) splits the
+residual stream's sequence dim over the model axis where
+``constrain_seq`` would (``seq_split``: a 3-D activation, a model axis
+of size > 1 and S divisible by it; otherwise the residual stays
+replicated, as the reference leaves it). Only the full-sequence forward
+(``models/transformer.py::forward``: training and the full-sequence
+prefill) takes it; the cache steps of serving keep the replicated
+stream, as in the reference, where ``constrain_seq`` appears only in
+``forward``.
 
 Training differentiates through the collectives, so it uses Megatron's
 conjugate pairs, each a ``torch.autograd.Function`` (outside autograd they
@@ -37,8 +46,21 @@ are the serving collectives above):
     that ``attention.shard_local`` narrows);
   * ``gather_from_model``: forward all-gathers, backward keeps this
     rank's slice;
+  * under ``sp``, on the sequence dim (1) of a (B, S, D) activation:
+    ``gather_from_seq`` all-gathers the S shards in the forward and
+    reduce-scatters the gradient in the backward (before a
+    column-parallel product); ``reduce_scatter_to_seq`` reduce-scatters
+    the partial sums in the forward and all-gathers the gradient in the
+    backward (after a row-parallel one); ``scatter_to_seq`` keeps this
+    rank's S slice in the forward and all-gathers the gradient in the
+    backward (after an op every rank computes whole). ``to_parallel`` and
+    ``from_parallel`` pick the pair for a product from whether it is
+    split and whether the stream is;
   * ``sum_over_data`` / ``mean_over_data``: a gradient summed or averaged
-    over the batch axes, in place, after the backward.
+    over the batch axes, in place, after the backward. Under ``sp`` the
+    replicated leaves that act on an S shard (``sharding.seq_partial_flags``:
+    the norms' scales and biases) hold partial gradients, which
+    ``sum_over_model`` adds up after the backward.
 
 ``Mesh`` is the port's stand-in for ``jax.sharding.Mesh``: axis names,
 shape, this rank's coordinates and one process group per axis of size
@@ -153,15 +175,7 @@ def init_process_group(directory: str, rank: int, world_size: int,
 class DistContext:
     mesh: Mesh | None = None
     model_axis: str = "model"
-    # sequence-parallel residual stream: not ported (the residual stays
-    # replicated over the model axis)
-    sp: bool = False
-
-    def __post_init__(self):
-        if self.sp:
-            raise NotImplementedError(
-                "sequence-parallel residual (sp=True) is not ported "
-                "(ROADMAP §1 item 4)")
+    sp: bool = True          # sequence-parallel residual stream
 
     # --------------------------------------------------------- the mesh
     @property
@@ -200,6 +214,15 @@ class DistContext:
         """Whether a dim under a model-axis rule is split (the rule drops
         where the model axis does not divide it, ``sharding.spec_for``)."""
         return self.tp > 1 and dim % self.tp == 0
+
+    def seq_split(self, x) -> bool:
+        """Whether the residual stream ``x`` (a tensor or its shape) is
+        split along S under ``sp``: the conditions of the reference's
+        ``constrain_seq``, a 3-D activation, a model axis of size > 1 and
+        S divisible by it."""
+        shape = tuple(x.shape) if torch.is_tensor(x) else tuple(x)
+        return (self.sp and len(shape) == 3 and self.tp > 1
+                and shape[1] % self.tp == 0)
 
     @property
     def data_rank(self) -> int:
@@ -265,6 +288,69 @@ class DistContext:
         if x.requires_grad and torch.is_grad_enabled():
             return _GatherFromModel.apply(x, self, dim)
         return self.all_gather(x, dim)
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """Sum ``x`` over the model axis and keep this rank's slice of
+        ``dim`` (a new tensor)."""
+        if self.tp == 1:
+            return x
+        return _reduce_scatter(x, dim, self._group(), self.tp)
+
+    def seq_slice(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """This rank's slice of ``dim`` (a view)."""
+        n = x.shape[dim] // self.tp
+        return x.narrow(dim, self.model_rank * n, n)
+
+    # the sequence-parallel pairs, on dim 1 of a (B, S, D) activation
+    def gather_from_seq(self, x: torch.Tensor) -> torch.Tensor:
+        """All-gather the S shards; the backward reduce-scatters."""
+        if x.requires_grad and torch.is_grad_enabled():
+            return _GatherFromSeq.apply(x, self)
+        return self.all_gather(x, 1)
+
+    def reduce_scatter_to_seq(self, x: torch.Tensor) -> torch.Tensor:
+        """Reduce-scatter partial sums to S shards; the backward
+        all-gathers."""
+        if x.requires_grad and torch.is_grad_enabled():
+            return _ReduceScatterToSeq.apply(x, self)
+        return self.reduce_scatter(x, 1)
+
+    def scatter_to_seq(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's S shard of a whole activation; the backward
+        all-gathers."""
+        if x.requires_grad and torch.is_grad_enabled():
+            return _ScatterToSeq.apply(x, self)
+        return self.seq_slice(x)
+
+    def to_parallel(self, x: torch.Tensor, split: bool, seq: bool
+                    ) -> torch.Tensor:
+        """The input of a product that is ``split`` over the model axis
+        (column-parallel) or computed whole on every rank, from a stream
+        that is ``seq`` split or replicated: the whole S either way."""
+        if seq:
+            return (self.gather_from_seq(x) if split
+                    else self.gather_from_model(x, 1))
+        return self.copy_to_model(x) if split else x
+
+    def from_parallel(self, y: torch.Tensor, partial: bool, seq: bool
+                      ) -> torch.Tensor:
+        """The stream's share of a product's output over the whole S: the
+        sum of ``partial`` (row-parallel) outputs, or one computed whole
+        on every rank; this rank's S shard of it under ``seq``."""
+        if seq:
+            return (self.reduce_scatter_to_seq(y) if partial
+                    else self.scatter_to_seq(y))
+        return self.reduce_from_model(y) if partial else y
+
+    def sum_over_model(self, grads: list[torch.Tensor]) -> None:
+        """Sum tensors over the model axis, in place, in one all-reduce
+        of their concatenation (the partial gradients of the replicated
+        leaves that act on an S shard)."""
+        if self.tp == 1 or not grads:
+            return
+        flat = self.all_reduce(torch.cat([g.reshape(-1) for g in grads]))
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
 
     def sum_over_data(self, x: torch.Tensor) -> torch.Tensor:
         """Sum ``x`` over the batch axes, in place; returns it."""
@@ -332,6 +418,59 @@ def _gather(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
     return torch.cat(parts, dim=dim)
 
 
+def _reduce_scatter(x: torch.Tensor, dim: int, group, n: int
+                    ) -> torch.Tensor:
+    """The sum of every rank's ``x``, of which this rank keeps slice
+    ``rank`` of ``n`` along ``dim``: one ``reduce_scatter_single`` (named
+    ``reduce_scatter_tensor`` before torch 2.13) on the chunks laid out
+    rank-major."""
+    import torch.distributed as tdist
+    shape = list(x.shape)
+    size = shape[dim] // n
+    out_shape = shape[:dim] + [size] + shape[dim + 1:]
+    # rank-major chunks, concatenated along dim 0 as the backends expect
+    chunks = x.reshape(shape[:dim] + [n, size] + shape[dim + 1:]).movedim(
+        dim, 0).contiguous().view([n * out_shape[0]] + out_shape[1:])
+    out = x.new_empty(out_shape)
+    rs = (getattr(tdist, "reduce_scatter_single", None)
+          or tdist.reduce_scatter_tensor)
+    rs(out, chunks, group=group)
+    return out
+
+
+class _GatherFromSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dist):
+        ctx.dist = dist
+        return dist.all_gather(x, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.dist.reduce_scatter(g, 1), None
+
+
+class _ReduceScatterToSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dist):
+        ctx.dist = dist
+        return dist.reduce_scatter(x, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.dist.all_gather(g, 1), None
+
+
+class _ScatterToSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dist):
+        ctx.dist = dist
+        return dist.seq_slice(x).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.dist.all_gather(g, 1), None
+
+
 class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dist):
@@ -384,4 +523,4 @@ def check_serving(cfg, dist) -> None:
     if dist is not None and dist.data_size > 1:
         raise NotImplementedError(
             "a serving data axis larger than 1 is not ported (ROADMAP §1 "
-            "item 4: sequence-parallel and a serving data axis)")
+            "item 4: a serving data axis)")

@@ -22,6 +22,14 @@ buffer follow it. ``NamedSharding`` pairs a spec with its mesh, the role
 the reference's ``jax.sharding.NamedSharding`` plays for
 ``Checkpointer.restore(shardings=)``; ``gather`` is the exact inverse of
 ``shard`` (every rank gets the logical array back, bitwise).
+
+Distillation's dense teacher takes the student's layout
+(``shard_teacher``: ``train_specs`` of the teacher's config), cut from
+whole params once. Under sequence parallelism the replicated leaves
+that act on the residual stream's S shard (``seq_partial_flags``: the
+norms' scales and biases, any bias added on the residual) get only this
+rank's share of their gradient, which the train step sums over the
+model axis after the backward.
 """
 from __future__ import annotations
 
@@ -229,6 +237,31 @@ def state_shardings(cfg, mesh):
     return TrainState(step=None, params=_named(sp["params"], mesh),
                       opt_state=None, masks=_named(sp["masks"], mesh),
                       generator=None)
+
+
+def shard_teacher(cfg, params, mesh):
+    """This rank's shard of a whole dense teacher tree, in the layout of
+    ``train_specs`` (``cfg`` the teacher's config), so the teacher's
+    forward runs on the shards a student of that config holds. Split
+    leaves are copies, so the whole tree can be freed."""
+    return shard_tree(params, _named(train_specs(cfg, mesh)["params"], mesh))
+
+
+def seq_partial_flags(cfg) -> dict:
+    """Per leaf of the params tree: whether it is a replicated leaf that
+    acts on the residual stream (every logical axis but the layer stack's
+    is ``embed``: the pre-attention, pre-MLP and final norms' scales and
+    biases, and any bias added on the residual). Under sequence
+    parallelism each rank applies it to its S shard only, so its
+    gradient is a partial sum over the model axis."""
+    from repro_torch.models import registry
+
+    def walk(axes):
+        if isinstance(axes, dict):
+            return {k: walk(v) for k, v in axes.items()}
+        rest = [a for a in axes if a != "layers"]
+        return bool(rest) and all(a == "embed" for a in rest)
+    return walk(registry.axes_tree(cfg))
 
 
 def _zip_map(fn, tree, shardings):

@@ -41,6 +41,22 @@ def _fn():
     return f
 
 
+def first_visit_flags(idx, kb: int) -> np.ndarray:
+    """(Nb, nnz) int32: 1 where (j, k) is the first occurrence of
+    ``idx[j, k]`` in (j, k)-lexicographic order (the TPU kernel's
+    zero-init marks for the output tiles it revisits; the CUDA kernel
+    owns each tile in one cluster and needs none)."""
+    if isinstance(idx, torch.Tensor):
+        idx = idx.cpu().numpy()
+    flat = np.asarray(idx, np.int64).reshape(-1)
+    flags = np.zeros(flat.size, np.int32)
+    if flat.size:
+        if flat.min() < 0 or flat.max() >= kb:
+            raise ValueError(f"idx entries outside [0, {kb})")
+        flags[np.unique(flat, return_index=True)[1]] = 1
+    return flags.reshape(np.shape(idx))
+
+
 def transposed_table(idx, kb: int) -> np.ndarray:
     """(Kb, V) int32: row r lists the flat slots ``j * nnz + k`` with
     ``idx[j, k] == r`` in (j, k) order, padded with -1 to the largest

@@ -12,8 +12,10 @@ step (``train_loop.train(dist=)``) on the production mesh
 ``MASTER_ADDR``/``MASTER_PORT``, as the reference starts
 ``jax.distributed`` from ``JAX_COORDINATOR``; NCCL on the card, gloo with
 ``--device cpu``); a group of another size exits naming the ranks the
-mesh needs. A nonzero ``--devices`` (the reference's forced host device
-count) exits: ranks come from ``torchrun``.
+mesh needs; the context is the reference's ``DistContext(mesh=mesh)``,
+so sequence parallelism is on (its default). A nonzero ``--devices``
+(the reference's forced host device count) exits: ranks come from
+``torchrun``.
 With ``--ckpt-dir`` the run checkpoints every ``max(steps // 5, 10)``
 steps and a second call resumes at the newest intact checkpoint. The
 ``audio`` and ``vlm`` families exit before any weight is built: their

@@ -13,6 +13,14 @@ flash-decode kernel (``kernels/paged_attention.py``); the contiguous
 path and every prefill or mixed chunk stay plain torch (softmax over
 the scores), as the reference leaves them to XLA.
 
+Under ``dist`` a rank computes its query heads (``local_heads``,
+``shard_local``) and its ``wo`` rows, so the output projection is a
+partial sum that the transformer reduces over the model axis: an
+all-reduce, or with sequence parallelism a reduce-scatter to the
+rank's S shard (``transformer._heads_out``). The full-sequence
+attention then sees the whole sequence gathered along S, so its RoPE
+positions are those of the gathered sequence, 0 to S - 1.
+
 Unlike the reference, the cache writes update the slab or pool IN
 PLACE, which saves one cache copy per layer per step; the functions that
 write return the same tensors they were given. A write the reference

@@ -1,5 +1,5 @@
-"""Shared building blocks: norms, rotary embeddings, softcap (port of
-``repro/models/layers.py``)."""
+"""Shared building blocks: norms, rotary embeddings, softcap and the
+rematerialisation policy (port of ``repro/models/layers.py``)."""
 from __future__ import annotations
 
 import torch
@@ -58,3 +58,33 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# the matmul ops a policy may keep: with and without batch dims
+_DOTS_NO_BATCH = ("mm", "addmm")
+_DOTS = _DOTS_NO_BATCH + ("bmm", "baddbmm")
+
+
+def remat_policy(cfg):
+    """The ``context_fn`` for ``torch.utils.checkpoint.checkpoint`` that
+    keeps what ``cfg.remat_policy`` names (the reference's JAX policy of
+    the same name), or None for ``nothing_saveable`` (every activation
+    recomputed). ``dots_saveable`` keeps every matmul's output,
+    ``dots_with_no_batch_dims_saveable`` those of the 2-D products (the
+    projections, not attention's batched ones). Memory, not numbers:
+    the recomputed ops run the same kernels on the same inputs."""
+    saved = {"nothing_saveable": None, "dots_saveable": _DOTS,
+             "dots_with_no_batch_dims_saveable": _DOTS_NO_BATCH
+             }[cfg.remat_policy]
+    if saved is None:
+        return None
+    import functools
+
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+    ops = [getattr(torch.ops.aten, name).default for name in saved]
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in ops
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return functools.partial(create_selective_checkpoint_contexts, policy)

@@ -14,7 +14,8 @@ masks ride along as per-layer views of the stacked mask tree.
 gemma2-style ``local_global`` stacks run as (local, global) pairs. With
 ``cfg.remat`` each layer of the training forward is recomputed in the
 backward (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``
-with nothing saved): this changes memory, not numbers. The KV
+keeping what ``layers.remat_policy`` names): this changes memory, not
+numbers. The KV
 caches are updated in place (models/attention.py).
 
 Tensor-parallel serving (``dist=``, a ``distributed.context.DistContext``;
@@ -39,6 +40,16 @@ vocab-sharded head), ``reduce_from_model`` after every row-parallel one
 lookup. The logits stay vocab-sharded (``core/distill.py`` reduces the
 cross-entropy over the shards); a tied embedding takes both its lookup's
 and its head's gradient on its own rows.
+
+Sequence parallelism (``DistContext.sp``, on by default as in the
+reference; the training forward and the full-sequence prefill only):
+where ``seq_split`` allows it the residual stream between the products
+is this rank's S shard. The embedding reduce-scatters where it
+all-reduces; each norm acts on the shard, which ``gather_from_seq``
+makes whole along S before attention, the MLP and the head (RoPE sees
+the gathered sequence's positions); ``wo`` and the down projection
+reduce-scatter where they all-reduce. The cache steps keep the
+replicated stream, as the reference's do.
 """
 from __future__ import annotations
 
@@ -54,7 +65,7 @@ from repro_torch.core.packing import PackedBCSC
 from repro_torch.distributed.context import check_serving, check_training
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.layers import norm, softcap
+from repro_torch.models.layers import norm, remat_policy, softcap
 from repro_torch.models.params import DTYPES, ParamSpec
 
 
@@ -197,13 +208,14 @@ def _layer_masks(masks: dict | None, stack: str) -> dict | None:
     return out or None
 
 
-def mlp_forward(cfg, p, x, masks=None, dist=None):
+def mlp_forward(cfg, p, x, masks=None, dist=None, seq=False):
     """-> (MLP output, aux loss: the MoE layer's, else 0.0). Under
-    ``dist`` the GLU is tensor-parallel (its output replicated)."""
+    ``dist`` the GLU is tensor-parallel (its output replicated, or with
+    ``seq`` this rank's S shard, as its input is)."""
     if dist is not None:
         return sm.glu_mlp(x, p["w_gate"], p["w_up"], p["w_down"],
                           act=cfg.mlp_act, masks=masks, spec=cfg.blast,
-                          dist=dist, d_ff=cfg.d_ff), 0.0
+                          dist=dist, d_ff=cfg.d_ff, seq=seq), 0.0
     if cfg.is_moe:
         return moe_mod.moe_forward(cfg, p, x, masks=masks)
     if cfg.mlp_kind == "glu":
@@ -216,25 +228,28 @@ def mlp_forward(cfg, p, x, masks=None, dist=None):
     return y, 0.0
 
 
-def _heads_out(cfg, out, dist):
+def _heads_out(cfg, out, dist, seq=False):
     """Attention's output: the sum over the model axis of each rank's
-    row-parallel ``wo`` product where the query heads are split."""
-    if dist is not None and dist.shards(attn.eff_heads(cfg)[0]):
-        return dist.reduce_from_model(out)
-    return out
+    row-parallel ``wo`` product where the query heads are split; with
+    ``seq`` this rank's S shard of it (``DistContext.from_parallel``)."""
+    if dist is None:
+        return out
+    return dist.from_parallel(out, dist.shards(attn.eff_heads(cfg)[0]), seq)
 
 
-def _block(cfg, p, x, positions, masks, window, dist=None):
+def _block(cfg, p, x, positions, masks, window, dist=None, seq=False):
     """One pre-norm transformer block (full causal attention) -> (x,
-    aux)."""
+    aux). With ``seq`` the stream ``x`` is this rank's S shard: each norm
+    acts on the shard, whose result is gathered along S before attention
+    and before the MLP, and their outputs come back reduce-scattered."""
     h = norm(cfg.norm_kind, x, p["ln_attn_scale"], p.get("ln_attn_bias"))
-    if dist is not None and dist.shards(attn.eff_heads(cfg)[0]):
-        h = dist.copy_to_model(h)
+    if dist is not None:
+        h = dist.to_parallel(h, dist.shards(attn.eff_heads(cfg)[0]), seq)
     a = attn.multihead_attention(cfg, attn.shard_local(cfg, p["attn"], dist),
                                  h, positions, causal=True, window=window)[0]
-    x = x + _heads_out(cfg, a, dist)
+    x = x + _heads_out(cfg, a, dist, seq)
     h = norm(cfg.norm_kind, x, p["ln_mlp_scale"], p.get("ln_mlp_bias"))
-    m, aux = mlp_forward(cfg, p["mlp"], h, masks, dist=dist)
+    m, aux = mlp_forward(cfg, p["mlp"], h, masks, dist=dist, seq=seq)
     return x + m, aux
 
 
@@ -244,20 +259,25 @@ def forward(cfg, params, tokens, *, masks=None, patch_embeds=None,
     aux loss). ``masks`` is the BLaST mask tree (None: dense);
     ``patch_embeds`` (B, num_patches, D) replace a VLM's first token
     embeddings (``embed_inputs``); under ``dist`` the logits are the
-    rank's vocab shard."""
+    rank's vocab shard. Under ``dist`` with ``sp`` the residual stream
+    between the layers is this rank's S shard wherever ``seq_split``
+    allows it (the reference's ``constrain_seq``)."""
     check_training(cfg, dist)
     b, s = tokens.shape
-    x = embed_inputs(cfg, params, tokens, patch_embeds, dist=dist)
+    seq = dist is not None and dist.seq_split((b, s, cfg.d_model))
+    x = embed_inputs(cfg, params, tokens, patch_embeds, dist=dist, seq=seq)
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device)[None].expand(b, s)
     remat = cfg.remat and torch.is_grad_enabled()
+    kept = remat_policy(cfg) if remat else None
+    ckpt_kw = {} if kept is None else {"context_fn": kept}
 
     def layer(p_l, m_l, x, window):
         if remat:
             return torch.utils.checkpoint.checkpoint(
-                _block, cfg, p_l, x, positions, m_l, window, dist,
-                use_reentrant=False)
-        return _block(cfg, p_l, x, positions, m_l, window, dist)
+                _block, cfg, p_l, x, positions, m_l, window, dist, seq,
+                use_reentrant=False, **ckpt_kw)
+        return _block(cfg, p_l, x, positions, m_l, window, dist, seq)
 
     aux = 0.0
     if cfg.layer_pattern == "local_global":
@@ -275,25 +295,31 @@ def forward(cfg, params, tokens, *, masks=None, patch_embeds=None,
                                          len(lay))):
             x, a = layer(p_l, m_l, x, cfg.sliding_window)
             aux = aux + a
-    return logits_from_hidden(cfg, params, x, dist), aux
+    return logits_from_hidden(cfg, params, x, dist, seq), aux
 
 
-def embed_inputs(cfg, params, tokens, patch_embeds=None, dist=None):
+def embed_inputs(cfg, params, tokens, patch_embeds=None, dist=None,
+                 seq=False):
     """Token embeddings (B,S,D) in the compute dtype; with
     ``patch_embeds`` (B, num_patches, D) and a config that has patches,
     the first ``num_patches`` positions are the patches instead. Under
     ``dist`` with a vocab-sharded table each rank looks up the tokens in
     its slice, zeros the rest, and the all-reduce sums in the one rank's
-    row that holds each token (exact)."""
+    row that holds each token (exact). With ``seq`` (sequence
+    parallelism) the result is this rank's S shard: a reduce-scatter in
+    place of the all-reduce, or the slice of a replicated lookup."""
     if dist is not None and dist.shards(cfg.vocab_size):
         table = params["embed"]
         n = table.shape[0]
         local = tokens.long() - dist.model_rank * n
         mine = (local >= 0) & (local < n)
         x = table[local.clamp(0, n - 1)].to(DTYPES[cfg.compute_dtype])
-        x = dist.reduce_from_model(torch.where(mine[..., None], x, 0.0))
+        x = dist.from_parallel(torch.where(mine[..., None], x, 0.0), True,
+                               seq)
     else:
         x = params["embed"][tokens.long()].to(DTYPES[cfg.compute_dtype])
+        if seq:
+            x = dist.from_parallel(x, False, seq)
     if cfg.scale_embeddings:
         x = x * math.sqrt(cfg.d_model)
     if patch_embeds is not None and cfg.num_patches:
@@ -302,12 +328,13 @@ def embed_inputs(cfg, params, tokens, patch_embeds=None, dist=None):
     return x
 
 
-def logits_from_hidden(cfg, params, x, dist=None):
+def logits_from_hidden(cfg, params, x, dist=None, seq=False):
     """Final norm + (tied) LM head -> f32 logits (a sharded rank's head
-    is its vocab slice, so its logits are too)."""
+    is its vocab slice, so its logits are too). With ``seq`` the norm
+    acts on this rank's S shard, gathered along S before the head."""
     xf = norm(cfg.norm_kind, x, params["ln_f_scale"], params.get("ln_f_bias"))
-    if dist is not None and dist.shards(cfg.vocab_size):
-        xf = dist.copy_to_model(xf)
+    if dist is not None:
+        xf = dist.to_parallel(xf, dist.shards(cfg.vocab_size), seq)
     head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
     logits = xf @ head.to(xf.dtype)
     return softcap(logits.float(), cfg.final_logit_softcap)

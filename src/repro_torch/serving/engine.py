@@ -302,8 +302,10 @@ class Engine:
     ``max_len`` slots. ``paged``, ``mixed`` and ``prefix_cache`` pick
     the cache layout and admission policy; ``scheduler`` (default FIFO;
     an empty one is kept, not replaced), ``preempt``,
-    ``offload_capacity_bytes`` (the host store's budget; None for
-    unbounded), ``admission_queue_limit``,
+    ``offload_store`` (a ``HostKVStore`` to offload into, say one a
+    caller shares or inspects; by default a new one with
+    ``offload_capacity_bytes`` as its budget, None for unbounded),
+    ``admission_queue_limit``,
     ``enforce_deadlines`` and ``faults`` the serving behaviour (module
     docstring); ``tracer`` (default off) records spans and events."""
 
@@ -315,7 +317,7 @@ class Engine:
                  n_pages: int | None = None, prefix_cache: bool = False,
                  mixed: bool = False,
                  prefill_token_budget: int | None = None,
-                 preempt: bool = False,
+                 preempt: bool = False, offload_store=None,
                  offload_capacity_bytes: int | None = None,
                  admission_queue_limit: int | None = None,
                  enforce_deadlines: bool = False, faults=None,
@@ -440,7 +442,8 @@ class Engine:
                 self._copy_pages = make_copy_pages_step()
             self._mirror["bt"] = np.zeros((max_batch, self.max_pages),
                                           np.int32)
-            self._offload = HostKVStore(offload_capacity_bytes)
+            self._offload = (offload_store if offload_store is not None
+                             else HostKVStore(offload_capacity_bytes))
             self._offload.tracer = self.tracer
             self._gather = make_gather_pages_step()
             self._scatter = make_scatter_pages_step()

@@ -36,11 +36,18 @@ def greedy(cfg, last, dist=None) -> tuple[torch.Tensor, torch.Tensor]:
 
 def make_prefill_step(cfg, dist=None):
     """prefill(params, tokens (B,S)) -> last-token logits (B, V) f32,
-    through the training forward (no cache)."""
+    through the training forward (no cache). Under ``dist`` it runs on
+    the rank's shard (packed or dense), sequence-parallel where
+    ``DistContext.seq_split`` allows it (the reference's ``constrain_seq``
+    in ``forward``), and the vocab shards of the last token are gathered
+    for the caller, so every rank returns the whole rows."""
     def prefill_step(params, tokens):
         logits, _ = registry.forward(cfg, params, tokens, masks=None,
                                      dist=dist)
-        return logits[:, -1]
+        last = logits[:, -1]
+        if dist is not None and dist.shards(cfg.vocab_size):
+            last = dist.all_gather(last, dim=-1)
+        return last
     return prefill_step
 
 

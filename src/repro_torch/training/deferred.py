@@ -16,6 +16,13 @@ A rank's batch is its contiguous rows of the global batch
 over the data axes hands it, and its microbatches are cut from those
 rows. Its loss is the mean over its own rows (no count crosses the data
 axes), averaged over the data ranks once with the gradients.
+
+Distillation and sequence parallelism run as in the sharded step
+(``training/step.py``): the in-step teacher on the rank's teacher
+shard, or the batch's 'teacher_logits'; the KL, like the cross-entropy,
+the mean over the rank's own tokens. The reference's deferred step has
+no KD term (its ``loss_fn`` gets no teacher); it keeps ``sp`` on inside
+its shard_map, as the port does.
 """
 from __future__ import annotations
 
@@ -25,25 +32,32 @@ from repro_torch.core import sparse_mlp as sm
 from repro_torch.optim import adamw, compress
 from repro_torch.training.step import (TrainState, check_dist_options,
                                        dense_flags_on, dist_layout,
-                                       loss_and_grads)
+                                       loss_and_grads, teacher_logits_of)
 
 
 def make_train_step_deferred(cfg, opt_cfg: adamw.AdamWConfig, dist,
                              microbatches: int = 1,
-                             compress_grads: bool = True):
+                             compress_grads: bool = True, kd_alpha=1.0,
+                             kd_beta=0.0, teacher_cfg=None,
+                             teacher_params_static=None,
+                             kd_temperature: float = 1.0):
     """train_step(state, batch) -> (state, metrics) with ONE (compressed)
     data-axis reduction. ``state.opt_state`` carries 'ef' when
-    ``compress_grads`` (``init_opt_state``). Metrics: 'loss' and
-    'grad_norm' (the clipped update's norm) as host floats, 'aux', 'lr',
-    and 'sparsity' as a device scalar."""
-    check_dist_options(cfg, dist)
+    ``compress_grads`` (``init_opt_state``). The KD options are
+    ``step.make_train_step``'s. Metrics: 'loss' and 'grad_norm' (the
+    clipped update's norm) as host floats, 'aux', 'lr', and 'sparsity'
+    as a device scalar."""
+    check_dist_options(cfg, dist, teacher_cfg)
     p_flags, m_flags, m_specs = dist_layout(cfg, dist)
     spec = cfg.blast
     dense_flags = dense_flags_on(cfg)
 
     def train_step(state: TrainState, batch):
-        loss, aux, g = loss_and_grads(cfg, state, batch, dist,
-                                      microbatches, over_data=False)
+        tl = teacher_logits_of(cfg, batch, teacher_cfg,
+                               teacher_params_static, dist)
+        loss, aux, g = loss_and_grads(cfg, state, batch, dist, microbatches,
+                                      tl, kd_alpha, kd_beta, over_data=False,
+                                      kd_temperature=kd_temperature)
         # THE deferred reduction: one pass over the data axes
         if compress_grads:
             dense_grads, new_ef = compress.compressed_psum(

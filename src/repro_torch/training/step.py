@@ -9,6 +9,16 @@ the backward (the step's one host sync; the loop's read of the
 metrics follows it), decides on the host, and only then builds the
 update. A skipped step returns params, moments and masks unchanged. The
 step count is a host int, so the refresh cadence is a Python branch.
+
+Under ``dist`` (the sharded step) knowledge distillation runs as on one
+device: an in-step dense teacher forward on the rank's teacher shard
+(``sharding.shard_teacher``) gives vocab-sharded logits with no
+gradient, or a batch's precomputed whole-vocabulary ``teacher_logits``
+(its rows cut with the tokens by ``sharding.slice_batch``) are narrowed
+to the rank's vocab slice; ``core/distill.py`` reduces the KL over the
+shards. With sequence parallelism (``DistContext.sp``) the replicated
+leaves that act on an S shard (``sharding.seq_partial_flags``) get their
+partial gradients summed over the model axis after each backward.
 """
 from __future__ import annotations
 
@@ -76,12 +86,16 @@ def abstract_state(cfg) -> TrainState:
 
 
 def loss_fn(cfg, params, masks, batch, teacher_logits=None, kd_alpha=1.0,
-            kd_beta=0.0, dist=None, count_over_data=True):
+            kd_beta=0.0, dist=None, count_over_data=True,
+            kd_temperature=1.0):
     """The distillation loss (plus an MoE model's aux term) of one batch;
     whisper's forward also takes ``batch["frames"]`` and a VLM's
     ``batch["patch_embeds"]``. Under ``dist`` the forward is the
     rank's shard and the loss this rank's share of the global mean
-    (``count_over_data``; False: of its own rows, the deferred step's)."""
+    (``count_over_data``; False: of its own rows, the deferred step's);
+    ``teacher_logits`` are then the rank's vocab shard where the
+    student's are. ``kd_temperature`` is the KL's temperature (the
+    reference's step leaves it at 1)."""
     kw = {}
     if cfg.family == "audio":
         kw["frames"] = batch["frames"]
@@ -91,7 +105,8 @@ def loss_fn(cfg, params, masks, batch, teacher_logits=None, kd_alpha=1.0,
                                    masks=masks or None, dist=dist, **kw)
     vp = dist is not None and dist.shards(cfg.vocab_size)
     loss = distill.distill_loss(logits, batch["labels"], teacher_logits,
-                                alpha=kd_alpha, beta=kd_beta, dist=dist,
+                                alpha=kd_alpha, beta=kd_beta,
+                                temperature=kd_temperature, dist=dist,
                                 vocab_parallel=vp,
                                 count_over_data=count_over_data)
     if cfg.is_moe:
@@ -99,15 +114,44 @@ def loss_fn(cfg, params, masks, batch, teacher_logits=None, kd_alpha=1.0,
     return loss, (logits, aux)
 
 
-def check_dist_options(cfg, dist, kd_beta=0.0, teacher_params_static=None):
+def check_dist_options(cfg, dist, teacher_cfg=None):
     """Refuse what the sharded train step does not cover, before any
-    collective: other families (``check_training``) and distillation."""
+    collective: other families (``check_training``), for the student and
+    for a teacher of another config."""
     check_training(cfg, dist)
-    if dist is not None and (kd_beta != 0.0
-                             or teacher_params_static is not None):
-        raise NotImplementedError(
-            "knowledge distillation under dist= is not ported (ROADMAP §1 "
-            "item 4: the KD term under dist=)")
+    if teacher_cfg is not None:
+        check_training(teacher_cfg, dist)
+
+
+def teacher_logits_of(cfg, batch, teacher_cfg=None,
+                      teacher_params_static=None, dist=None):
+    """The KD logits of a step, without gradient: the in-step dense
+    teacher forward (on the rank's teacher shard under ``dist``: its
+    logits are then the rank's vocab shard), else the batch's
+    'teacher_logits', narrowed to the rank's vocab slice under ``dist``
+    where the vocabulary splits and they are whole; None without
+    either."""
+    if teacher_params_static is not None:
+        with torch.no_grad():
+            return registry.forward(teacher_cfg or cfg,
+                                    teacher_params_static, batch["tokens"],
+                                    dist=dist)[0]
+    tl = batch.get("teacher_logits")
+    if (tl is not None and dist is not None
+            and dist.shards(cfg.vocab_size)
+            and tl.shape[-1] == cfg.vocab_size):
+        n = cfg.vocab_size // dist.tp
+        tl = tl.narrow(-1, dist.model_rank * n, n)
+    return tl
+
+
+def _seq_partial_grads(grads, flags) -> list:
+    """The gradients of the leaves that ``flags``
+    (``sharding.seq_partial_flags``) marks, walked by key."""
+    if isinstance(grads, dict):
+        return [g for k, v in grads.items()
+                for g in _seq_partial_grads(v, flags[k])]
+    return [grads] if flags else []
 
 
 def _leaf_params(params):
@@ -148,31 +192,43 @@ def dist_layout(cfg, dist):
 
 def loss_and_grads(cfg, state: TrainState, batch, dist=None,
                    microbatches: int = 1, teacher_logits=None, kd_alpha=1.0,
-                   kd_beta=0.0, poison=0.0, over_data: bool = True):
+                   kd_beta=0.0, poison=0.0, over_data: bool = True,
+                   kd_temperature=1.0):
     """(loss, aux, dense gradients) of ``batch``, averaged over
-    ``microbatches`` slices of it. ``poison`` multiplies the loss before
-    the backward (the reported loss too). Under ``dist`` with
-    ``over_data``, each rank's loss is its share of the global mean and
-    every microbatch's loss and gradients are summed over the data axes
-    (as GSPMD reduces them in the reference); without, they stay this
-    rank's own, the mean over its rows (the deferred step's)."""
+    ``microbatches`` slices of it (``teacher_logits`` sliced with it).
+    ``poison`` multiplies the loss before the backward (the reported
+    loss too). Under ``dist`` with ``over_data``, each rank's loss is its
+    share of the global mean and every microbatch's loss and gradients
+    are summed over the data axes (as GSPMD reduces them in the
+    reference); without, they stay this rank's own, the mean over its
+    rows (the deferred step's). Where the forward splits the stream
+    along S (``DistContext.seq_split``), the gradients of the leaves that
+    act on the shard are summed over the model axis first."""
     n = max(microbatches, 1)
     cut = {k: v.chunk(n) for k, v in batch.items()}
     chunks = [{k: v[i] for k, v in cut.items()} for i in range(n)]
     tls = (teacher_logits.chunk(n) if teacher_logits is not None
            else [None] * n)
     reduce = over_data and dist is not None and dist.data_size > 1
+    seq_flags = None
+    if dist is not None and dist.seq_split(
+            tuple(chunks[0]["tokens"].shape) + (cfg.d_model,)):
+        from repro_torch.distributed import sharding
+        seq_flags = sharding.seq_partial_flags(cfg)
     total, loss, aux = None, 0.0, 0.0
     for b, tl in zip(chunks, tls):
         leaves = _leaf_params(state.params)
         l_i, (_, a_i) = loss_fn(cfg, leaves, state.masks, b, tl, kd_alpha,
-                                kd_beta, dist, count_over_data=over_data)
+                                kd_beta, dist, count_over_data=over_data,
+                                kd_temperature=kd_temperature)
         l_i = l_i * (1.0 + poison)       # the reported loss is poisoned too
         ps = adamw.tree_leaves(leaves)
         gs = torch.autograd.grad(l_i, ps, allow_unused=True)
         it = iter(g if g is not None else torch.zeros_like(p)
                   for p, g in zip(ps, gs))
         g_i = adamw.tree_map(lambda _: next(it), leaves)
+        if seq_flags is not None:
+            dist.sum_over_model(_seq_partial_grads(g_i, seq_flags))
         l_i = l_i.detach()
         if reduce:
             for g in adamw.tree_leaves(g_i):
@@ -189,7 +245,8 @@ def loss_and_grads(cfg, state: TrainState, batch, dist=None,
 def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, dist=None, kd_alpha=1.0,
                     kd_beta=0.0, teacher_cfg=None, teacher_params_static=None,
                     microbatches: int = 1, guard: bool = True,
-                    grad_norm_limit: float | None = None):
+                    grad_norm_limit: float | None = None,
+                    kd_temperature: float = 1.0):
     """Build train_step(state, batch) -> (state, metrics).
 
     ``batch`` holds 'tokens' and 'labels' (B, S) tensors on the params'
@@ -200,15 +257,17 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, dist=None, kd_alpha=1.0,
     forces the skip path. ``microbatches`` > 1 accumulates gradients over
     batch slices. ``dist``: the sharded step (module docstring); ``state``
     and ``batch`` are then this rank's shard and rows. With
-    ``teacher_params_static`` an in-step dense teacher forward supplies
-    the KD logits; a batch may also carry 'teacher_logits'.
+    ``teacher_params_static`` (under ``dist``, the rank's teacher shard)
+    an in-step dense teacher forward supplies the KD logits; a batch may
+    also carry 'teacher_logits' (B, S, V) (``teacher_logits_of``).
+    ``kd_temperature``: the KL's temperature (the reference's is 1).
 
     Anomaly guard (``guard``): a non-finite loss or gradient norm, or a
     norm over ``grad_norm_limit``, skips the update. Metrics: 'loss',
     'aux', 'grad_norm', 'lr', 'anomaly' as host numbers; 'sparsity' as a
     device scalar made after the update (0 without BLaST), so that its
     read waits for the whole step on the device."""
-    check_dist_options(cfg, dist, kd_beta, teacher_params_static)
+    check_dist_options(cfg, dist, teacher_cfg)
     p_flags, m_flags, m_specs = dist_layout(cfg, dist)
     spec = cfg.blast
     dense_flags = dense_flags_on(cfg)
@@ -216,16 +275,12 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, dist=None, kd_alpha=1.0,
     def train_step(state: TrainState, batch):
         batch = dict(batch)
         poison = {k: float(batch.pop(k, 0.0)) for k in _POISON}
-        teacher_logits = batch.get("teacher_logits")
-        if teacher_params_static is not None:
-            with torch.no_grad():
-                teacher_logits, _ = registry.forward(
-                    teacher_cfg or cfg, teacher_params_static,
-                    batch["tokens"])
+        teacher_logits = teacher_logits_of(cfg, batch, teacher_cfg,
+                                           teacher_params_static, dist)
 
         loss, aux, dense_grads = loss_and_grads(
             cfg, state, batch, dist, microbatches, teacher_logits, kd_alpha,
-            kd_beta, poison["grad_poison"])
+            kd_beta, poison["grad_poison"], kd_temperature=kd_temperature)
 
         gnorm = adamw.global_norm(dense_grads, dist, p_flags)
         # the step's one host read: loss and norm together, and an MoE

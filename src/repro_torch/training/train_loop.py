@@ -110,11 +110,16 @@ def train(cfg, opt_cfg: adamw.AdamWConfig, source, loop: TrainLoopConfig,
     default a private one), so a caller can scrape them.
 
     ``dist``: the sharded run (module docstring); ``state``, when given,
-    is then this rank's shard."""
+    is then this rank's shard, and whole ``teacher_params`` are cut to
+    the rank's teacher shard once, here (``sharding.shard_teacher``)."""
     tr = NULL_TRACER if tracer is None else tracer
     reg = metrics if metrics is not None else MetricsRegistry(
         namespace="blast_train")
     gcfg = loop.guard if (loop.guard and loop.guard.enabled) else None
+    if dist is not None and teacher_params is not None:
+        from repro_torch.distributed import sharding
+        teacher_params = sharding.shard_teacher(teacher_cfg or cfg,
+                                                teacher_params, dist.mesh)
     step_fn = step_mod.make_train_step(
         cfg, opt_cfg, dist=dist, kd_beta=kd_beta, teacher_cfg=teacher_cfg,
         teacher_params_static=teacher_params, guard=gcfg is not None,
@@ -225,7 +230,14 @@ def train(cfg, opt_cfg: adamw.AdamWConfig, source, loop: TrainLoopConfig,
                                         bool(out["anomaly"]))
                 counters.update(guard.counters)
                 if verdict == "rewind":
-                    target = ckpt.latest_intact_step() if ckpt else None
+                    target = None
+                    if ckpt:
+                        # join the write in flight first: the newest
+                        # checkpoint counts whether or not its thread has
+                        # finished (the reference asks without joining,
+                        # so its rewind depends on thread timing)
+                        ckpt.wait()
+                        target = ckpt.latest_intact_step()
                     if (target is not None
                             and guard.counters["rewinds"]
                             < gcfg.max_rewinds):

@@ -1,8 +1,9 @@
 """One rank of the tensor-parallel serving scenarios
 (``test_torch_dist_serving.py`` on the CPU, ``test_torch_dist_gpu.py`` on
 the card) and of the sharded training ones (``test_torch_dist_train.py``,
-``train_scenario`` below: a spec with a ``train`` entry). Imports torch
-and the port only, never JAX:
+``train_scenario`` below: a spec with a ``train`` entry;
+``test_torch_dist_sp.py``, ``sp_scenario``; ``test_torch_dist_kd.py``,
+``kd_scenario``). Imports torch and the port only, never JAX:
 
     python tests/_torch_dist_rank.py SPEC RANK
 
@@ -270,6 +271,274 @@ def train_scenario(t: dict, mesh, rank: int) -> dict:
     return out
 
 
+def count_collectives() -> dict:
+    """Count every all-reduce, all-gather and reduce-scatter this process
+    issues from now on (``torch.distributed``'s functions wrapped): {kind:
+    calls}, which the caller clears."""
+    import torch.distributed as tdist
+    stats = {}
+
+    def wrap(kind, fn):
+        def call(*a, **kw):
+            stats[kind] = stats.get(kind, 0) + 1
+            return fn(*a, **kw)
+        return call
+
+    for kind, name in (("all_reduce", "all_reduce"),
+                       ("all_gather", "all_gather"),
+                       ("reduce_scatter", "reduce_scatter_single"),
+                       ("reduce_scatter", "reduce_scatter_tensor")):
+        if hasattr(tdist, name):
+            setattr(tdist, name, wrap(kind, getattr(tdist, name)))
+    return stats
+
+
+def _stream_shapes():
+    """Record the residual stream's shape at every ``transformer._block``
+    call: (list of shapes, restore)."""
+    from repro_torch.models import transformer
+    block, shapes = transformer._block, []
+
+    def recording(cfg, p, x, *a, **kw):
+        shapes.append(tuple(x.shape))
+        return block(cfg, p, x, *a, **kw)
+    transformer._block = recording
+    return shapes
+
+
+def _pairs(dist) -> dict:
+    """The sequence-parallel pairs on (1, 3, 2) shards (rank r's entries
+    offset by 100 r): each forward and the gradient of a weighted sum
+    (weights (r + 1) times 0, 1, 2, ...)."""
+    r, tp = dist.model_rank, dist.tp
+    out = {}
+    for name, n in (("gather_from_seq", 3), ("reduce_scatter_to_seq",
+                                             3 * tp),
+                    ("scatter_to_seq", 3 * tp)):
+        x = (torch.arange(n * 2.0).reshape(1, n, 2) + 100 * r
+             ).requires_grad_()
+        y = getattr(dist, name)(x)
+        w = torch.arange(float(y.numel())).reshape(y.shape) * (r + 1)
+        (y * w).sum().backward()
+        out[name] = (y.detach().numpy(), x.grad.numpy())
+    return out
+
+
+def sp_scenario(t: dict, mesh, rank: int) -> dict:
+    """Sequence parallelism on ``mesh`` from the logical state
+    ``t["state"]``: the pairs (``_pairs``); ``t["steps"]`` sharded steps
+    with ``sp`` on (the default) and off, each step's logical params and
+    masks and its collectives by kind, and the residual stream's shape
+    inside the blocks; two steps on ``t["odd"]``'s batches, whose S the
+    model axis does not divide; one step with the norms' gradient sum
+    left out (``seq_partial_flags`` all False: a planted fault); the
+    full-sequence packed prefill ``make_prefill_step`` on ``t["packed"]``
+    under ``sp``; the launcher (``train.main --mesh single``) on this
+    mesh."""
+    import torch.distributed as tdist
+
+    from repro_torch import interop
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.context import DistContext, make_mesh
+    from repro_torch.launch import mesh as lmesh, train as ltrain
+    from repro_torch.serving import step as sstep
+    from repro_torch.training import step as ts, train_loop
+    cfg, opt = t["cfg"], t["opt"]
+    counts = count_collectives()
+    shapes = _stream_shapes()
+    shd = sharding.state_shardings(cfg, mesh)
+    state0 = sharding.shard_state(interop.train_state(t["state"],
+                                                      device="cpu"), shd)
+    dist = DistContext(mesh)
+    out = {"pairs": _pairs(dist), "rank": dist.model_rank,
+           "data_rank": dist.data_rank, "default_sp": dist.sp}
+
+    def run(d, src, n):
+        step = ts.make_train_step(cfg, opt, dist=d)
+        st, runs = state0, []
+        for i in range(n):
+            b = sharding.slice_batch({k: torch.as_tensor(v) for k, v in
+                                      src.batch(i).items()}, d)
+            counts.clear()
+            shapes.clear()
+            st, m = step(st, b)
+            runs.append(dict(metrics=_host(m), collectives=dict(counts),
+                             stream=sorted(set(shapes)),
+                             **_gathered(st, shd)))
+        return runs
+
+    out["sp"] = run(dist, t["source"], t["steps"])
+    out["sp_off"] = run(DistContext(mesh, sp=False), t["source"], t["steps"])
+    out["odd"] = run(dist, t["odd"], 2)
+    flags = sharding.seq_partial_flags
+    sharding.seq_partial_flags = lambda c: ts.adamw.tree_map(
+        lambda _: False, flags(c))
+    try:
+        out["planted"] = run(dist, t["source"], 1)
+    finally:
+        sharding.seq_partial_flags = flags
+
+    pcfg = t["packed_cfg"]
+    params = interop.to_torch_shard(t["packed"], pcfg, mesh, device="cpu")
+    counts.clear()
+    shapes.clear()
+    with torch.inference_mode():
+        logits = sstep.make_prefill_step(pcfg, dist)(
+            params, torch.as_tensor(t["prompts"]))
+    out["prefill"] = dict(logits=logits.numpy(), collectives=dict(counts),
+                          stream=sorted(set(shapes)))
+
+    seen, train = {}, train_loop.train
+    made = lmesh.make_production_mesh
+
+    def spy(*a, **kw):
+        seen["sp"] = kw["dist"].sp
+        return train(*a, **kw)
+    lmesh.make_production_mesh = lambda multi_pod=False: make_mesh(
+        tuple(mesh.shape), mesh.axis_names)
+    train_loop.train = spy
+    try:
+        counts.clear()
+        shapes.clear()
+        _, hist = ltrain.main(t["launch"] + ["--mesh", "single"])
+    finally:
+        lmesh.make_production_mesh, train_loop.train = made, train
+    out["launch"] = dict(sp=seen["sp"], collectives=dict(counts),
+                         stream=sorted(set(shapes)),
+                         losses=[h["loss"] for h in hist if "loss" in h])
+    tdist.barrier()
+    return out
+
+
+def kd_scenario(t: dict, mesh, rank: int) -> dict:
+    """Distillation on ``mesh`` from the logical state ``t["state"]``
+    with the dense teacher ``t["teacher"]`` (whole, numpy), KD weight
+    ``t["beta"]``: ``t["steps"]`` sharded steps with the in-step teacher
+    with ``sp`` off and on, with the batches' precomputed whole-vocab
+    ``t["teacher_logits"]``, over two microbatches, through
+    ``train_loop.train`` (the whole teacher given to it), the deferred
+    step uncompressed and int8-compressed (as ``train_scenario``'s), the
+    KL with its logsumexp made local (a planted fault), and the loss and
+    gradient of ``distill_loss`` at temperature 2 on ``t["kl"]``'s
+    logits, correct and planted."""
+    import dataclasses
+
+    from repro_torch import interop
+    from repro_torch.core import distill
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.context import DistContext
+    from repro_torch.optim import adamw, compress
+    from repro_torch.training import deferred, step as ts, train_loop
+    cfg, opt, src, beta = t["cfg"], t["opt"], t["source"], t["beta"]
+    counts = count_collectives()
+    shd = sharding.state_shardings(cfg, mesh)
+    state0 = sharding.shard_state(interop.train_state(t["state"],
+                                                      device="cpu"), shd)
+    whole = interop.to_torch(t["teacher"], device="cpu")
+    teacher = sharding.shard_teacher(cfg, whole, mesh)
+    dist, off = DistContext(mesh), DistContext(mesh, sp=False)
+    kd = dict(kd_beta=beta, teacher_cfg=cfg)
+    out = {"data_rank": dist.data_rank, "model_rank": dist.model_rank}
+
+    def batch(i, d, microbatches=1, logits=False):
+        b = {k: torch.as_tensor(v) for k, v in src.batch(i).items()}
+        if logits:
+            b["teacher_logits"] = torch.as_tensor(t["teacher_logits"][i])
+        return sharding.slice_batch(b, d, microbatches)
+
+    def run(d, step, n=t["steps"], **bkw):
+        st, runs = state0, []
+        for i in range(n):
+            counts.clear()
+            st, m = step(st, batch(i, d, **bkw))
+            runs.append(dict(metrics=_host(m), collectives=dict(counts),
+                             **_gathered(st, shd)))
+        return runs
+
+    out["off"] = run(off, ts.make_train_step(
+        cfg, opt, dist=off, teacher_params_static=teacher, **kd))
+    out["sp"] = run(dist, ts.make_train_step(
+        cfg, opt, dist=dist, teacher_params_static=teacher, **kd))
+    out["pre"] = run(dist, ts.make_train_step(cfg, opt, dist=dist, **kd),
+                     logits=True)
+    out["mb"] = run(dist, ts.make_train_step(
+        cfg, opt, dist=dist, teacher_params_static=teacher, microbatches=2,
+        **kd), microbatches=2)
+    _, hist = train_loop.train(
+        cfg, opt, src, train_loop.TrainLoopConfig(total_steps=t["steps"],
+                                                  log_every=1),
+        state=state0, device="cpu", dist=dist, teacher_params=whole,
+        teacher_cfg=cfg, kd_beta=beta, log_fn=lambda e: None)
+    out["loop"] = [h["loss"] for h in hist if "loss" in h]
+
+    st = dataclasses.replace(state0, opt_state=deferred.init_opt_state(
+        cfg, state0.params, False))
+    dstep = deferred.make_train_step_deferred(
+        cfg, opt, dist, microbatches=2, compress_grads=False,
+        teacher_params_static=teacher, **kd)
+    out["deferred"] = []
+    for i in range(t["steps"]):
+        st, m = dstep(st, batch(i, dist))
+        out["deferred"].append(dict(metrics=_host(m), **_gathered(st, shd)))
+    cstep = deferred.make_train_step_deferred(
+        cfg, opt, dist, microbatches=2, compress_grads=True,
+        teacher_params_static=teacher, **kd)
+    sc = dataclasses.replace(state0, opt_state=deferred.init_opt_state(
+        cfg, state0.params, True))
+    out["compress_err"], out["deferred_c"] = [], []
+    for i in range(2):
+        b = batch(i, dist)
+        tl = ts.teacher_logits_of(cfg, b, cfg, teacher, dist)
+        _, _, g = ts.loss_and_grads(cfg, sc, b, dist, 2, tl, 1.0, beta,
+                                    over_data=False)
+        ef = sc.opt_state["ef"]
+        comp, _ = compress.compressed_psum(g, ef, dist)
+        ge = adamw.tree_map(torch.add, g, ef)
+        f32 = adamw.tree_map(lambda x: dist.mean_over_data(x.clone()), ge)
+        scale = adamw.tree_map(
+            lambda x: dist.max_over_data(x.abs().max() / 127.0), ge)
+        out["compress_err"] += [
+            (float((a - b).abs().max()), float(s) / 2)
+            for a, b, s in zip(*(adamw.tree_leaves(x)
+                                 for x in (comp, f32, scale)))]
+        before = dict(step=sc.step, **_gathered(sc, shd, moments=True))
+        counts.clear()
+        sc, m = cstep(sc, b)
+        out["deferred_c"].append(dict(
+            metrics=_host(m), before=before, collectives=dict(counts),
+            comp=_np(sharding.gather_tree(comp, shd.params)),
+            **_gathered(sc, shd, moments=True)))
+
+    def local_lse(x, d):
+        return torch.log_softmax(x, -1), torch.logsumexp(x, -1)
+
+    def kl_unit():
+        s_all, t_all, labels = (torch.as_tensor(x) for x in t["kl"])
+        rows = s_all.shape[0] // dist.data_size
+        v = s_all.shape[-1] // dist.tp
+        cut = lambda x: x.narrow(0, dist.data_rank * rows, rows)  # noqa
+        s_loc = cut(s_all).narrow(-1, dist.model_rank * v, v).clone()
+        s_loc.requires_grad_()
+        loss = distill.distill_loss(
+            s_loc, cut(labels), cut(t_all).narrow(-1, dist.model_rank * v,
+                                                  v),
+            alpha=1.0, beta=beta, temperature=2.0, dist=dist,
+            vocab_parallel=True)
+        loss.backward()
+        return float(loss), s_loc.grad.numpy()
+
+    out["kl"] = kl_unit()
+    vp = distill._vp_log_softmax
+    distill._vp_log_softmax = local_lse
+    try:
+        out["kl_planted"] = kl_unit()
+        out["planted"] = run(dist, ts.make_train_step(
+            cfg, opt, dist=dist, teacher_params_static=teacher, **kd), n=1)
+    finally:
+        distill._vp_log_softmax = vp
+    return out
+
+
 def main(spec_path: str, rank: int) -> None:
     torch.set_num_threads(1)
     from repro_torch.distributed.context import (DistContext,
@@ -282,10 +551,13 @@ def main(spec_path: str, rank: int) -> None:
         torch.cuda.set_device(0)
     init_process_group(spec["dir"], rank, spec["world"])
     try:
-        if "train" in spec:
-            t = spec["train"]
-            out = train_scenario(t, make_mesh(t["mesh"], ("data", "model")),
-                                 rank)
+        scenario = next((k for k in ("train", "sp", "kd") if k in spec),
+                        None)
+        if scenario is not None:
+            t = spec[scenario]
+            run = {"train": train_scenario, "sp": sp_scenario,
+                   "kd": kd_scenario}[scenario]
+            out = run(t, make_mesh(t["mesh"], ("data", "model")), rank)
         else:
             mesh = make_mesh((1, spec["world"]), ("data", "model"))
             dist = DistContext(mesh)
@@ -299,15 +571,18 @@ def main(spec_path: str, rank: int) -> None:
 
 
 def start(directory: str, world: int, models: dict | None = None,
-          device: str = "cpu", train: dict | None = None):
+          device: str = "cpu", train: dict | None = None,
+          scenario: str = "train"):
     """Write the spec into ``directory`` (a fresh one: it holds the gloo
     store) and start ``world`` rank processes; returns them. ``train``
-    runs ``train_scenario`` instead of serving ``models``."""
+    runs the ``scenario`` ('train': ``train_scenario``, 'sp':
+    ``sp_scenario``, 'kd': ``kd_scenario``) instead of serving
+    ``models``."""
     path = os.path.join(directory, "spec.pkl")
     spec = {"dir": directory, "world": world, "device": device,
             "models": models or {}}
     if train is not None:
-        spec["train"] = train
+        spec[scenario] = train
     with open(path, "wb") as f:
         pickle.dump(spec, f)
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))

@@ -321,15 +321,11 @@ def test_engine_refuses_serving_behind_traffic(what, tmp_path):
             recovery.Supervisor(eng)
 
 
-@pytest.mark.parametrize("family", ["mlp2", "moe", "ssm", "sp"])
+@pytest.mark.parametrize("family", ["mlp2", "moe", "ssm"])
 def test_other_families_refuse_dist(family):
     from repro_torch.configs import get_config, reduced
     from repro_torch.serving import engine
     prompts = np.ones((1, 4), np.int32)
-    if family == "sp":
-        with pytest.raises(NotImplementedError):
-            DistContext(Mesh(("data", "model"), (1, 2), 0), sp=True)
-        return
     cfg = {"mlp2": port_cfg(jpm.GPT2_SMALL_SMOKE),
            "moe": reduced(get_config("deepseek-moe-16b")),
            "ssm": reduced(get_config("rwkv6-3b"))}[family]

@@ -409,26 +409,6 @@ def test_other_families_refuse_to_train_sharded(arch):
             build()
 
 
-@pytest.mark.parametrize("what", ["kd_beta", "teacher", "kd_loss", "sp"])
-def test_refused_options(what):
-    from repro_torch.core import distill
-    from repro_torch.training import step as ts
-    cfg = port_cfg(_jcfg())
-    _, topt = _opts()
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 4"):
-        if what == "kd_beta":
-            ts.make_train_step(cfg, topt, dist=_dist(), kd_beta=0.5)
-        elif what == "teacher":
-            ts.make_train_step(cfg, topt, dist=_dist(),
-                               teacher_params_static={})
-        elif what == "kd_loss":
-            x = torch.zeros(2, 3, 8)
-            distill.distill_loss(x, torch.zeros(2, 3, dtype=torch.long), x,
-                                 beta=0.5, dist=_dist((1, 1)))
-        else:
-            DistContext(Mesh(("data", "model"), (1, 2), 0), sp=True)
-
-
 def test_sharded_layout_keeps_whole_blocks():
     """A BLaST weight splits only where its block mask splits: d_ff 96
     in blocks of 16 (6 block-columns) over a model axis of 4 stays whole,

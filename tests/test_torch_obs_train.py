@@ -169,7 +169,18 @@ def rewind(tmp_path_factory):
         postmortem_dir=str(tmp / "pm_t"))
     jreg, treg = JRegistry(namespace="blast_train"), MetricsRegistry(
         namespace="blast_train")
-    with pytest.raises(jfaults.TrainingDivergedError):
+    # the reference asks for the rewind target without joining the
+    # step-4 write in flight, so under load it may find no checkpoint;
+    # held here to the port's rule (join first) for its run only
+    latest = JCkpt.latest_intact_step
+
+    def joined(self):
+        self.wait()
+        return latest(self)
+
+    with pytest.MonkeyPatch.context() as mp, \
+            pytest.raises(jfaults.TrainingDivergedError):
+        mp.setattr(JCkpt, "latest_intact_step", joined)
         jloop.train(jcfg, _opt(jadam), src, jl, state=js,
                     faults=_rewind_plan(jfaults), log_fn=lambda m: None,
                     tracer=jt, metrics=jreg)
@@ -177,7 +188,8 @@ def rewind(tmp_path_factory):
         tloop.train(port_cfg(jcfg), _opt(tadam), src, tl, state=tstate,
                     faults=_rewind_plan(tf), log_fn=lambda m: None,
                     tracer=tt, metrics=treg)
-    return dict(jt=jt, tt=tt, jreg=jreg, treg=treg, tmp=tmp)
+    return dict(jt=jt, tt=tt, jreg=jreg, treg=treg, tmp=tmp,
+                tstate=tstate, src=src, gkw=gkw)
 
 
 def _same(g, w, where):
@@ -241,6 +253,43 @@ def test_rewind_and_divergence_postmortems(rewind):
     files = sorted(os.listdir(rewind["tmp"] / "pm_t"))
     assert files == ["postmortem_0000_train_rewind.json",
                      "postmortem_0001_training_diverged.json"]
+
+
+def test_rewind_waits_for_a_slow_checkpoint_write(rewind, monkeypatch):
+    """The step-4 checkpoint's background write still runs when the
+    guard asks to rewind at step 7 (every checksum of a write thread
+    sleeps 0.2 s, so the write outlasts the three steps several times
+    over): the loop joins it first, rewinds to step 4 and records what
+    the reference records."""
+    import threading
+    import time
+
+    from repro_torch.checkpointing import checkpoint as ckmod
+    crc, slowed = ckmod.crc32_array, []
+
+    def slow(a):
+        if threading.current_thread() is not threading.main_thread():
+            slowed.append(1)
+            time.sleep(0.2)
+        return crc(a)
+
+    monkeypatch.setattr(ckmod, "crc32_array", slow)
+    tmp = rewind["tmp"]
+    tl = tloop.TrainLoopConfig(
+        total_steps=16, log_every=2, straggler_factor=1e9,
+        ckpt_dir=str(tmp / "t_slow"), ckpt_every=4,
+        guard=tguard.GuardConfig(**rewind["gkw"]))
+    tt, treg = Tracer(postmortem_dir=str(tmp / "pm_slow")), \
+        MetricsRegistry(namespace="blast_train")
+    with pytest.raises(tf.TrainingDivergedError):
+        tloop.train(port_cfg(tiny_cfg()), _opt(tadam), rewind["src"], tl,
+                    state=rewind["tstate"], faults=_rewind_plan(tf),
+                    log_fn=lambda m: None, tracer=tt, metrics=treg)
+    assert slowed
+    rw = [s.attrs for s in tt.records if s.name == "train.rewind"]
+    assert rw == [dict(step=7, to_step=4, consecutive=3)]
+    _same_records(list(tt.records), list(rewind["jt"].records))
+    assert treg.prometheus_text() == rewind["jreg"].prometheus_text()
 
 
 def test_train_counters_prometheus_byte_equal(rewind):
