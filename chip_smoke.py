@@ -156,6 +156,18 @@ Then the expert-batched kernel lines of one layer at decode C = 1 and at
 a 128-token call's capacity, paged decode at qwen3-moe's G = 16 beside G
 = 8, and the packed model against its pruned-dense export on two layers.
 
+Expert parallelism (``serve_ep``): the two packed MoE models served on a
+model axis of 2 (``dist=``: each rank computes E/2 experts, attention
+tensor-parallel, router and shared experts whole) by two spawned ranks
+that share the card over gloo, through ``launch.serve._serve`` with the
+same traffic, phased and mixed, beside ``serve_ssm`` and
+``serve_audio_vlm``: streams equal the single-device runs' (but for
+near-ties), call for call (the MoE layer calls by tokens and capacity
+equal), the expert batch launched once a layer call at E/2, 2L + 1
+all-reduces a model call, half the expert bytes a rank; then the kernel
+lines at a rank's E/2 experts. A ``timing`` line before ``kernels``
+gives each phase group's end and length and the script's total.
+
 The recurrent families (``serve_ssm``, after the MoE models):
 rwkv6-3b (``ssm``: the chunked linear scan, its channel-mix through
 ``bspmm`` at 128 x 16 and 16 x 128 blocks) and zamba2-1.2b (``hybrid``:
@@ -172,6 +184,7 @@ Prints JSON lines; the line before the last is a ``kernels`` summary and
 the last is ``{"ok": true, "device": {...}}``. Any failed phase raises
 and the script exits non-zero without that line. Needs one CUDA card.
 """
+import concurrent.futures
 import contextlib
 import dataclasses
 import gc
@@ -300,6 +313,12 @@ AUDIO_FRAMES, AV_PARITY_B, AV_PARITY_TOKENS = 1500, 4, 64
 # same sums differ by about that
 TP_SIZE, TP_TIMEOUT_S, TP_BYTES_FRACTION, TP_NEAR_TIE = 2, 900, 0.55, 2.0
 TP_DIR = os.path.join(ROOT, "build", "chip_tp")
+# expert-parallel serving (serve_ep): serve_moe's two packed models on a
+# model axis of EP_SIZE ranks sharing card 0 over gloo, their store under
+# the gitignored build/; the bytes, near-tie and time limits of serve_tp
+EP_SIZE = 2
+EP_DIR = os.path.join(ROOT, "build", "chip_ep")
+EP_WEIGHTS = os.path.join(ROOT, "build", "chip_ep_weights")
 # train_tp: (a) the first TRAIN_TP_STEPS steps of the train phase's run
 # (its refreshes at 0 and TRAIN_STEP_SIZE) at a model axis of 2; (b)
 # TRAIN_DP_STEPS deferred int8 steps from step TRAIN_DP_START (a
@@ -4321,7 +4340,12 @@ def phase_serve_moe(torch, card):
     none). Then the kernel lines of one MoE layer at every C the runs
     used and, on the first two
     layers, the packed model against its pruned-dense export (the
-    ``arch_parity`` check). Returns the runs' launch counts."""
+    ``arch_parity`` check). Returns the runs' launch counts and, per
+    model, what ``serve_ep`` needs: the config, the packed tree and layer
+    0's joint export in host memory (the card keeps none of them), the
+    file in ``EP_WEIGHTS`` a thread is writing the tree to (a future of
+    its seconds), the launcher's arguments and prompts, and the phased
+    and mixed runs' streams and MoE layer calls."""
     import repro_torch.launch.serve as launcher
     from repro_torch.configs import get_config
     from repro_torch.models import registry, transformer
@@ -4329,7 +4353,10 @@ def phase_serve_moe(torch, card):
     t_phase = time.monotonic()
     timer = Timer(torch)
     rng = np.random.default_rng(SEED + 4)
-    served, mlp = [], transformer.mlp_forward
+    served, mlp, ep = [], transformer.mlp_forward, {}
+    shutil.rmtree(EP_WEIGHTS, ignore_errors=True)
+    os.makedirs(EP_WEIGHTS)
+    saver = concurrent.futures.ThreadPoolExecutor(1)
     for arch, depth in MOE_RUNS.items():
         full = get_config(arch)
         cfg = dataclasses.replace(full, num_layers=depth)
@@ -4463,10 +4490,288 @@ def phase_serve_moe(torch, card):
             sorted({c for run in runs.values() for _, c in run[3]}))
         emit(phase="moe_parity", arch=arch,
              **_arch_parity(torch, cfg, packed, dense, prompts))
+        # serve_ep's weights leave the card (kept on an H100 until the join,
+        # they left training 37.5 GB reserved where it has 17.8, and
+        # train_ckpt no room beside the chaos chain); a thread writes
+        # them for its ranks meanwhile
+        t0 = time.monotonic()
+        host = {"packed": _tree_to(packed, "cpu"),
+                "joint1": _tree_to(joint1, "cpu")}
+        path = os.path.join(EP_WEIGHTS, f"{arch}.pt")
+        ep[arch] = dict(cfg=cfg, host=host, path=path,
+                        to_host_s=time.monotonic() - t0,
+                        saved=saver.submit(_save_tree, host["packed"], path),
+                        full_layers=full.num_layers,
+                        argv=argv, prompts=launcher._engine_prompts(
+                            cfg, launcher.build_parser().parse_args(argv),
+                            np.random.default_rng(0)),
+                        single={k: dict(tokens=runs[k][0], calls=runs[k][3])
+                                for k in ("phased", "mixed")})
         del packed, dense, joint1, kern
+    saver.shutdown(wait=False)
     torch.cuda.empty_cache()
     emit(phase="serve_moe_total", seconds=time.monotonic() - t_phase)
-    return served
+    return served, ep
+
+
+def _save_tree(tree, path):
+    """``torch.save`` of ``tree`` to ``path`` under a temporary name
+    first, so a reader that waits for ``path`` finds it whole. Returns
+    the seconds it took."""
+    import torch
+    t0 = time.monotonic()
+    torch.save(tree, path + ".part")
+    os.replace(path + ".part", path)
+    return time.monotonic() - t0
+
+def _tree_to(tree, device):
+    """A params tree (dicts, tensors, ``PackedBCSC``s) on ``device``."""
+    import dataclasses as dc
+    from repro_torch.core.packing import PackedBCSC
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, PackedBCSC):
+        return dc.replace(tree, blocks=tree.blocks.to(device),
+                          idx=tree.idx.to(device))
+    return tree.to(device)
+
+
+def _ep_rank(rank, world, runs):
+    """One rank of ``serve_ep`` (a spawned process, gloo on card 0):
+    start the group from the ``file://`` store in ``EP_DIR``; per model
+    cut this rank's shard from the packed tree ``serve_moe`` saved (once
+    the file is there; memory-mapped, ``shard_params`` copies only the
+    rank's split leaves), move it to the card and serve through the launcher's
+    ``_serve`` (its prompts, on the paged engine; its printed rows
+    dropped), phased then mixed, as ``serve_moe`` did on one device. The launch counters, the MoE
+    layer's calls and the collectives are reset just before and read
+    just after each run. Pickles what it saw to ``rank<r>.pkl`` in
+    ``EP_DIR``."""
+    import io
+    import pickle
+    _die_with_parent()
+
+    import torch
+    import torch.distributed as tdist
+    import repro_torch.launch.serve as launcher
+    from repro_torch.distributed.context import (DistContext,
+                                                 init_process_group,
+                                                 make_mesh)
+    from repro_torch.models import moe
+    from repro_torch.serving import export
+    torch.cuda.set_device(0)
+    init_process_group(EP_DIR, rank, world, "gloo")
+    coll = _count_collectives(tdist)
+    out = {"rank": rank, "device": torch.cuda.current_device(), "runs": {}}
+    try:
+        mesh = make_mesh((1, world), ("data", "model"))
+        dist = DistContext(mesh)
+        for arch, r in runs.items():
+            cfg = r["cfg"]
+            deadline = time.monotonic() + TP_TIMEOUT_S
+            while not os.path.exists(r["path"]):    # being written
+                check(time.monotonic() < deadline,
+                      f"serve_ep: {r['path']} was never written")
+                time.sleep(0.05)
+            t0 = time.monotonic()
+            full = torch.load(r["path"], map_location="cpu", mmap=True,
+                              weights_only=False)
+            local = _tree_to(export.shard_params(cfg, full, mesh), DEVICE)
+            del full
+            torch.cuda.synchronize()
+            a = {"shard_s": time.monotonic() - t0,
+                 "weight_bytes": export.memory_report(cfg, local)["bytes"],
+                 "experts_held": int(
+                     local["layers"]["mlp"]["w_gate"].idx.shape[1]),
+                 "expert_range": list(dist.expert_range(cfg.num_experts))}
+            for name, extra in (("phased", []), ("mixed", ["--mixed"])):
+                args = launcher.build_parser().parse_args(r["argv"] + extra)
+                torch.cuda.synchronize()
+                _reset_counts()
+                moe.CALLS.clear()
+                coll.clear()
+                t0 = time.monotonic()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    streams, st = launcher._serve(cfg, local, args, DEVICE,
+                                                  dist=dist)
+                a[name] = dict(
+                    streams=streams,
+                    wall_s=time.monotonic() - t0, launches=_read_counts(),
+                    calls=dict(moe.CALLS),
+                    collectives={k: dict(v) for k, v in coll.items()},
+                    **{k: st[k] for k in (
+                        "tok_per_s", "ttft_p50_s", "decode_slabs",
+                        "prefill_chunks", "mixed_steps",
+                        "stalled_decode_steps", "generated_tokens")})
+            a["peak_bytes"] = torch.cuda.max_memory_allocated()
+            del local
+            torch.cuda.empty_cache()
+            out["runs"][arch] = a
+    finally:
+        tdist.destroy_process_group()
+    with open(os.path.join(EP_DIR, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def _serve_ep_start(torch, ep):
+    """Spawn ``serve_ep``'s ``EP_SIZE`` ranks (``_ep_rank``), gloo sharing
+    card 0, each pointed at the files of ``serve_moe``'s packed trees
+    (each rank waits for a file its writer has finished). They serve
+    beside ``serve_ssm`` and ``serve_audio_vlm``."""
+    runs = {a: {k: e[k] for k in ("cfg", "path", "argv")}
+            for a, e in ep.items()}
+    return _start_ranks(EP_DIR, _ep_rank, EP_SIZE, (EP_SIZE, runs))
+
+
+def phase_serve_ep(torch, card, ep, procs):
+    """Expert parallelism on the card (``dist=`` on the MoE family, the
+    reference's ``_moe_shardmap``): ``serve_moe``'s two full-width packed
+    models served by ``EP_SIZE`` ranks over gloo on one card (which
+    measures no expert-parallel speed and claims none), each holding the
+    experts ``DistContext.expert_range`` names, with attention
+    tensor-parallel and the router and shared experts whole.
+
+    Holds, per model and rank: E/``EP_SIZE`` experts held; the phased and
+    mixed engine runs' streams equal the single-device runs' of
+    ``serve_moe``, call for call (the MoE layer calls by (tokens, C)
+    equal: capacity follows each call's tokens), a first divergence only
+    where the single-device top-2 margin is below ``TP_NEAR_TIE`` times
+    2**-5 of the logits' magnitude (``_near_tie_equal``); both ranks'
+    streams equal (the engine's lockstep digest check ran at the end of
+    each run); the expert-batched ``bspmm`` and fused GLU launched once
+    per MoE layer call (twice with deepseek's shared experts) and paged
+    decode launched; one all-reduce per MoE layer and per attention in
+    every model call, plus the embedding's; the weight bytes at most
+    ``TP_BYTES_FRACTION`` of one device's plus the leaves every rank
+    holds whole. Then the expert-batched kernels at rank 1's
+    E/``EP_SIZE`` experts of layer 0, at every C the runs used, each held
+    against its plain version (``ep_kernel`` lines). Returns the ranks'
+    launch counts."""
+    from repro_torch.distributed.context import Mesh
+    from repro_torch.serving import export
+    t_phase = time.monotonic()
+    ranks = _join_ranks("serve_ep", EP_DIR, procs)
+    timer = Timer(torch)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 28)
+    counts = []
+    world = len(ranks)
+    mesh1 = Mesh(("data", "model"), (1, world), 1)
+    for arch, e in ep.items():
+        cfg = e["cfg"]
+        t0 = time.monotonic()
+        packed = _tree_to(e["host"]["packed"], DEVICE)
+        joint1 = _tree_to(e["host"]["joint1"], DEVICE)
+        torch.cuda.synchronize()
+        to_card_s = time.monotonic() - t0
+        e_l = cfg.num_experts // world
+        full_bytes = export.memory_report(cfg, packed)["bytes"]
+        local1 = export.shard_params(cfg, packed, mesh1)
+        whole = sum(
+            export.memory_report(cfg, {"x": a})["bytes"]
+            for a, b in zip(export._leaves(packed), export._leaves(local1))
+            if (a.blocks is b.blocks if hasattr(a, "blocks") else a is b))
+        del local1
+        mag = float(_last_logits(torch, cfg, packed, e["prompts"][0])
+                    .abs().max())
+        near_tie = TP_NEAR_TIE * 2.0 ** -5 * mag
+        per_call = 1 + bool(cfg.num_shared_experts)
+        runs = {}
+        for name in ("phased", "mixed"):
+            want = e["single"][name]
+            r0 = ranks[0]["runs"][arch][name]
+            accepted = _near_tie_equal(
+                torch, cfg, packed, e["prompts"],
+                dict(enumerate(r0["streams"])),
+                dict(enumerate(want["tokens"])),
+                f"serve_ep {arch} {name}", tol=near_tie)
+            per_rank = []
+            for r in ranks:
+                got = r["runs"][arch][name]
+                for a, b in zip(got["streams"], r0["streams"]):
+                    check(np.array_equal(a, b), f"serve_ep {arch} {name}: "
+                          f"rank {r['rank']}'s streams differ from rank 0's")
+                check(got["calls"] == want["calls"],
+                      f"serve_ep {arch} {name}: rank {r['rank']}'s MoE "
+                      f"layer calls {got['calls']} are not one device's "
+                      f"{want['calls']}")
+                n_layer = sum(got["calls"].values())
+                model_calls = n_layer // cfg.num_layers
+                lc = got["launches"]
+                gl = lc["fused_glu_split"] + lc["fused_glu_joint"]
+                check(lc["bspmm"] == gl == n_layer * per_call,
+                      f"serve_ep {arch} {name}: {lc['bspmm']} bspmm and {gl} "
+                      f"GLU launches over {n_layer} MoE layer calls")
+                check(lc["paged_flash_decode"] > 0,
+                      f"serve_ep {arch} {name}: paged decode never launched")
+                ar = sum(got["collectives"].get("all_reduce", {}).values())
+                check(ar == model_calls * (2 * cfg.num_layers + 1),
+                      f"serve_ep {arch} {name}: {ar} all-reduces over "
+                      f"{model_calls} model calls")
+                counts.append(lc)
+                per_rank.append(dict(
+                    launches=lc, collectives=got["collectives"],
+                    tok_per_s=got["tok_per_s"], wall_s=got["wall_s"]))
+            runs[name] = dict(
+                accepted_divergences=accepted, moe_layer_calls=n_layer,
+                model_calls=model_calls,
+                capacity_by_tokens=sorted(want["calls"]),
+                expert_launches_per_layer_call=lc["bspmm"] / n_layer,
+                all_reduces_per_model_call=ar / model_calls,
+                ranks=per_rank,
+                **{k: r0[k] for k in ("ttft_p50_s", "decode_slabs",
+                                      "prefill_chunks", "mixed_steps",
+                                      "stalled_decode_steps",
+                                      "generated_tokens")})
+        for r in ranks:
+            a = r["runs"][arch]
+            check(a["experts_held"] == e_l,
+                  f"serve_ep {arch}: rank {r['rank']} holds "
+                  f"{a['experts_held']} experts, not {e_l}")
+            check(a["weight_bytes"] <= TP_BYTES_FRACTION * full_bytes + whole,
+                  f"serve_ep {arch}: rank {r['rank']} holds "
+                  f"{a['weight_bytes']} of {full_bytes} bytes")
+        caps = sorted({c for name in runs
+                       for _, c in runs[name]["capacity_by_tokens"]})
+        mlp1 = _mlp_of(cfg, export.shard_params(
+            cfg, _first_layers(packed, 1), mesh1), 0)
+        jm1 = _mlp_of(cfg, export.shard_params(cfg, joint1, mesh1), 0)
+        lines = {c: _mlp_lines(torch, card, timer, gen, "ep_kernel", (e_l,),
+                               c, mlp1["w_down"], mlp1["w_gate"],
+                               mlp1["w_up"], jm1["w_gate"], jm1["w_up"],
+                               cfg.mlp_act, C=c, experts=e_l, rank=1,
+                               arch=arch, ep=world)
+                 for c in caps}
+        emit(phase="serve_ep", arch=arch, layers=cfg.num_layers,
+             reduced=[f"num_layers {e['full_layers']} -> "
+                      f"{cfg.num_layers}"],
+             ep=world, backend="gloo", devices=[r["device"] for r in ranks],
+             experts=cfg.num_experts, experts_per_rank=e_l,
+             expert_ranges=[r["runs"][arch]["expert_range"] for r in ranks],
+             shared_experts=cfg.num_shared_experts,
+             streams_equal_single_device=True, rank_streams_equal=True,
+             near_tie=near_tie, runs=runs,
+             weight_bytes_per_rank=[r["runs"][arch]["weight_bytes"]
+                                    for r in ranks],
+             weight_share_per_rank=[r["runs"][arch]["weight_bytes"]
+                                    / full_bytes for r in ranks],
+             single_device_weight_bytes=full_bytes, whole_leaf_bytes=whole,
+             shard_s=[r["runs"][arch]["shard_s"] for r in ranks],
+             to_host_s=e["to_host_s"], save_s=e["saved"].result(),
+             to_card_s=to_card_s,
+             peak_bytes_per_rank=[r["runs"][arch]["peak_bytes"]
+                                  for r in ranks],
+             kernel_lines={c: {k: {"ms": v["ms"],
+                                   "max_abs_err": v["max_abs_err"]}
+                               for k, v in ln.items()}
+                           for c, ln in lines.items()},
+             tok_per_s_note="two ranks on one card over gloo: the phase's "
+                            "own rate, not an expert-parallel speed")
+        del mlp1, jm1, packed, joint1
+        torch.cuda.empty_cache()
+    ep.clear()
+    shutil.rmtree(EP_WEIGHTS)
+    emit(phase="serve_ep_total", seconds=time.monotonic() - t_phase)
+    return counts
 
 
 # ------------------------------------------------ the recurrent families
@@ -5044,11 +5349,20 @@ def main():
     signal.signal(signal.SIGTERM, _on_term)
     from repro_torch.configs.paper_models import LLAMA32_1B
 
+    groups = {}
+
+    def mark(name):
+        """The seconds since the script started at the end of a phase
+        group (the ``timing`` line)."""
+        groups[name] = time.monotonic() - T0
+
     card = phase_env(torch)
     phase_build()
+    mark("env_and_build")
     cfg = LLAMA32_1B
     packed, joint, dense = phase_model(torch, cfg)
     summary = phase_kernels(torch, card, packed, joint)
+    mark("model_and_kernels")
 
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, cfg.vocab_size, size=(int(n),))
@@ -5078,10 +5392,13 @@ def main():
     served += phase_parity(
         torch, cfg, packed,
         [prefix_reqs[0]] + prompts + loop_prompts + prefix_reqs[1:4])
+    mark("llama_serving_through_parity")
     served += phase_serve_frontdoor(torch, cfg, packed, rng)
     served += phase_serve_chaos(torch, cfg, packed, prompts)
+    mark("frontdoor_and_chaos")
     dirs, counts = phase_artifact(torch, cfg, packed, joint)
     served += counts
+    mark("artifacts")
     # serve_tp's ranks serve beside the swap (a few GB of the card; their
     # streams are compared with the single-device runs once joined)
     tp = _serve_tp_start(torch, cfg, dirs, prompts, loop_prompts)
@@ -5090,15 +5407,28 @@ def main():
     served += phase_serve_tp(torch, card, cfg, packed, joint, prompts,
                              loop_prompts, single, tp)
     shutil.rmtree(ART_DIR)
+    mark("serve_swap_and_serve_tp")
     phase_profile(torch, cfg, packed, prompts)
     summary["bspmm_t"] = phase_kernels_t(torch, card, packed)
     del packed, joint, dense
     torch.cuda.empty_cache()
+    mark("profile_and_bspmm_t")
     served += phase_serve_arch(torch, card)
-    served += phase_serve_moe(torch, card)
-    served += phase_serve_ssm(torch, card)
-    served += phase_serve_audio_vlm(torch, card)
+    mark("serve_arch")
+    moe_counts, ep = phase_serve_moe(torch, card)
+    served += moe_counts
+    mark("serve_moe")
+    # serve_ep's ranks serve serve_moe's models beside the recurrent and
+    # audio/VLM phases (a few GB of the card), joined after them
+    procs = _serve_ep_start(torch, ep)
+    with _killed_on_failure(procs):
+        served += phase_serve_ssm(torch, card)
+        served += phase_serve_audio_vlm(torch, card)
+    mark("serve_ssm_and_audio_vlm")
+    served += phase_serve_ep(torch, card, ep, procs)
+    mark("serve_ep_join")
     ft = phase_training(torch, cfg)
+    mark("training")
 
     kernels = []
     for name, (src, repl) in REPLACES.items():
@@ -5114,6 +5444,10 @@ def main():
                if k in s}))
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel never launched on a main path: {kernels}")
+    emit(phase="timing", groups=groups,
+         group_s={k: v - p for (k, v), p in zip(
+             groups.items(), [0.0] + list(groups.values())[:-1])},
+         total_s=time.monotonic() - T0)
     emit(kernels=kernels)
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),

@@ -224,6 +224,13 @@ class DistContext:
         return (self.sp and len(shape) == 3 and self.tp > 1
                 and shape[1] % self.tp == 0)
 
+    def expert_range(self, num_experts: int) -> tuple[int, int]:
+        """(offset, count) of the experts this rank holds and computes
+        under expert parallelism: ``[model_rank * E/tp, (model_rank + 1)
+        * E/tp)``, the reference's ``axis_index * e_l``."""
+        n = num_experts // self.tp
+        return self.model_rank * n, n
+
     @property
     def data_rank(self) -> int:
         """This rank's index over the batch axes (the first major)."""
@@ -278,6 +285,16 @@ class DistContext:
         if self.tp == 1 or not (x.requires_grad and torch.is_grad_enabled()):
             return x
         return _CopyToModel.apply(x, self)
+
+    def count_once(self, x: torch.Tensor) -> torch.Tensor:
+        """The identity; the backward passes 1/tp of the gradient. For a
+        term every model rank computes whole (the MoE router's aux loss)
+        whose gradient the model axis later sums (``copy_to_model``'s
+        backward, the partial-gradient sum of a replicated leaf), so the
+        sum counts it once."""
+        if self.tp == 1 or not (x.requires_grad and torch.is_grad_enabled()):
+            return x
+        return _CountOnce.apply(x, self.tp)
 
     def gather_from_model(self, x: torch.Tensor, dim: int = -1
                           ) -> torch.Tensor:
@@ -492,6 +509,17 @@ class _CopyToModel(torch.autograd.Function):
         return ctx.dist.all_reduce(g.clone()), None
 
 
+class _CountOnce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.tp, None
+
+
 class _GatherFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dist, dim):
@@ -507,14 +535,23 @@ class _GatherFromModel(torch.autograd.Function):
 def check_training(cfg, dist) -> None:
     """Refuse a multi-device context where the port does not run: the
     sharded train step and tensor-parallel serving cover the dense GLU
-    family, the train step on any (data, model) mesh."""
+    family and the MoE family with GLU experts (expert parallel: the
+    experts split evenly over the model axis), the train step on any
+    (data, model) mesh."""
     if dist is None:
         return
-    if cfg.family != "dense" or cfg.mlp_kind != "glu" or cfg.is_moe:
+    moe = cfg.family == "moe"
+    if cfg.family not in ("dense", "moe") or cfg.mlp_kind != "glu" \
+            or cfg.is_moe != moe:
         raise NotImplementedError(
-            f"dist= covers the dense GLU family only, not {cfg.family!r} "
-            f"with mlp_kind {cfg.mlp_kind!r} (ROADMAP §1 item 4: dist= on "
-            "the other families)")
+            f"dist= covers the dense GLU and MoE families only, not "
+            f"{cfg.family!r} with mlp_kind {cfg.mlp_kind!r} (ROADMAP §1 "
+            "item 4: dist= on the other families)")
+    if moe and cfg.num_experts % dist.tp:
+        raise NotImplementedError(
+            f"expert parallelism splits the experts evenly over the model "
+            f"axis: {cfg.num_experts} experts do not split {dist.tp} ways "
+            "(ROADMAP §1 item 4: dist= on the other families)")
 
 
 def check_serving(cfg, dist) -> None:

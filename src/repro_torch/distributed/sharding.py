@@ -29,7 +29,14 @@ whole params once. Under sequence parallelism the replicated leaves
 that act on the residual stream's S shard (``seq_partial_flags``: the
 norms' scales and biases, any bias added on the residual) get only this
 rank's share of their gradient, which the train step sums over the
-model axis after the backward.
+model axis after the backward (``partial_flags``, which adds an MoE
+layer's router and, under sequence parallelism, its shared experts).
+
+The MoE family is expert parallel, as the reference's ``_moe_shardmap``:
+the expert stacks (and their masks and moments) split on the experts dim
+alone (``experts`` takes the model axis, so ``ff`` cannot), and the
+router and the shared experts ``ws_*`` (axes ``embed`` and None) stay
+replicated.
 """
 from __future__ import annotations
 
@@ -262,6 +269,24 @@ def seq_partial_flags(cfg) -> dict:
         rest = [a for a in axes if a != "layers"]
         return bool(rest) and all(a == "embed" for a in rest)
     return walk(registry.axes_tree(cfg))
+
+
+def partial_flags(cfg, seq: bool) -> dict:
+    """Per leaf of the params tree: whether a replicated leaf's gradient
+    on a rank is only its share of a sum over the model axis, which the
+    train step adds up after the backward. With ``seq`` (the stream split
+    along S) the leaves of ``seq_partial_flags``; an MoE layer's router
+    always (a rank's gradient reaches it through its own experts' gates
+    only; the aux term's whole gradient is passed back at 1/tp,
+    ``DistContext.count_once``); its shared experts ``ws_*`` with ``seq``
+    (each rank applies them to its S shard; without, to the whole
+    replicated stream, so their gradient is whole)."""
+    def walk(flags, name):
+        if isinstance(flags, dict):
+            return {k: walk(v, k) for k, v in flags.items()}
+        return ((seq and flags) or (cfg.is_moe and name == "router")
+                or (seq and cfg.is_moe and name.startswith("ws_")))
+    return walk(seq_partial_flags(cfg), "")
 
 
 def _zip_map(fn, tree, shardings):

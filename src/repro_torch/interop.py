@@ -17,7 +17,9 @@ reference ``TrainState`` across (step, params, masks and the Adam
 moments), so both trainers can start from the same state; the port
 keeps its own ``torch.Generator`` and does not imitate JAX's PRNG.
 ``to_torch_shard`` gives one rank its shard of a serving tree for
-tensor-parallel serving.
+tensor-parallel serving (an MoE tree's expert packs cut on their experts
+dim, ``serving/export.py``); a train state crosses whole and is cut with
+``distributed/sharding.py::shard_state``.
 """
 from __future__ import annotations
 

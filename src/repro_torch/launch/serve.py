@@ -251,10 +251,22 @@ def _print_rows(rows) -> None:
         print(" ".join(str(int(t)) for t in r))
 
 
-def _serve(cfg, params, args, device="cuda"):
+def _engine_prompts(cfg, args, rng):
+    """The engine path's prompts: ``args.batch`` of ``args.prompt_len``
+    tokens (with ``--ragged`` of ``prompt_len // 2`` to ``prompt_len``),
+    drawn from ``rng``."""
+    lens = (rng.integers(max(1, args.prompt_len // 2),
+                         args.prompt_len + 1, size=args.batch)
+            if args.ragged else [args.prompt_len] * args.batch)
+    return [rng.integers(0, cfg.vocab_size, size=(int(p),))
+            .astype(np.int32) for p in lens]
+
+
+def _serve(cfg, params, args, device="cuda", dist=None):
     """Serve the launcher's prompts on ``params``. Returns (the tokens
     each request generated, a list of arrays (empty for the front door),
-    the stats)."""
+    the stats). ``dist``: this rank's shard under tensor (or expert)
+    parallelism, every rank serving the same prompts."""
     from repro_torch.models import registry
     from repro_torch.serving import engine, serve_loop
 
@@ -264,6 +276,9 @@ def _serve(cfg, params, args, device="cuda"):
         from repro_torch.obs.trace import Tracer
         tracer = Tracer()
     if args.frontdoor:
+        if dist is not None:
+            raise NotImplementedError("the front door under dist= is not "
+                                      "ported (ROADMAP §1 item 4)")
         if not registry.supports_prefill_chunk(cfg):
             raise SystemExit(f"--frontdoor needs an engine-servable "
                              f"family; {cfg.family!r} is not")
@@ -275,16 +290,12 @@ def _serve(cfg, params, args, device="cuda"):
                                size=(args.batch, args.prompt_len))
         toks, stats = serve_loop.generate(
             cfg, params, prompts, max_new_tokens=args.new_tokens,
-            device=device)
+            device=device, dist=dist)
         print(f"generated {toks.shape} — {stats['tok_per_s']:.1f} tok/s")
         gen = list(toks[:, args.prompt_len:])
         _print_rows(gen[:2])
         return gen, stats
-    lens = (rng.integers(max(1, args.prompt_len // 2),
-                         args.prompt_len + 1, size=args.batch)
-            if args.ragged else [args.prompt_len] * args.batch)
-    prompts = [rng.integers(0, cfg.vocab_size, size=(int(p),))
-               .astype(np.int32) for p in lens]
+    prompts = _engine_prompts(cfg, args, rng)
     toks, stats = engine.generate(
         cfg, params, prompts, max_new_tokens=args.new_tokens,
         max_batch=args.max_batch or args.batch,
@@ -293,7 +304,7 @@ def _serve(cfg, params, args, device="cuda"):
         n_pages=args.n_pages or None, prefix_cache=args.prefix_cache,
         mixed=args.mixed,
         prefill_token_budget=args.prefill_token_budget or None,
-        tracer=tracer, device=device)
+        tracer=tracer, device=device, dist=dist)
     print(f"generated {len(toks)} seqs — {stats['tok_per_s']:.1f} tok/s "
           f"({stats['decode_slabs']} slabs of {args.slab_k}, "
           f"{stats['prefill_chunks']} prefill chunks, "

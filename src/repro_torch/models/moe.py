@@ -1,5 +1,5 @@
 """Mixture-of-Experts layer, GShard-style top-k routing with a static
-per-expert capacity (port of ``repro/models/moe.py``, single device).
+per-expert capacity (port of ``repro/models/moe.py``).
 
 Every expert is computed at capacity C, whatever its load: slots past an
 expert's token count are masked by ``valid``, as in the reference, so
@@ -23,8 +23,11 @@ run.
 both are host integers of the static shapes, so counting reads nothing
 from the device.
 
-The expert-parallel path (``axis_name``, the reference's shard_map over
-the model axis) is not ported.
+The expert-parallel path (``moe_forward(axis_name=dist)``, the
+reference's ``_moe_shardmap`` over the model axis) runs each rank's E/tp
+experts through the same expert-batched launches, with
+``expert_offset`` naming their global ids; one reduction per layer sums
+the ranks' partial outputs.
 """
 from __future__ import annotations
 
@@ -162,18 +165,49 @@ def shared_expert_forward(cfg, x, p, masks=None):
                       act=cfg.mlp_act, masks=mm, spec=cfg.blast)
 
 
-def moe_forward(cfg, p, x, masks=None, axis_name: str | None = None):
-    """Full MoE layer on one device (every expert local). x (B, S, D) ->
-    ((B, S, D), aux loss)."""
-    if axis_name is not None:
-        raise NotImplementedError("the expert-parallel MoE path is not "
-                                  "ported")
+def moe_forward(cfg, p, x, masks=None, axis_name=None, seq: bool = False):
+    """Full MoE layer. x (B, S, D) -> ((B, S, D), aux loss).
+
+    ``axis_name``: None on one device (every expert local); else the
+    ``DistContext`` of the expert-parallel path (the reference calls it
+    with the model axis's name inside ``_moe_shardmap``): ``p``'s expert
+    stacks (and ``masks``) are this rank's slice ``DistContext.
+    expert_range``, the router and the shared experts are whole. The
+    tokens are whole on every rank (``to_parallel``: the identity, or
+    with ``seq`` the gather of the S shards), each rank routes them all
+    and computes its experts' contribution at the capacity of the whole
+    call's tokens, and the partial outputs are summed over the model axis
+    in one reduction (``from_parallel``: an all-reduce, or with ``seq`` a
+    reduce-scatter to this rank's S shard). The shared experts are added
+    after it, on the stream as it came in (replicated, or the S shard),
+    so their input gradient is never summed over the model axis. The aux
+    loss is whole on every rank; ``count_once`` passes 1/tp of its
+    gradient back, as the model axis sums the router's gradient and the
+    input's."""
+    dist = axis_name
+    if dist is not None and not hasattr(dist, "expert_range"):
+        raise TypeError("axis_name takes the DistContext of the "
+                        f"expert-parallel path, not {dist!r}")
+    x_in = x
+    if dist is not None:
+        x = dist.to_parallel(x, True, seq)
     b, s, d = x.shape
     x_flat = x.reshape(-1, d)
     top_vals, top_idx, aux = route(cfg, x_flat, p["router"])
+    off = 0
+    if dist is not None:
+        off, e_l = dist.expert_range(cfg.num_experts)
+        if _n_experts(p["w_gate"]) != e_l:
+            raise ValueError(
+                f"rank {dist.model_rank} holds {_n_experts(p['w_gate'])} "
+                f"experts, expected its {e_l} of {cfg.num_experts}")
     y = local_expert_forward(cfg, x_flat, top_vals.to(x.dtype), top_idx,
                              p["w_gate"], p["w_up"], p["w_down"],
-                             masks=masks)
+                             masks=masks, expert_offset=off)
+    y = y.reshape(b, s, d)
+    if dist is not None:
+        y = dist.from_parallel(y, True, seq)
+        aux = dist.count_once(aux)
     if cfg.num_shared_experts:
-        y = y + shared_expert_forward(cfg, x, p, masks).reshape(-1, d)
-    return y.reshape(b, s, d), aux
+        y = y + shared_expert_forward(cfg, x_in, p, masks)
+    return y, aux

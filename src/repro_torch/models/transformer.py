@@ -19,13 +19,16 @@ numbers. The KV
 caches are updated in place (models/attention.py).
 
 Tensor-parallel serving (``dist=``, a ``distributed.context.DistContext``;
-the dense GLU family only): every rank holds its shard of the params
+the dense GLU and MoE families): every rank holds its shard of the params
 (``serving/export.py::shard_params``) and runs the same forward on the
 replicated residual stream. The embedding is vocab-sharded (a masked
 local lookup, then an all-reduce); attention computes the rank's query
 heads and the kv heads they read (``attention.local_heads``), and its
 row-parallel ``wo`` is followed by an all-reduce; the MLP is
-``sparse_mlp.glu_mlp``'s tensor-parallel path; the logits come out
+``sparse_mlp.glu_mlp``'s tensor-parallel path, or an MoE layer's expert
+parallel one (``moe.moe_forward(axis_name=dist)``: every rank routes the
+whole stream, computes its E/tp experts and the replicated shared
+experts, one all-reduce of the experts' partial sums); the logits come out
 vocab-sharded (each rank's slice of the vocabulary, in rank order), so
 a caller reduces them with ``DistContext.vocab_argmax`` or gathers them
 with ``all_gather``. A cache built with ``dist=`` holds the rank's kv
@@ -210,8 +213,12 @@ def _layer_masks(masks: dict | None, stack: str) -> dict | None:
 
 def mlp_forward(cfg, p, x, masks=None, dist=None, seq=False):
     """-> (MLP output, aux loss: the MoE layer's, else 0.0). Under
-    ``dist`` the GLU is tensor-parallel (its output replicated, or with
-    ``seq`` this rank's S shard, as its input is)."""
+    ``dist`` the GLU is tensor-parallel and the MoE layer expert-parallel
+    (the reference's ``_moe_shardmap``), their output replicated, or with
+    ``seq`` this rank's S shard, as their input is."""
+    if dist is not None and cfg.is_moe:
+        return moe_mod.moe_forward(cfg, p, x, masks=masks, axis_name=dist,
+                                   seq=seq)
     if dist is not None:
         return sm.glu_mlp(x, p["w_gate"], p["w_up"], p["w_down"],
                           act=cfg.mlp_act, masks=masks, spec=cfg.blast,

@@ -25,6 +25,12 @@ The tensor-parallel pack follows the reference's layout
     blocks anywhere in d_ff, so the layer all-gathers the GLU output
     (M x d_ff, in rank order) before ``bspmm`` and all-reduces
     ``bspmm``'s partial sums (``PackedBCSC.partial``);
+  * an MoE layer's expert packs (a leading experts dim): that dim alone
+    splits, each rank keeping the E/tp experts it computes, with whole
+    visit lists (no padding, not partial), as the reference's
+    ``_moe_shardmap`` shards them (its ``abstract_packed_params`` would
+    put the model axis on ``nb`` or ``nnz`` as well); the shared experts'
+    packs (weights on ``embed`` x None axes) stay whole on every rank;
   * every other leaf as ``distributed/sharding.py``'s rules say (query
     and kv heads, the vocabulary; norms replicated).
 
@@ -162,20 +168,32 @@ def _packed_layout(path: str, nb: int, nnz: int, tp: int
 
 
 def _packed_specs(path: str, lead: tuple[int, ...], waxes, nb: int, nnz: int,
-                  mesh) -> tuple[tuple, tuple, int]:
-    """(blocks spec, idx spec, padded nnz) of a pack with leading dims
-    ``lead`` whose dense weight has logical axes ``waxes``."""
-    kind, nnz = _packed_layout(path, nb, nnz,
-                               shd.axis_sizes(mesh).get("model", 1))
+                  mesh) -> tuple[tuple, tuple, int, str | None]:
+    """(blocks spec, idx spec, padded nnz, the split: "experts", "nb",
+    "nnz" or None) of a pack with leading dims ``lead`` whose dense
+    weight has logical axes ``waxes``. A pack whose leading experts dim
+    takes the model axis splits there alone, with whole visit lists (the
+    reference's ``_moe_shardmap``; its ``abstract_packed_params`` would
+    name the model axis twice); a pack whose matrix the rules never split
+    (an MoE layer's shared experts, ``embed`` x None) stays whole."""
     lead_parts = tuple(shd.spec_for((lead[i],), (waxes[i],), mesh)[0]
                        for i in range(len(lead)))
+    none = lead_parts + (None,) * 4, lead_parts + (None,) * 2
+    if shd.model_sharded(lead_parts):
+        return (*none, nnz, "experts")
+    mat = tuple(waxes[len(lead):])
+    if mat and not any("model" in shd.DEFAULT_RULES.get(a, ())
+                       for a in mat if a is not None):
+        return (*none, nnz, None)
+    kind, nnz = _packed_layout(path, nb, nnz,
+                               shd.axis_sizes(mesh).get("model", 1))
     if kind == "nnz":
         return (lead_parts + (None, "model", None, None),
-                lead_parts + (None, "model"), nnz)
+                lead_parts + (None, "model"), nnz, kind)
     if kind == "nb":
         return (lead_parts + ("model", None, None, None),
-                lead_parts + ("model", None), nnz)
-    return lead_parts + (None,) * 4, lead_parts + (None,) * 2, nnz
+                lead_parts + ("model", None), nnz, kind)
+    return (*none, nnz, None)
 
 
 def abstract_packed_params(cfg, sparsity: float, mesh=None):
@@ -204,9 +222,8 @@ def abstract_packed_params(cfg, sparsity: float, mesh=None):
         nnz = max(1, math.ceil((1.0 - sparsity) * kb))
         lead = tuple(w.shape[:-2])
         if mesh is not None:
-            bspec, ispec, nnz = _packed_specs(path, lead,
-                                              sm.get_path(axes, path), nb,
-                                              nnz, mesh)
+            bspec, ispec, nnz, _ = _packed_specs(
+                path, lead, sm.get_path(axes, path), nb, nnz, mesh)
             specs = sm.set_path(specs, path,
                                 packing.PackedBCSC(bspec, ispec, kb))
         abs_p = sm.set_path(abs_p, path, packing.PackedBCSC(
@@ -218,13 +235,17 @@ def abstract_packed_params(cfg, sparsity: float, mesh=None):
 def shard_pack(p: packing.PackedBCSC, path: str, mesh,
                lead_axes: tuple = ()) -> packing.PackedBCSC:
     """One rank's share of the pack at ``path`` on ``mesh`` (the layout
-    above; ``lead_axes`` the logical axes of its leading dims, e.g.
-    ``("layers",)``): ``partial`` set where the nnz dim splits."""
+    above; ``lead_axes`` the logical axes of the weight, e.g.
+    ``("layers", "experts", "embed", "ff")``; leading dims without one
+    stay whole): ``partial`` set where the nnz dim splits. An expert
+    pack keeps its experts' slice, unpadded."""
+    lead = tuple(p.idx.shape[:-2])
+    waxes = tuple(lead_axes) + (None,) * (len(lead) - len(lead_axes))
+    bspec, ispec, nnz, kind = _packed_specs(path, lead, waxes, p.nb, p.nnz,
+                                            mesh)
+    if kind == "nnz":
+        p = packing.pad_nnz(p, nnz)     # swapped leaves only: no joint
     tp = shd.axis_sizes(mesh).get("model", 1)
-    kind, nnz = _packed_layout(path, p.nb, p.nnz, tp)
-    p = packing.pad_nnz(p, nnz)         # swapped leaves only: no joint
-    bspec, ispec, _ = _packed_specs(path, tuple(p.idx.shape[:-2]),
-                                    lead_axes, p.nb, p.nnz, mesh)
     return dataclasses.replace(p, blocks=shd.shard(p.blocks, bspec, mesh),
                                idx=shd.shard(p.idx, ispec, mesh),
                                partial=kind == "nnz" and tp > 1)

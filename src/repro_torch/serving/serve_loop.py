@@ -9,8 +9,9 @@ chunked prefill, as in the reference): their cache is the per-lane
 recurrent state of ``registry.init_cache``; and whisper (``audio``),
 whose encoder frames fill the cross-attention memory (``prefill_cross``)
 before the prompt is prefilled. ``dist=`` serves the dense GLU family
-tensor-parallel (``serving/step.py``): every rank runs this loop on its
-shard of the params, in lockstep, and returns the same tokens.
+tensor-parallel and the MoE family expert-parallel (``serving/step.py``):
+every rank runs this loop on its shard of the params, in lockstep, and
+returns the same tokens.
 """
 from __future__ import annotations
 

@@ -18,7 +18,9 @@ gradient, or a batch's precomputed whole-vocabulary ``teacher_logits``
 to the rank's vocab slice; ``core/distill.py`` reduces the KL over the
 shards. With sequence parallelism (``DistContext.sp``) the replicated
 leaves that act on an S shard (``sharding.seq_partial_flags``) get their
-partial gradients summed over the model axis after each backward.
+partial gradients summed over the model axis after each backward, as do
+an expert-parallel MoE layer's router and, under S, its shared experts
+(``sharding.partial_flags``).
 """
 from __future__ import annotations
 
@@ -94,8 +96,10 @@ def loss_fn(cfg, params, masks, batch, teacher_logits=None, kd_alpha=1.0,
     rank's shard and the loss this rank's share of the global mean
     (``count_over_data``; False: of its own rows, the deferred step's);
     ``teacher_logits`` are then the rank's vocab shard where the
-    student's are. ``kd_temperature`` is the KL's temperature (the
-    reference's step leaves it at 1)."""
+    student's are, and an MoE model's aux term (its routing of this
+    rank's rows) counts as its share of the mean over data ranks.
+    ``kd_temperature`` is the KL's temperature (the reference's step
+    leaves it at 1)."""
     kw = {}
     if cfg.family == "audio":
         kw["frames"] = batch["frames"]
@@ -110,7 +114,10 @@ def loss_fn(cfg, params, masks, batch, teacher_logits=None, kd_alpha=1.0,
                                 vocab_parallel=vp,
                                 count_over_data=count_over_data)
     if cfg.is_moe:
-        loss = loss + 0.01 * aux
+        share = aux
+        if dist is not None and count_over_data:
+            share = aux / dist.data_size   # its share of the data mean
+        loss = loss + 0.01 * share
     return loss, (logits, aux)
 
 
@@ -145,12 +152,12 @@ def teacher_logits_of(cfg, batch, teacher_cfg=None,
     return tl
 
 
-def _seq_partial_grads(grads, flags) -> list:
+def _partial_grads(grads, flags) -> list:
     """The gradients of the leaves that ``flags``
-    (``sharding.seq_partial_flags``) marks, walked by key."""
+    (``sharding.partial_flags``) marks, walked by key."""
     if isinstance(grads, dict):
         return [g for k, v in grads.items()
-                for g in _seq_partial_grads(v, flags[k])]
+                for g in _partial_grads(v, flags[k])]
     return [grads] if flags else []
 
 
@@ -201,20 +208,23 @@ def loss_and_grads(cfg, state: TrainState, batch, dist=None,
     share of the global mean and every microbatch's loss and gradients
     are summed over the data axes (as GSPMD reduces them in the
     reference); without, they stay this rank's own, the mean over its
-    rows (the deferred step's). Where the forward splits the stream
-    along S (``DistContext.seq_split``), the gradients of the leaves that
-    act on the shard are summed over the model axis first."""
+    rows (the deferred step's). An MoE model's aux is then the mean over
+    the data ranks, each routing its own rows (the reference's ``pmean``
+    inside its shard_map). The partial gradients of replicated leaves
+    (``sharding.partial_flags``: the norms where the forward splits the
+    stream along S, an MoE router, and its shared experts under S) are
+    summed over the model axis first."""
     n = max(microbatches, 1)
     cut = {k: v.chunk(n) for k, v in batch.items()}
     chunks = [{k: v[i] for k, v in cut.items()} for i in range(n)]
     tls = (teacher_logits.chunk(n) if teacher_logits is not None
            else [None] * n)
     reduce = over_data and dist is not None and dist.data_size > 1
-    seq_flags = None
-    if dist is not None and dist.seq_split(
-            tuple(chunks[0]["tokens"].shape) + (cfg.d_model,)):
+    part = None
+    if dist is not None and dist.tp > 1:
         from repro_torch.distributed import sharding
-        seq_flags = sharding.seq_partial_flags(cfg)
+        part = sharding.partial_flags(cfg, dist.seq_split(
+            tuple(chunks[0]["tokens"].shape) + (cfg.d_model,)))
     total, loss, aux = None, 0.0, 0.0
     for b, tl in zip(chunks, tls):
         leaves = _leaf_params(state.params)
@@ -227,13 +237,15 @@ def loss_and_grads(cfg, state: TrainState, batch, dist=None,
         it = iter(g if g is not None else torch.zeros_like(p)
                   for p, g in zip(ps, gs))
         g_i = adamw.tree_map(lambda _: next(it), leaves)
-        if seq_flags is not None:
-            dist.sum_over_model(_seq_partial_grads(g_i, seq_flags))
+        if part is not None:
+            dist.sum_over_model(_partial_grads(g_i, part))
         l_i = l_i.detach()
         if reduce:
             for g in adamw.tree_leaves(g_i):
                 dist.sum_over_data(g)
             l_i = dist.sum_over_data(l_i.clone())
+            if torch.is_tensor(a_i):
+                a_i = dist.mean_over_data(a_i.detach().clone())
         if n == 1:
             return l_i, a_i, g_i
         total = (g_i if total is None

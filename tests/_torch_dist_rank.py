@@ -3,7 +3,8 @@
 the card) and of the sharded training ones (``test_torch_dist_train.py``,
 ``train_scenario`` below: a spec with a ``train`` entry;
 ``test_torch_dist_sp.py``, ``sp_scenario``; ``test_torch_dist_kd.py``,
-``kd_scenario``). Imports torch and the port only, never JAX:
+``kd_scenario``; ``test_torch_dist_moe.py``, ``ep_scenario``). Imports
+torch and the port only, never JAX:
 
     python tests/_torch_dist_rank.py SPEC RANK
 
@@ -59,7 +60,8 @@ def drive(eng, prompts, new_tokens, max_steps=500):
 
 def full_logits(cfg, params, prompt, dist, device):
     """The whole next-token logits row after ``prompt`` (one paged
-    prefill chunk into an f32 pool, the vocab shards gathered)."""
+    prefill chunk into an f32 pool, the vocab shards gathered; ``dist``
+    None on one device)."""
     from repro_torch.models import transformer
     ps = 4
     pages = -(-len(prompt) // ps)
@@ -71,7 +73,7 @@ def full_logits(cfg, params, prompt, dist, device):
         torch.arange(pages, dtype=torch.int32, device=device)[None],
         read_pages=pages, dist=dist)
     last = logits[0, -1:]
-    if dist.shards(cfg.vocab_size):
+    if dist is not None and dist.shards(cfg.vocab_size):
         last = dist.all_gather(last, dim=-1)
     return last[0].cpu().numpy()
 
@@ -539,6 +541,108 @@ def kd_scenario(t: dict, mesh, rank: int) -> dict:
     return out
 
 
+def _ep_forward(m, dist, mesh, seqs=(False, True)) -> dict:
+    """``moe_forward(axis_name=dist)`` on layer 0 of the rank's shard of
+    the dense params and of the packed tree, on ``m["x"]`` (whole, or
+    with ``seq`` this rank's S shard): {(kind, seq): (y, aux)}, and the
+    MoE layer's calls by (tokens, C) on this rank."""
+    from repro_torch import interop
+    from repro_torch.distributed import sharding
+    from repro_torch.models import moe, transformer
+    cfg = m["cfg"]
+    dense = sharding.shard_tree(
+        interop.to_torch(m["state"].params, device="cpu"),
+        sharding.state_shardings(cfg, mesh).params)
+    packed = interop.to_torch_shard(m["params"], cfg, mesh, device="cpu")
+    x = torch.as_tensor(m["x"])
+    out = {}
+    moe.CALLS.clear()
+    with torch.inference_mode():
+        for kind, tree in (("dense", dense), ("packed", packed)):
+            p0 = transformer._layer_view(tree["layers"], 0)["mlp"]
+            for seq in seqs:
+                xi = dist.seq_slice(x) if seq else x
+                y, aux = moe.moe_forward(cfg, p0, xi, axis_name=dist,
+                                         seq=seq)
+                out[(kind, seq)] = (y.numpy(), float(aux))
+    return {"out": out, "calls": dict(moe.CALLS),
+            "experts": [int(dense["layers"]["mlp"]["w_gate"].shape[1]),
+                        int(packed["layers"]["mlp"]["w_gate"].idx.shape[1])]}
+
+
+def _ep_train(cfg, t, state, dist, grads=False) -> dict:
+    """One sharded step of ``cfg`` from the logical ``state`` (numpy) on
+    this rank's rows of global batch 0: the metrics and the logical
+    params and masks after it; with ``grads`` also the logical dense
+    gradients of that batch (``loss_and_grads``)."""
+    from repro_torch import interop
+    from repro_torch.distributed import sharding
+    from repro_torch.training import step as ts
+    shd = sharding.state_shardings(cfg, dist.mesh)
+    st = sharding.shard_state(interop.train_state(state, device="cpu"), shd)
+    b = sharding.slice_batch({k: torch.as_tensor(v) for k, v in
+                              t["source"].batch(0).items()}, dist)
+    out = {}
+    if grads:
+        _, aux, g = ts.loss_and_grads(cfg, st, b, dist)
+        out["grads"] = _np(sharding.gather_tree(g, shd.params))
+        out["aux"] = float(aux)
+    st, metrics = ts.make_train_step(cfg, t["opt"], dist=dist)(st, b)
+    out.update(metrics=_host(metrics), **_gathered(st, shd))
+    return out
+
+
+def ep_scenario(t: dict, mesh, rank: int) -> dict:
+    """Expert parallelism on 4 ranks. Ranks 0-1 and 2-3 are two meshes
+    of (data 1, model 2), one per MoE config of ``t["archs"]``: each
+    holds its experts' slice, runs ``moe_forward`` on layer 0
+    (``_ep_forward``: dense and packed, the stream whole and S-split),
+    serves the packed tree (``serve_model``: ``serve_loop.generate``
+    and the paged engine, phased, mixed and prefix-cached), takes one
+    train step with ``sp`` on and off (with the gradients, sp on), and
+    repeats the forward with every rank's expert offset left at 0 and
+    the step with the aux gradient counted on every rank (two planted
+    faults). Then all four ranks, ``mesh`` (data 2, model 2), take one
+    step of each config, ``sp`` on and off."""
+    import torch.distributed as tdist
+
+    from repro_torch.distributed.context import DistContext, make_mesh
+    from repro_torch.models import moe
+    pairs = [make_mesh((1, 2), ("data", "model"), ranks=[0, 1]),
+             make_mesh((1, 2), ("data", "model"), ranks=[2, 3])]
+    pair = 0 if pairs[0] is not None else 1
+    m2 = pairs[pair]
+    arch = t["archs"][pair]
+    m = t["models"][arch]
+    cfg = m["cfg"]
+    dist = DistContext(m2)
+    out = {"arch": arch, "model_rank": dist.model_rank,
+           "forward": _ep_forward(m, dist, m2)}
+    moe.CALLS.clear()
+    out["serve"] = serve_model(m["serve"], dist, m2, "cpu")
+    out["serve"]["calls"] = dict(moe.CALLS)
+    out["m2"] = {sp: _ep_train(cfg, t, m["state"], DistContext(m2, sp=sp),
+                               grads=sp) for sp in (True, False)}
+
+    er, once = DistContext.expert_range, DistContext.count_once
+    DistContext.expert_range = lambda self, e: (0, e // self.tp)
+    try:
+        out["planted_offset"] = _ep_forward(m, dist, m2, seqs=(False,))
+    finally:
+        DistContext.expert_range = er
+    DistContext.count_once = lambda self, x: x
+    try:
+        out["planted_aux"] = _ep_train(cfg, t, m["state"], dist, grads=True)
+    finally:
+        DistContext.count_once = once
+    tdist.barrier()
+    out["d2m2"] = {a: {sp: _ep_train(t["models"][a]["cfg"], t,
+                                     t["models"][a]["state"],
+                                     DistContext(mesh, sp=sp))
+                       for sp in (True, False)} for a in t["archs"]}
+    return out
+
+
 def main(spec_path: str, rank: int) -> None:
     torch.set_num_threads(1)
     from repro_torch.distributed.context import (DistContext,
@@ -551,12 +655,12 @@ def main(spec_path: str, rank: int) -> None:
         torch.cuda.set_device(0)
     init_process_group(spec["dir"], rank, spec["world"])
     try:
-        scenario = next((k for k in ("train", "sp", "kd") if k in spec),
-                        None)
+        scenario = next((k for k in ("train", "sp", "kd", "ep")
+                         if k in spec), None)
         if scenario is not None:
             t = spec[scenario]
             run = {"train": train_scenario, "sp": sp_scenario,
-                   "kd": kd_scenario}[scenario]
+                   "kd": kd_scenario, "ep": ep_scenario}[scenario]
             out = run(t, make_mesh(t["mesh"], ("data", "model")), rank)
         else:
             mesh = make_mesh((1, spec["world"]), ("data", "model"))
@@ -576,8 +680,8 @@ def start(directory: str, world: int, models: dict | None = None,
     """Write the spec into ``directory`` (a fresh one: it holds the gloo
     store) and start ``world`` rank processes; returns them. ``train``
     runs the ``scenario`` ('train': ``train_scenario``, 'sp':
-    ``sp_scenario``, 'kd': ``kd_scenario``) instead of serving
-    ``models``."""
+    ``sp_scenario``, 'kd': ``kd_scenario``, 'ep': ``ep_scenario``)
+    instead of serving ``models``."""
     path = os.path.join(directory, "spec.pkl")
     spec = {"dir": directory, "world": world, "device": device,
             "models": models or {}}

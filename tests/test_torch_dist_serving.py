@@ -326,14 +326,17 @@ def test_other_families_refuse_dist(family):
     from repro_torch.configs import get_config, reduced
     from repro_torch.serving import engine
     prompts = np.ones((1, 4), np.int32)
+    # the MoE family serves expert-parallel where its experts split
+    # evenly over the model axis: 6 experts over 4 do not
     cfg = {"mlp2": port_cfg(jpm.GPT2_SMALL_SMOKE),
-           "moe": reduced(get_config("deepseek-moe-16b")),
+           "moe": reduced(get_config("deepseek-moe-16b"), num_experts=6),
            "ssm": reduced(get_config("rwkv6-3b"))}[family]
+    shape = (1, 4) if family == "moe" else (1, 2)
     params = _full_params(cfg)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 4"):
         tloop.generate(cfg, params, prompts, max_new_tokens=2,
-                       device="cpu", dist=_dist())
+                       device="cpu", dist=_dist(shape))
     if family != "ssm":
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 4"):
             engine.Engine(cfg, params, max_batch=1, max_len=16,
-                          device="cpu", dist=_dist())
+                          device="cpu", dist=_dist(shape))

@@ -396,15 +396,20 @@ def test_other_families_refuse_to_train_sharded(arch):
     from repro_torch.training import deferred, step as ts, train_loop
     cfg = (GPT2_SMALL_SMOKE if arch == "gpt2-small"
            else get_config(arch, smoke=True))
+    shape = (2, 2)
+    if cfg.family == "moe":
+        # the MoE family trains expert-parallel where its experts split
+        # evenly over the model axis: 6 experts over 4 do not
+        cfg, shape = dataclasses.replace(cfg, num_experts=6), (1, 4)
     _, topt = _opts()
-    for build in (lambda: ts.make_train_step(cfg, topt, dist=_dist()),
+    for build in (lambda: ts.make_train_step(cfg, topt, dist=_dist(shape)),
                   lambda: deferred.make_train_step_deferred(cfg, topt,
-                                                            _dist()),
-                  lambda: ts.init_state(cfg, 0, "cpu", dist=_dist()),
+                                                            _dist(shape)),
+                  lambda: ts.init_state(cfg, 0, "cpu", dist=_dist(shape)),
                   lambda: train_loop.train(
                       cfg, topt, Src(cfg.vocab_size, 8, 4),
                       train_loop.TrainLoopConfig(total_steps=1),
-                      device="cpu", dist=_dist())):
+                      device="cpu", dist=_dist(shape))):
         with pytest.raises(NotImplementedError, match="ROADMAP §1 item 4"):
             build()
 

@@ -104,6 +104,14 @@ def model(jcfg, seed=0, w0_offset=None):
             interop.to_torch(npt, device="cpu"))
 
 
+def ref_decode(jcfg):
+    """The reference's ``registry.decode_step`` for ``jcfg``, jitted:
+    op-by-op it costs about a second a step on the CPU, its compile less
+    than one step."""
+    return jax.jit(lambda p, c, x, pos, **kw: jreg.decode_step(
+        jcfg, p, c, x, pos, **kw))
+
+
 def _close(got, want, frac=1e-5):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     assert got.shape == want.shape
@@ -227,13 +235,12 @@ def test_decode_steps_from_a_carried_cache(cfgs, w0):
     toks = np.random.default_rng(8).integers(
         0, jcfg.vocab_size, (2, 20)).astype(np.int32)
     jc = jreg.init_cache(jcfg, 2, 20, dtype=jnp.float32)
+    jdecode = ref_decode(jcfg)
     for t in range(4):
-        _, jc = jreg.decode_step(jcfg, jp, jc, jnp.asarray(toks[:, t:t + 1]),
-                                 jnp.int32(t))
+        _, jc = jdecode(jp, jc, jnp.asarray(toks[:, t:t + 1]), jnp.int32(t))
     tc = interop.to_torch(jax.device_get(jc), device="cpu")
     for t in range(4, 20):
-        jl, jc = jreg.decode_step(jcfg, jp, jc, jnp.asarray(toks[:, t:t + 1]),
-                                  jnp.int32(t))
+        jl, jc = jdecode(jp, jc, jnp.asarray(toks[:, t:t + 1]), jnp.int32(t))
         tl, tc = treg.decode_step(tcfg, tp, tc, _t(toks[:, t:t + 1]), t)
         _close(tl.numpy(), jl)
     back = interop.to_numpy(tc)

@@ -177,8 +177,8 @@ def test_loss_and_gradients_match_reference(arch):
           "labels": jnp.asarray(toks[:, 1:])}
     tb = {"tokens": torch.from_numpy(toks[:, :-1].copy()),
           "labels": torch.from_numpy(toks[:, 1:].copy())}
-    (jl, _), jg = jax.value_and_grad(
-        lambda p: jstep.loss_fn(jcfg, p, jm, jb), has_aux=True)(jp)
+    (jl, _), jg = jax.jit(jax.value_and_grad(
+        lambda p: jstep.loss_fn(jcfg, p, jm, jb), has_aux=True))(jp)
     tl, tg = _port_grads(tcfg, tp, tm, tb)
     np.testing.assert_allclose(tl, float(jl), rtol=1e-5)
     gen = torch.Generator().manual_seed(0)

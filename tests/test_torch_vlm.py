@@ -117,8 +117,8 @@ def test_loss_and_gradients_with_patch_embeds():
     jb = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels),
           "patch_embeds": jnp.asarray(pe)}
     tb = {"tokens": _t(toks), "labels": _t(labels), "patch_embeds": _t(pe)}
-    (jl, _), jg = jax.value_and_grad(
-        lambda p: jstep.loss_fn(jcfg, p, jm, jb), has_aux=True)(jp)
+    (jl, _), jg = jax.jit(jax.value_and_grad(
+        lambda p: jstep.loss_fn(jcfg, p, jm, jb), has_aux=True))(jp)
     leaves = tstep._leaf_params(tp)
     tl, _ = tstep.loss_fn(tcfg, leaves, tm, tb)
     tg = torch.autograd.grad(tl, adamw.tree_leaves(leaves))

@@ -29,7 +29,7 @@ torch.set_num_threads(1)
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from test_torch_rwkv6 import _close, _t, one_shot  # noqa: E402
+from test_torch_rwkv6 import _close, _t, one_shot, ref_decode  # noqa: E402
 from test_torch_train import _masks_equal, _opt  # noqa: E402
 from test_torch_transformer import _flatten, port_cfg  # noqa: E402
 from repro import configs as jconfigs  # noqa: E402
@@ -241,9 +241,10 @@ def test_decode_steps_over_prefill_cross(cfgs, kind):
     tc = treg.init_cache(tcfg, B, S_DEC, dtype=torch.float32, device="cpu")
     tc["ck"], tc["cv"] = twh.prefill_cross(tcfg, tp, _t(fr), masks=tm,
                                            dtype=torch.float32)
+    jdecode = ref_decode(jcfg)
     for t in range(S_DEC):
-        jl, jc = jreg.decode_step(jcfg, jp, jc, jnp.asarray(toks[:, t:t + 1]),
-                                  jnp.int32(t), masks=jm)
+        jl, jc = jdecode(jp, jc, jnp.asarray(toks[:, t:t + 1]), jnp.int32(t),
+                         masks=jm)
         tl, tc = treg.decode_step(tcfg, tp, tc, _t(toks[:, t:t + 1]), t,
                                   masks=tm)
         assert tuple(tl.shape) == (B, 1, jcfg.vocab_size)
@@ -305,8 +306,8 @@ def test_loss_and_gradients_match_reference(cfgs):
     jm = one_shot(jcfg, jp)
     tm = interop.to_torch(jax.device_get(jm), device="cpu")
     jb, tb = _batches(jcfg, 15)
-    (jl, _), jg = jax.value_and_grad(
-        lambda p: jstep.loss_fn(jcfg, p, jm, jb), has_aux=True)(jp)
+    (jl, _), jg = jax.jit(jax.value_and_grad(
+        lambda p: jstep.loss_fn(jcfg, p, jm, jb), has_aux=True))(jp)
     leaves = tstep._leaf_params(tp)
     tl, _ = tstep.loss_fn(tcfg, leaves, tm, tb)
     tg = torch.autograd.grad(tl, adamw.tree_leaves(leaves))
@@ -331,7 +332,9 @@ def test_train_step_refreshes_under_per_stack_dense_flags(cfgs):
     Adam's eps, whose update then follows the gradient's rounding."""
     jcfg, tcfg = cfgs
     jopt, topt = _opt()
-    js = jstep.init_state(jcfg, jax.random.PRNGKey(16))
+    # the reference's init, refresh and AdamW update jitted (op by op they
+    # take most of the test's time on the CPU)
+    js = jax.jit(lambda k: jstep.init_state(jcfg, k))(jax.random.PRNGKey(16))
     js = dataclasses.replace(js, step=jnp.int32(10))
     ts = interop.train_state(jax.device_get(js), device="cpu")
     jb, tb = _batches(jcfg, 17)
@@ -341,11 +344,18 @@ def test_train_step_refreshes_under_per_stack_dense_flags(cfgs):
     tg = jax.tree_util.tree_unflatten(
         jax.tree_util.tree_structure(js.params),
         [jnp.asarray(g.numpy()) for g in tg])
-    masks, want, _ = jsm.maybe_refresh(jcfg.blast, js.params, tg, js.masks,
-                                       js.step, jreg.dense_layer_flags(jcfg))
-    want, _, _ = jadamw.update(
-        jopt, jsm.mask_grads(masks, tg, jcfg.blast),
-        jadamw.mask_moments(js.opt_state, masks, jcfg.blast), want, js.step)
+
+    @jax.jit
+    def refresh_and_update(js, tg):
+        masks, want, _ = jsm.maybe_refresh(jcfg.blast, js.params, tg,
+                                           js.masks, js.step,
+                                           jreg.dense_layer_flags(jcfg))
+        want, _, _ = jadamw.update(
+            jopt, jsm.mask_grads(masks, tg, jcfg.blast),
+            jadamw.mask_moments(js.opt_state, masks, jcfg.blast), want,
+            js.step)
+        return masks, want
+    masks, want = refresh_and_update(js, tg)
     start = jax.tree_util.tree_leaves(jax.device_get(js.params))
     js, jmet = jax.jit(jstep.make_train_step(jcfg, jopt))(js, jb)
     ts, tmet = tstep.make_train_step(tcfg, topt)(ts, tb)

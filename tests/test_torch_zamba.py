@@ -25,6 +25,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from test_torch_rwkv6 import _close, _layer, _t, model, one_shot  # noqa: E402
+from test_torch_rwkv6 import ref_decode  # noqa: E402
 from test_torch_transformer import port_cfg  # noqa: E402
 from repro import configs as jconfigs  # noqa: E402
 from repro.core import sparse_mlp as jsm  # noqa: E402
@@ -150,13 +151,12 @@ def test_decode_steps_from_a_carried_cache(cfgs):
     toks = np.random.default_rng(5).integers(
         0, jcfg.vocab_size, (2, 19)).astype(np.int32)
     jc = jreg.init_cache(jcfg, 2, 19, dtype=jnp.float32)
+    jdecode = ref_decode(jcfg)
     for t in range(3):
-        _, jc = jreg.decode_step(jcfg, jp, jc, jnp.asarray(toks[:, t:t + 1]),
-                                 jnp.int32(t))
+        _, jc = jdecode(jp, jc, jnp.asarray(toks[:, t:t + 1]), jnp.int32(t))
     tc = interop.to_torch(jax.device_get(jc), device="cpu")
     for t in range(3, 19):
-        jl, jc = jreg.decode_step(jcfg, jp, jc, jnp.asarray(toks[:, t:t + 1]),
-                                  jnp.int32(t))
+        jl, jc = jdecode(jp, jc, jnp.asarray(toks[:, t:t + 1]), jnp.int32(t))
         tl, tc = treg.decode_step(tcfg, tp, tc, _t(toks[:, t:t + 1]), t)
         _close(tl.numpy(), jl)
     back = interop.to_numpy(tc)
