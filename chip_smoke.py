@@ -319,6 +319,18 @@ TP_DIR = os.path.join(ROOT, "build", "chip_tp")
 EP_SIZE = 2
 EP_DIR = os.path.join(ROOT, "build", "chip_ep")
 EP_WEIGHTS = os.path.join(ROOT, "build", "chip_ep_weights")
+# serve_tp_av: whisper-large-v3 and internvl2-2b whole, served at a model
+# axis of TP_AV_SIZE ranks sharing card 0 over gloo (their store and the
+# trees serve_audio_vlm hands them under the gitignored build/), on short
+# traffic: ARCH_BATCH lanes of TP_AV_PROMPT prompt tokens and
+# TP_AV_TOKENS new ones (whisper over serve_audio_vlm's AUDIO_FRAMES
+# frames), since a gloo collective on one card takes ~4.5 ms and whisper
+# makes ~130 a token step; the VLM's engine as TP_AV_ENGINE says
+TP_AV_SIZE, TP_AV_PROMPT, TP_AV_TOKENS = 2, 8, 8
+TP_AV_ENGINE = dict(max_batch=ARCH_BATCH, max_len=TP_AV_PROMPT + TP_AV_TOKENS,
+                    page_size=16, prefill_chunk=8, slab_k=8)
+TP_AV_DIR = os.path.join(ROOT, "build", "chip_tp_av")
+TP_AV_WEIGHTS = os.path.join(ROOT, "build", "chip_tp_av_weights")
 # train_tp: (a) the first TRAIN_TP_STEPS steps of the train phase's run
 # (its refreshes at 0 and TRAIN_STEP_SIZE) at a model axis of 2; (b)
 # TRAIN_DP_STEPS deferred int8 steps from step TRAIN_DP_START (a
@@ -2826,13 +2838,7 @@ def phase_serve_tp(torch, card, cfg, packed, joint, prompts, loop_prompts,
     ranks = _join_ranks("serve_tp", TP_DIR, procs)
     # the single-device figures
     full_bytes = export.memory_report(cfg, packed)["bytes"]
-    local0 = export.shard_params(cfg, packed, Mesh(("data", "model"),
-                                                   (1, world), 0))
-    whole = sum(
-        export.memory_report(cfg, {"x": a})["bytes"]
-        for a, b in zip(export._leaves(packed), export._leaves(local0))
-        if (a.blocks is b.blocks if hasattr(a, "blocks") else a is b))
-    del local0
+    whole = _whole_bytes(cfg, packed, Mesh(("data", "model"), (1, world), 0))
     ps = ENGINE["page_size"]
     n_pages = ENGINE["max_batch"] * -(-ENGINE["max_len"] // ps)
     _, kv = attention.eff_heads(cfg)
@@ -4665,12 +4671,7 @@ def phase_serve_ep(torch, card, ep, procs):
         to_card_s = time.monotonic() - t0
         e_l = cfg.num_experts // world
         full_bytes = export.memory_report(cfg, packed)["bytes"]
-        local1 = export.shard_params(cfg, packed, mesh1)
-        whole = sum(
-            export.memory_report(cfg, {"x": a})["bytes"]
-            for a, b in zip(export._leaves(packed), export._leaves(local1))
-            if (a.blocks is b.blocks if hasattr(a, "blocks") else a is b))
-        del local1
+        whole = _whole_bytes(cfg, packed, mesh1)
         mag = float(_last_logits(torch, cfg, packed, e["prompts"][0])
                     .abs().max())
         near_tie = TP_NEAR_TIE * 2.0 ** -5 * mag
@@ -4883,14 +4884,15 @@ def _ssm_parity(torch, cfg2, packed, dense):
             "mlp_tol_fraction": 1e-4, "logits_tol_fraction": SSM_LOGIT_TOL}
 
 
-def _launcher_run(torch, arch):
+def _launcher_run(torch, arch, keep=None):
     """``launch.serve.main`` on ``arch`` whole (the one-shot prune at s =
     0.8, packed; the launcher's 8 prompts of 64 tokens x 32 new), the
     launch counters reset just before and read just after. Peak device
     memory is read through init, prune and pack (the f32 params
     included) and, from the start of serving (``main`` has dropped the
     f32 params by then), through serving, beside what serving started
-    from. Returns (main's summary, launches, peaks, wall seconds)."""
+    from. With ``keep`` (a dict) the packed tree is kept there under
+    "packed". Returns (main's summary, launches, peaks, wall seconds)."""
     import repro_torch.launch.serve as launcher
     argv = ["--arch", arch, "--packed", "--batch", str(ARCH_BATCH),
             "--prompt-len", str(ARCH_PROMPT), "--new-tokens",
@@ -4905,6 +4907,8 @@ def _launcher_run(torch, arch):
         out = pack(*a, **kw)
         torch.cuda.synchronize()
         peaks["packing"] = torch.cuda.max_memory_allocated()
+        if keep is not None:
+            keep["packed"] = out
         return out
 
     def serving(*a, **kw):
@@ -5025,7 +5029,7 @@ def phase_serve_ssm(torch, card):
     return served
 
 
-def _whisper_serve(torch, full):
+def _whisper_serve(torch, full, saver):
     """whisper-large-v3 whole: seeded f32 init, the launcher's one-shot
     prune at s = 0.8 packed (``launch.serve.prune_and_pack``), then
     ``serve_loop.generate(frames=)``: ``ARCH_BATCH`` lanes of
@@ -5098,6 +5102,14 @@ def _whisper_serve(torch, full):
     for k in ("fused_glu_split", "fused_glu_joint", "paged_flash_decode",
               "bspmm_t"):
         check(counts[k] == 0, f"whisper: kernel {k} launched")
+    # serve_tp_av's oracle: one device on the ranks' short traffic (each
+    # prompt's first TP_AV_PROMPT tokens, the same frames)
+    short = np.ascontiguousarray(prompts[:, :TP_AV_PROMPT])
+    _reset_counts()
+    t0 = time.monotonic()
+    s_toks, s_last, _ = _whisper_short(torch, full, packed, short, frames)
+    s_wall = time.monotonic() - t0
+    short_counts = _read_counts()
     line = dict(
         entry="prune_and_pack -> serve_loop.generate(frames=)",
         encoder_layers=full.num_encoder_layers, frames=AUDIO_FRAMES,
@@ -5106,9 +5118,84 @@ def _whisper_serve(torch, full):
         weight_bytes=export.memory_report(full, packed)["bytes"],
         max_memory_allocated_packing=peak_packing,
         max_memory_allocated_serving=peak_serving,
-        allocated_serving_start=start, **times, **enc, wall_s=wall)
+        allocated_serving_start=start, **times, **enc, wall_s=wall,
+        tp_av_single_wall_s=s_wall)
+    handoff = _tp_av_handoff(
+        torch, full, packed, {"frames": frames.cpu(), "prompts": short},
+        saver, streams=s_toks, logits=s_last[:4], single_counts=short_counts,
+        cross_cache_bytes=enc["cross_cache_bytes"])
     del packed, toks
-    return line, counts
+    return line, counts, handoff
+
+
+def _whisper_short(torch, cfg, params, prompts, frames, dist=None):
+    """``serve_loop.generate(frames=)`` of ``TP_AV_TOKENS`` new tokens on
+    ``prompts``, keeping the prefill's last-token logits (the vocab
+    shards gathered under ``dist``; the gather is collective). Returns
+    (generated tokens (B, TP_AV_TOKENS), those logits (B, V) f32 on the
+    host, the stats)."""
+    from repro_torch.serving import serve_loop
+    seen, orig = {}, serve_loop.prefill_with_decode
+
+    def keep(*a, **kw):
+        last, cache = orig(*a, **kw)
+        whole = (dist.all_gather(last, dim=-1) if dist is not None
+                 and dist.shards(cfg.vocab_size) else last)
+        seen["last"] = whole.float().cpu()
+        return last, cache
+
+    serve_loop.prefill_with_decode = keep
+    try:
+        toks, st = serve_loop.generate(
+            cfg, params, prompts, max_new_tokens=TP_AV_TOKENS,
+            frames=frames, device=DEVICE, dist=dist)
+    finally:
+        serve_loop.prefill_with_decode = orig
+    return toks[:, prompts.shape[1]:], seen["last"], st
+
+
+def _tp_av_engine(torch, cfg, params, prompts, dist=None):
+    """``serve_tp_av``'s engine runs of ``prompts`` (``TP_AV_TOKENS`` new
+    tokens each, ``TP_AV_ENGINE``), phased then mixed, the launch
+    counters reset just before and read just after each. -> {mode:
+    streams, lockstep digest, KV pool bytes, launches, stats}."""
+    from repro_torch.serving.engine import Engine
+    out = {}
+    for name, mode in (("phased", {}), ("mixed", {"mixed": True})):
+        _reset_counts()
+        eng = Engine(cfg, params, device=DEVICE, dist=dist, **TP_AV_ENGINE,
+                     **mode)
+        uids = [eng.submit(p, TP_AV_TOKENS) for p in prompts]
+        t0 = time.monotonic()
+        res = eng.run()
+        out[name] = dict(
+            streams=[res[u].generated for u in uids],
+            ok=all(res[u].ok for u in uids), wall_s=time.monotonic() - t0,
+            digest=eng.lockstep_digest, launches=_read_counts(),
+            kv_pool_bytes=sum(t.numel() * t.element_size()
+                              for t in eng.cache.values()),
+            **{k: eng.stats[k] for k in (
+                "tok_per_s", "stalled_decode_steps", "mixed_steps",
+                "decode_slabs", "prefill_chunks")})
+        del eng
+    return out
+
+
+def _tp_av_handoff(torch, cfg, packed, inputs, saver, **single):
+    """Hand one packed tree to ``serve_tp_av``'s ranks: a host copy (the
+    card's copy is the caller's to free), written with the ranks' inputs
+    to ``TP_AV_WEIGHTS/<name>.pt`` by ``saver``'s thread while the script
+    goes on. Returns what the join needs (``single``: the one-device
+    readings)."""
+    t0 = time.monotonic()
+    host = _tree_to(packed, "cpu")
+    os.makedirs(TP_AV_WEIGHTS, exist_ok=True)
+    path = os.path.join(TP_AV_WEIGHTS, f"{cfg.name}.pt")
+    return dict(cfg=cfg, host=host, inputs=inputs,
+                to_host_s=time.monotonic() - t0,
+                saved=saver.submit(
+                    _save_tree, {"params": host, "inputs": inputs}, path),
+                **single)
 
 
 def _av_parity(torch, card, timer, full):
@@ -5240,18 +5327,32 @@ def phase_serve_audio_vlm(torch, card):
     serves text) through ``launch.serve.main`` (``_launcher_run``:
     ``bspmm``, the split GLU and paged decode must launch). Then each on
     a two-layer cut (``_av_parity``): whisper's ``audio_kernel`` lines at
-    M = 12000 and 8, and the packed-vs-dense parities. Returns the
-    serving runs' counts."""
+    M = 12000 and 8, and the packed-vs-dense parities. Each model also
+    runs ``serve_tp_av``'s short traffic on one device (the oracle of its
+    ranks) and hands its packed tree to them (``_tp_av_handoff``).
+    Returns (the serving runs' counts, the hand-offs by arch)."""
     from repro_torch.configs import get_config
     t_phase = time.monotonic()
     timer = Timer(torch)
-    served = []
+    served, tpav = [], {}
+    saver = concurrent.futures.ThreadPoolExecutor(1)
     for arch in AUDIO_VLM_RUNS:
         full = get_config(arch)
         if full.family == "audio":
-            line, counts = _whisper_serve(torch, full)
+            line, counts, tpav[arch] = _whisper_serve(torch, full, saver)
+            served.append(tpav[arch]["single_counts"])
         else:
-            res, counts, peaks, wall = _launcher_run(torch, arch)
+            keep = {}
+            res, counts, peaks, wall = _launcher_run(torch, arch, keep)
+            # serve_tp_av's oracle: one device's engine runs of its traffic
+            short = [p for p in np.random.default_rng(SEED + 29).integers(
+                0, full.vocab_size, (ARCH_BATCH, TP_AV_PROMPT)).astype(
+                    np.int32)]
+            single = _tp_av_engine(torch, full, keep["packed"], short)
+            served += [r["launches"] for r in single.values()]
+            tpav[arch] = _tp_av_handoff(torch, full, keep.pop("packed"),
+                                        {"prompts": short}, saver,
+                                        single=single)
             toks = res["tokens"]
             check(len(toks) == ARCH_BATCH and all(
                 x.size == ARCH_TOKENS
@@ -5287,8 +5388,351 @@ def phase_serve_audio_vlm(torch, card):
                                             "plan")}
                       for k, v in kern.items()})
         torch.cuda.empty_cache()
+    saver.shutdown(wait=False)
     emit(phase="serve_audio_vlm_total", seconds=time.monotonic() - t_phase)
-    return served
+    return served, tpav
+
+
+def _tp_av_rank(rank, world, runs):
+    """One rank of ``serve_tp_av`` (a spawned process, gloo on card 0):
+    start the group from the ``file://`` store in ``TP_AV_DIR``; per model
+    wait for the tree ``serve_audio_vlm`` hands over, load it
+    memory-mapped, cut this rank's shard (``export.shard_params``), move
+    it to the card and serve the short traffic of its file: whisper
+    through ``serve_loop.generate(frames=)`` (``_whisper_short``: the
+    prefill's last logits gathered), the VLM through the paged engine,
+    phased then mixed (``_tp_av_engine``). The launch counters and the
+    collectives are reset just before and read just after each run.
+    Pickles what it saw to ``rank<r>.pkl`` in ``TP_AV_DIR``."""
+    import pickle
+    _die_with_parent()
+
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.distributed.context import (DistContext,
+                                                 init_process_group,
+                                                 make_mesh)
+    from repro_torch.models import whisper
+    from repro_torch.serving import export
+    torch.cuda.set_device(0)
+    init_process_group(TP_AV_DIR, rank, world, "gloo")
+    coll = _count_collectives(tdist)
+    out = {"rank": rank, "device": torch.cuda.current_device(), "runs": {}}
+    try:
+        mesh = make_mesh((1, world), ("data", "model"))
+        dist = DistContext(mesh)
+        for arch, r in runs.items():
+            cfg = r["cfg"]
+            deadline = time.monotonic() + TP_TIMEOUT_S
+            while not os.path.exists(r["path"]):    # being written
+                check(time.monotonic() < deadline,
+                      f"serve_tp_av: {r['path']} was never written")
+                time.sleep(0.05)
+            t0 = time.monotonic()
+            saved = torch.load(r["path"], map_location="cpu", mmap=True,
+                               weights_only=False)
+            local = _tree_to(export.shard_params(cfg, saved["params"], mesh),
+                             DEVICE)
+            inputs = saved["inputs"]
+            del saved
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            a = {"shard_s": time.monotonic() - t0,
+                 "weight_bytes": export.memory_report(cfg, local)["bytes"]}
+            if cfg.family == "audio":
+                cross, seen = whisper.prefill_cross, {}
+
+                def counted(*args, **kw):
+                    ck, cv = cross(*args, **kw)
+                    seen["cross_cache_bytes"] = 2 * ck.numel() * \
+                        ck.element_size()
+                    return ck, cv
+
+                whisper.prefill_cross = counted
+                _reset_counts()
+                coll.clear()
+                t0 = time.monotonic()
+                try:
+                    toks, last, st = _whisper_short(
+                        torch, cfg, local, inputs["prompts"],
+                        inputs["frames"].to(DEVICE), dist)
+                finally:
+                    whisper.prefill_cross = cross
+                a.update(streams=toks, logits=last[:4].numpy(),
+                         wall_s=time.monotonic() - t0,
+                         launches=_read_counts(),
+                         collectives={k: dict(v) for k, v in coll.items()},
+                         tok_per_s=st["tok_per_s"], **seen)
+            else:
+                coll.clear()
+                a["engine"] = _tp_av_engine(torch, cfg, local,
+                                            inputs["prompts"], dist)
+                a["collectives"] = {k: dict(v) for k, v in coll.items()}
+            a["peak_bytes"] = torch.cuda.max_memory_allocated()
+            del local
+            torch.cuda.empty_cache()
+            out["runs"][arch] = a
+    finally:
+        tdist.destroy_process_group()
+    with open(os.path.join(TP_AV_DIR, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def _serve_tp_av_start(torch):
+    """Spawn ``serve_tp_av``'s ``TP_AV_SIZE`` ranks (``_tp_av_rank``),
+    gloo sharing card 0, each pointed at the files ``serve_audio_vlm``
+    will write (each rank waits for a file its writer has finished).
+    They start before ``serve_ssm`` and serve beside ``serve_audio_vlm``
+    and ``serve_ep``'s join."""
+    from repro_torch.configs import get_config
+    shutil.rmtree(TP_AV_WEIGHTS, ignore_errors=True)
+    runs = {a: {"cfg": get_config(a),
+                "path": os.path.join(TP_AV_WEIGHTS, f"{a}.pt")}
+            for a in AUDIO_VLM_RUNS}
+    return _start_ranks(TP_AV_DIR, _tp_av_rank, TP_AV_SIZE,
+                        (TP_AV_SIZE, runs))
+
+
+def _whole_bytes(cfg, packed, mesh):
+    """Bytes of the leaves of ``packed`` that a rank of ``mesh`` holds
+    whole (``shard_params`` hands them over unsplit)."""
+    from repro_torch.serving import export
+    local = export.shard_params(cfg, packed, mesh)
+    return sum(
+        export.memory_report(cfg, {"x": a})["bytes"]
+        for a, b in zip(export._leaves(packed), export._leaves(local))
+        if (a.blocks is b.blocks if hasattr(a, "blocks") else a is b))
+
+
+def _tp_av_whisper(torch, card, e, ranks, timer, gen):
+    """``serve_tp_av``'s holds on whisper (see ``phase_serve_tp_av``);
+    emits its ``tp_kernel`` lines and returns the phase line's fields."""
+    from repro_torch.distributed.context import Mesh
+    from repro_torch.models import transformer
+    from repro_torch.serving import export, serve_loop
+    cfg, arch = e["cfg"], e["cfg"].name
+    packed = _tree_to(e["host"], DEVICE)
+    frames = e["inputs"]["frames"].to(DEVICE)
+    prompts = e["inputs"]["prompts"]
+    world = len(ranks)
+    mesh1 = Mesh(("data", "model"), (1, world), 1)
+    full_bytes = export.memory_report(cfg, packed)["bytes"]
+    whole = _whole_bytes(cfg, packed, mesh1)
+    want_logits = e["logits"].numpy()
+    mag = float(np.abs(want_logits).max())
+    tol = 2.0 ** -5 * mag
+    err = max(float(np.abs(r["runs"][arch]["logits"] - want_logits).max())
+              for r in ranks)
+    check(err <= tol, f"serve_tp_av {arch}: logits differ by {err} > {tol}")
+    near_tie = TP_NEAR_TIE * tol
+    r0 = ranks[0]["runs"][arch]
+    accepted = []
+    for u, w in enumerate(e["streams"]):
+        t = _first_divergence(r0["streams"][u], w)
+        if t is None:
+            continue
+        seq = np.concatenate([prompts[u], w[:t]]).astype(np.int32)
+        last, _ = serve_loop.prefill_with_decode(
+            cfg, packed, seq[None], len(seq), frames=frames[u:u + 1],
+            device=DEVICE)
+        top2 = torch.topk(last[0].float(), 2).values
+        m = float(top2[0] - top2[1])
+        check(m < near_tie, f"serve_tp_av {arch}: lane {u} diverged at "
+                            f"step {t}, margin {m} >= {near_tie}")
+        accepted.append({"lane": u, "step": t, "margin": m})
+    steps = TP_AV_PROMPT + TP_AV_TOKENS - 1
+    want_bspmm = 2 * (cfg.num_encoder_layers + cfg.num_layers * steps)
+    # a decode step: the embedding's all-reduce, then per decoder layer
+    # self-attention's, cross-attention's and the MLP's (after its
+    # all-gather); the encoder reduce-scatters twice a layer
+    want_ar = steps * (1 + 3 * cfg.num_layers)
+    want_rs = 2 * cfg.num_encoder_layers
+    for r in ranks:
+        a = r["runs"][arch]
+        check(np.array_equal(a["streams"], r0["streams"]),
+              f"serve_tp_av {arch}: rank {r['rank']}'s streams differ from "
+              "rank 0's")
+        lc = a["launches"]
+        check(lc["bspmm"] == want_bspmm,
+              f"serve_tp_av {arch}: rank {r['rank']} launched "
+              f"{lc['bspmm']} bspmm, {want_bspmm} expected (2 a layer call)")
+        for k in ("fused_glu_split", "fused_glu_joint", "paged_flash_decode",
+                  "bspmm_t"):
+            check(lc[k] == 0, f"serve_tp_av {arch}: {k} launched")
+        ar = sum(a["collectives"].get("all_reduce", {}).values())
+        rs = sum(a["collectives"].get("reduce_scatter", {}).values())
+        check(ar == want_ar and rs == want_rs,
+              f"serve_tp_av {arch}: rank {r['rank']} issued {ar} "
+              f"all-reduces and {rs} reduce-scatters, {want_ar} and "
+              f"{want_rs} expected")
+        check(a["weight_bytes"] <= TP_BYTES_FRACTION * full_bytes + whole,
+              f"serve_tp_av {arch}: rank {r['rank']} holds "
+              f"{a['weight_bytes']} of {full_bytes} bytes")
+        check(a["cross_cache_bytes"] * world == e["cross_cache_bytes"],
+              f"serve_tp_av {arch}: rank {r['rank']}'s cross K/V "
+              f"{a['cross_cache_bytes']} bytes, one device's "
+              f"{e['cross_cache_bytes']}")
+    local = export.shard_params(cfg, packed, mesh1)
+    lines = {}
+    for stack, m in (("encoder", ARCH_BATCH * AUDIO_FRAMES),
+                     ("decoder", ARCH_M)):
+        mlp0 = transformer._layer_view(local[stack], 0)["mlp"]
+        for w in ("w_in", "w_out"):
+            lines[f"{stack}/{w}"] = _bspmm_line(
+                torch, card, timer, gen, "tp_kernel", mlp0[w], m, arch=arch,
+                weight=f"{stack}/mlp/{w}", tp=world, rank=1,
+                partial=mlp0[w].partial)
+    del local, packed
+    return dict(
+        entry="export.shard_params -> serve_loop.generate(frames=, dist=)",
+        encoder_layers=cfg.num_encoder_layers, frames=AUDIO_FRAMES,
+        streams_equal_single_device=True, accepted_divergences=accepted,
+        near_tie=near_tie, logits_max_abs_err=err, logits_tol=tol,
+        logits_err_over_tol=err / tol, bspmm_per_layer_call=2,
+        all_reduces=want_ar, reduce_scatters=want_rs,
+        all_reduces_per_decode_step=want_ar // steps,
+        collectives_per_rank=[r["runs"][arch]["collectives"] for r in ranks],
+        weight_bytes_per_rank=[r["runs"][arch]["weight_bytes"]
+                               for r in ranks],
+        single_device_weight_bytes=full_bytes, whole_leaf_bytes=whole,
+        cross_cache_bytes_per_rank=[r["runs"][arch]["cross_cache_bytes"]
+                                    for r in ranks],
+        single_device_cross_cache_bytes=e["cross_cache_bytes"],
+        wall_s=[r["runs"][arch]["wall_s"] for r in ranks],
+        tok_per_s=[r["runs"][arch]["tok_per_s"] for r in ranks],
+        launches=[r["runs"][arch]["launches"] for r in ranks],
+        kernel_lines={k: {f: v[f] for f in ("ms", "bound_ms", "library_ms",
+                                            "max_abs_err")}
+                      for k, v in lines.items()})
+
+
+def _tp_av_vlm(torch, e, ranks):
+    """``serve_tp_av``'s holds on the VLM (see ``phase_serve_tp_av``);
+    returns the phase line's fields."""
+    from repro_torch.distributed.context import Mesh
+    from repro_torch.serving import export
+    cfg, arch = e["cfg"], e["cfg"].name
+    packed = _tree_to(e["host"], DEVICE)
+    prompts = e["inputs"]["prompts"]
+    world = len(ranks)
+    full_bytes = export.memory_report(cfg, packed)["bytes"]
+    whole = _whole_bytes(cfg, packed, Mesh(("data", "model"), (1, world), 1))
+    tol = 2.0 ** -5 * max(float(_last_logits(torch, cfg, packed, p)
+                                .abs().max()) for p in prompts[:4])
+    near_tie = TP_NEAR_TIE * tol
+    single = e["single"]
+    accepted = {}
+    for name in ("phased", "mixed"):
+        r0 = ranks[0]["runs"][arch]["engine"][name]
+        accepted[name] = _near_tie_equal(
+            torch, cfg, packed, prompts, dict(enumerate(r0["streams"])),
+            dict(enumerate(single[name]["streams"])),
+            f"serve_tp_av {arch} {name}", tol=near_tie)
+        for r in ranks:
+            got = r["runs"][arch]["engine"][name]
+            for a, b in zip(got["streams"], r0["streams"]):
+                check(np.array_equal(a, b), f"serve_tp_av {arch} {name}: "
+                      f"rank {r['rank']}'s streams differ from rank 0's")
+            check(got["ok"], f"serve_tp_av {arch} {name}: a request failed")
+            check(got["digest"] == single[name]["digest"],
+                  f"serve_tp_av {arch} {name}: rank {r['rank']}'s block "
+                  "tables and page accounting differ from one device's")
+            check(got["kv_pool_bytes"] * world
+                  == single[name]["kv_pool_bytes"],
+                  f"serve_tp_av {arch} {name}: rank {r['rank']}'s KV pool "
+                  f"{got['kv_pool_bytes']} bytes")
+            for k in PAGED:
+                check(got["launches"][k] > 0, f"serve_tp_av {arch} {name}: "
+                      f"rank {r['rank']} never launched {k}")
+        if name == "mixed":
+            check(r0["stalled_decode_steps"] == 0,
+                  f"serve_tp_av {arch} mixed: decode stalled")
+    for r in ranks:
+        check(r["runs"][arch]["weight_bytes"]
+              <= TP_BYTES_FRACTION * full_bytes + whole,
+              f"serve_tp_av {arch}: rank {r['rank']} holds "
+              f"{r['runs'][arch]['weight_bytes']} of {full_bytes} bytes")
+    del packed
+    return dict(
+        entry="export.shard_params -> Engine(dist=) (paged)",
+        streams_equal_single_device=True, digests_equal_single_device=True,
+        accepted_divergences=accepted, near_tie=near_tie,
+        weight_bytes_per_rank=[r["runs"][arch]["weight_bytes"]
+                               for r in ranks],
+        single_device_weight_bytes=full_bytes, whole_leaf_bytes=whole,
+        kv_pool_bytes_per_rank=[r["runs"][arch]["engine"]["phased"][
+            "kv_pool_bytes"] for r in ranks],
+        single_device_kv_pool_bytes=single["phased"]["kv_pool_bytes"],
+        collectives_per_rank=[r["runs"][arch]["collectives"] for r in ranks],
+        runs={name: [{k: v for k, v in r["runs"][arch]["engine"][name]
+                      .items() if k != "streams"} for r in ranks]
+              for name in ("phased", "mixed")},
+        single_device={name: {k: v for k, v in single[name].items()
+                              if k != "streams"}
+                       for name in ("phased", "mixed")})
+
+
+def phase_serve_tp_av(torch, card, tpav, procs):
+    """The two families this slice admits under ``dist=`` beside the
+    dense and MoE ones, whole at full width and depth, served at a model
+    axis of ``TP_AV_SIZE`` ranks over gloo on one card (which measures no
+    tensor-parallel speed and claims none), each rank holding its shard
+    of the tree ``serve_audio_vlm`` packed (``export.shard_params``):
+    whisper-large-v3 (32 + 32 layers, heads padded 20 -> 32: rank 0's 16
+    live, rank 1's 4 live and 12 padded; its two-matrix MLPs split
+    ``w_in`` on its block-columns and ``w_out`` on its kept blocks)
+    through ``serve_loop.generate(frames=, dist=)``, and internvl2-2b
+    (24 layers) through the paged ``Engine``, phased and mixed, on the
+    short traffic of ``TP_AV_*``.
+
+    Holds, per rank: the streams equal one device's runs of the same
+    traffic in ``serve_audio_vlm`` (a first divergence only where one
+    device's top-2 margin is below ``TP_NEAR_TIE`` times the logits
+    tolerance, 2**-5 of their magnitude) and equal across ranks;
+    whisper's prefill logits of 4 prompts within that tolerance,
+    ``bspmm`` launched exactly twice a layer call and no GLU, paged
+    decode or ``bspmm_t``, 1 + 3L all-reduces a decode step and two
+    reduce-scatters an encoder layer, its cross K/V half of one device's;
+    the VLM's block-table digests equal one device's, the split GLU,
+    ``bspmm`` and paged decode launched, its KV pool 1/``TP_AV_SIZE`` of
+    one device's; each rank's weight bytes at most ``TP_BYTES_FRACTION``
+    of one device's plus the leaves every rank holds whole. Then
+    whisper's ``bspmm`` at rank 1's shard-local packs of layer 0 at M =
+    ARCH_BATCH x AUDIO_FRAMES (the encoder) and ARCH_M (a decode step),
+    each held against its plain version (``tp_kernel`` lines). Returns
+    the ranks' launch counts."""
+    t_phase = time.monotonic()
+    ranks = _join_ranks("serve_tp_av", TP_AV_DIR, procs)
+    shutil.rmtree(TP_AV_WEIGHTS)
+    timer = Timer(torch)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 29)
+    counts = []
+    for arch, e in tpav.items():
+        cfg = e["cfg"]
+        if cfg.family == "audio":
+            fields = _tp_av_whisper(torch, card, e, ranks, timer, gen)
+            counts += fields["launches"]
+        else:
+            fields = _tp_av_vlm(torch, e, ranks)
+            counts += [r["runs"][arch]["engine"][name]["launches"]
+                       for r in ranks for name in ("phased", "mixed")]
+        emit(phase="serve_tp_av", arch=arch, family=cfg.family,
+             layers=cfg.num_layers, reduced=None, tp=len(ranks),
+             backend="gloo", devices=[r["device"] for r in ranks],
+             lanes=ARCH_BATCH, prompt_len=TP_AV_PROMPT,
+             new_tokens=TP_AV_TOKENS, **fields,
+             shard_s=[r["runs"][arch]["shard_s"] for r in ranks],
+             peak_bytes_per_rank=[r["runs"][arch]["peak_bytes"]
+                                  for r in ranks],
+             to_host_s=e["to_host_s"], save_s=e["saved"].result(),
+             tok_per_s_note="two ranks on one card over gloo: the "
+                            "phase's own rate, not a tensor-parallel "
+                            "speed")
+        gc.collect()
+        torch.cuda.empty_cache()
+    tpav.clear()
+    emit(phase="serve_tp_av_total", seconds=time.monotonic() - t_phase)
+    return counts
 
 
 def phase_training(torch, cfg):
@@ -5421,12 +5865,19 @@ def main():
     # serve_ep's ranks serve serve_moe's models beside the recurrent and
     # audio/VLM phases (a few GB of the card), joined after them
     procs = _serve_ep_start(torch, ep)
-    with _killed_on_failure(procs):
+    # serve_tp_av's ranks wait for the trees serve_audio_vlm hands them,
+    # serve beside it and serve_ep's join, and are joined after that
+    av_procs = _serve_tp_av_start(torch)
+    with _killed_on_failure(procs + av_procs):
         served += phase_serve_ssm(torch, card)
-        served += phase_serve_audio_vlm(torch, card)
+        counts, tpav = phase_serve_audio_vlm(torch, card)
+        served += counts
     mark("serve_ssm_and_audio_vlm")
-    served += phase_serve_ep(torch, card, ep, procs)
+    with _killed_on_failure(av_procs):
+        served += phase_serve_ep(torch, card, ep, procs)
     mark("serve_ep_join")
+    served += phase_serve_tp_av(torch, card, tpav, av_procs)
+    mark("serve_tp_av_join")
     ft = phase_training(torch, cfg)
     mark("training")
 

@@ -150,9 +150,15 @@ def _glu_mlp_tp(x, w_gate, w_up, w_down, act, dist, d_ff, masks=None,
 
 
 def mlp2(x, w_in, w_out, b_in_=None, b_out_=None, *, act="gelu",
-         masks=None, spec: BlastSpec | None = None, square: bool = False):
+         masks=None, spec: BlastSpec | None = None, square: bool = False,
+         dist=None, d_ff: int = 0, seq: bool = False):
     """Two-matrix MLP (GPT-2): act(x W1 + b1) W2 + b2; ``square`` squares
-    the activation; ``masks`` keyed 'w_in', 'w_out'."""
+    the activation; ``masks`` keyed 'w_in', 'w_out'. ``dist`` (with the
+    model's ``d_ff``) takes the tensor-parallel path, ``_mlp2_tp``; with
+    ``seq`` its input and output are this rank's S shard."""
+    if dist is not None and dist.tp > 1:
+        return _mlp2_tp(x, w_in, w_out, b_in_, b_out_, act, square, dist,
+                        d_ff, masks, spec, seq)
     dt = x.dtype
     packed = isinstance(w_in, PackedBCSC)
     m = masks or {}
@@ -171,6 +177,49 @@ def mlp2(x, w_in, w_out, b_in_=None, b_out_=None, *, act="gelu",
     if b_out_ is not None:
         y = y + b_out_.to(y.dtype)
     return y.reshape(*x.shape[:-1], y.shape[-1])
+
+
+def _mlp2_tp(x, w_in, w_out, b_in_, b_out_, act, square, dist, d_ff,
+             masks=None, spec=None, seq=False):
+    """One rank's two-matrix MLP under tensor parallelism, the layout of
+    ``_glu_mlp_tp``: packed, ``bspmm`` on the rank's ``w_in``
+    block-columns plus its slice of ``b_in`` (``b_in`` splits exactly
+    where ``w_in`` does), an all-gather of the activation where those
+    columns are split, ``bspmm`` with the rank's share of ``w_out``'s
+    kept blocks, the sum of partial outputs; dense (serving, or training
+    through the STE on the rank's mask shards), ``w_in`` column-parallel
+    and ``w_out`` row-parallel where this rank holds a d_ff slice, else
+    the whole MLP on every rank. ``b_out`` is added once, after the sum
+    over the model axis (added to each rank's partial sum it would count
+    tp times)."""
+    if isinstance(w_in, PackedBCSC):
+        from repro_torch.kernels import ops
+        x = dist.to_parallel(x, True, seq)
+        h = ops.bspmm(_flat(x), w_in)
+    else:
+        dt = x.dtype
+        split = w_in.shape[-1] < d_ff
+        x = dist.to_parallel(x, split, seq)
+        m = masks or {}
+        h = x @ maybe_mask(w_in, m.get("w_in"), spec).to(dt)
+    if b_in_ is not None:
+        h = h + b_in_.to(h.dtype)
+    h = act_fn(act)(h)
+    if square:
+        h = h * h
+    if isinstance(w_out, PackedBCSC):
+        if h.shape[-1] < w_out.kb * w_out.b_in:
+            h = dist.all_gather(h, dim=-1)
+        y = ops.bspmm(h, w_out)
+        partial = w_out.partial
+    else:
+        y = h @ maybe_mask(w_out, m.get("w_out"), spec, swapped=True).to(dt)
+        partial = split
+    y = dist.from_parallel(y.reshape(*x.shape[:-1], y.shape[-1]), partial,
+                           seq)
+    if b_out_ is not None:
+        y = y + b_out_.to(y.dtype)
+    return y
 
 
 def get_path(tree: Params, path: str):

@@ -534,24 +534,37 @@ class _GatherFromModel(torch.autograd.Function):
 
 def check_training(cfg, dist) -> None:
     """Refuse a multi-device context where the port does not run: the
-    sharded train step and tensor-parallel serving cover the dense GLU
-    family and the MoE family with GLU experts (expert parallel: the
-    experts split evenly over the model axis), the train step on any
-    (data, model) mesh."""
+    sharded train step and tensor-parallel serving cover the attention
+    families, dense (GLU or the two-matrix MLP, ``mlp2``), ``vlm``,
+    ``audio`` (whisper), and the MoE family with GLU experts (expert
+    parallel: the experts split evenly over the model axis), the train
+    step on any (data, model) mesh. ``ssm`` and ``hybrid`` stay
+    refused."""
     if dist is None:
         return
     moe = cfg.family == "moe"
-    if cfg.family not in ("dense", "moe") or cfg.mlp_kind != "glu" \
-            or cfg.is_moe != moe:
+    if cfg.family not in ("dense", "moe", "vlm", "audio") \
+            or cfg.is_moe != moe or (moe and cfg.mlp_kind != "glu"):
         raise NotImplementedError(
-            f"dist= covers the dense GLU and MoE families only, not "
-            f"{cfg.family!r} with mlp_kind {cfg.mlp_kind!r} (ROADMAP §1 "
-            "item 4: dist= on the other families)")
+            f"dist= covers the attention families (dense, vlm, audio; "
+            f"MoE with GLU experts) only, not {cfg.family!r} with "
+            f"mlp_kind {cfg.mlp_kind!r} (ROADMAP §1 item 4: dist= on ssm "
+            "and hybrid)")
     if moe and cfg.num_experts % dist.tp:
         raise NotImplementedError(
             f"expert parallelism splits the experts evenly over the model "
             f"axis: {cfg.num_experts} experts do not split {dist.tp} ways "
-            "(ROADMAP §1 item 4: dist= on the other families)")
+            "(ROADMAP §1 item 4: uneven splits)")
+
+
+def refuse_dist(dist, what: str) -> None:
+    """Raise for a multi-device context in a module that does not run
+    one (the recurrent families' own entry points, whatever the caller
+    checked before)."""
+    if dist is not None:
+        raise NotImplementedError(
+            f"{what} does not run under dist= (ROADMAP §1 item 4: dist= "
+            "on ssm and hybrid)")
 
 
 def check_serving(cfg, dist) -> None:
@@ -560,4 +573,4 @@ def check_serving(cfg, dist) -> None:
     if dist is not None and dist.data_size > 1:
         raise NotImplementedError(
             "a serving data axis larger than 1 is not ported (ROADMAP §1 "
-            "item 4: a serving data axis)")
+            "item 4: a serving data axis, next in its queue)")

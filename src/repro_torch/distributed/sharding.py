@@ -32,6 +32,12 @@ rank's share of their gradient, which the train step sums over the
 model axis after the backward (``partial_flags``, which adds an MoE
 layer's router and, under sequence parallelism, its shared experts).
 
+The two-matrix MLP (GPT-2, whisper) splits ``w_in`` and its ``b_in``
+together, exactly where ``w_in``'s block mask splits (a ``w_in`` kept
+whole keeps its ``b_in`` whole); ``b_out`` is replicated and, added to
+the S shard under sequence parallelism, partial. Whisper's encoder
+stream splits along its own S (``partial_flags``' ``seq_enc``).
+
 The MoE family is expert parallel, as the reference's ``_moe_shardmap``:
 the expert stacks (and their masks and moments) split on the experts dim
 alone (``experts`` takes the model axis, so ``ff`` cannot), and the
@@ -225,6 +231,11 @@ def train_specs(cfg, mesh) -> dict:
     for path, m in st.masks.items():
         masks[path] = spec_for(tuple(m.shape), get_path(axes, path), mesh)
         params = set_path(params, path, masks[path])
+        if path.endswith("/w_in"):
+            # the two-matrix MLP's b_in splits exactly where w_in's
+            # columns do (a w_in kept whole keeps its b_in whole)
+            params = set_path(params, path[:-len("w_in")] + "b_in",
+                              masks[path][:-2] + masks[path][-1:])
     return {"params": params, "masks": masks}
 
 
@@ -271,7 +282,7 @@ def seq_partial_flags(cfg) -> dict:
     return walk(registry.axes_tree(cfg))
 
 
-def partial_flags(cfg, seq: bool) -> dict:
+def partial_flags(cfg, seq: bool, seq_enc: bool | None = None) -> dict:
     """Per leaf of the params tree: whether a replicated leaf's gradient
     on a rank is only its share of a sum over the model axis, which the
     train step adds up after the backward. With ``seq`` (the stream split
@@ -280,13 +291,23 @@ def partial_flags(cfg, seq: bool) -> dict:
     only; the aux term's whole gradient is passed back at 1/tp,
     ``DistContext.count_once``); its shared experts ``ws_*`` with ``seq``
     (each rank applies them to its S shard; without, to the whole
-    replicated stream, so their gradient is whole)."""
-    def walk(flags, name):
+    replicated stream, so their gradient is whole). Whisper's encoder
+    stream splits on its own (``seq_enc``, the frames' S; default
+    ``seq``): its stack and final norm follow it. Whisper's learned
+    positions are added to the whole sequence before the split, so
+    their gradient is whole (not flagged: their axes hold None)."""
+    def walk(flags, name, seq):
         if isinstance(flags, dict):
-            return {k: walk(v, k) for k, v in flags.items()}
+            return {k: walk(v, k, seq_enc if k in _ENCODER_KEYS else seq)
+                    for k, v in flags.items()}
         return ((seq and flags) or (cfg.is_moe and name == "router")
                 or (seq and cfg.is_moe and name.startswith("ws_")))
-    return walk(seq_partial_flags(cfg), "")
+    seq_enc = seq if seq_enc is None else seq_enc
+    return walk(seq_partial_flags(cfg), "", seq)
+
+
+# whisper's leaves that act on the encoder's stream
+_ENCODER_KEYS = ("encoder", "ln_enc_f_scale", "ln_enc_f_bias")
 
 
 def _zip_map(fn, tree, shardings):

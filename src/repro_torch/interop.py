@@ -18,8 +18,10 @@ moments), so both trainers can start from the same state; the port
 keeps its own ``torch.Generator`` and does not imitate JAX's PRNG.
 ``to_torch_shard`` gives one rank its shard of a serving tree for
 tensor-parallel serving (an MoE tree's expert packs cut on their experts
-dim, ``serving/export.py``); a train state crosses whole and is cut with
-``distributed/sharding.py::shard_state``.
+dim, the two-matrix MLP's ``w_in`` on its block-columns with ``b_in``
+alike and ``w_out`` on its kept blocks, whisper's nested stacks by the
+same walk; ``serving/export.py``); a train state crosses whole and is
+cut with ``distributed/sharding.py::shard_state``.
 """
 from __future__ import annotations
 

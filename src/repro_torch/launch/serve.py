@@ -9,7 +9,10 @@ take it, and ``--frontdoor`` refuses them, as in the reference. A VLM
 Whisper (``audio``) needs encoder frames, which the launcher does not
 make: ``--arch whisper-large-v3`` exits before any weight is built (the
 reference fails on its missing frames after building the model); serve
-it through ``serve_loop.generate(frames=...)``.
+it through ``serve_loop.generate(frames=...)`` (with ``dist=``
+tensor-parallel). ``_serve(..., dist=)`` serves a rank's shard of any
+engine-servable tree, internvl2-2b's included; like the reference's,
+this launcher has no ``--mesh``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \
         --packed --batch 8 --prompt-len 64 --new-tokens 32

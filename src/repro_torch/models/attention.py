@@ -111,19 +111,28 @@ def shard_local(cfg, p, dist):
     return p
 
 
-def zero_padded_heads(cfg, p) -> None:
+def zero_padded_heads(cfg, p, dist=None) -> None:
     """Zero, in place, the ``wq`` columns and ``wo`` rows of the query
     heads that ``pad_heads_to`` adds (heads >= ``num_heads``) in one
     (possibly layer-stacked) attention param dict, so the padding adds
     nothing to the output. Under GQA, live head h then reads kv head
     h // G with the padded G (qwen2-7b: 32 // 4 = 8, not 28 // 4 = 7), so
     a real checkpoint's heads would have to be placed to match; MHA pads
-    its kv heads too and keeps head h on kv head h."""
+    its kv heads too and keeps head h on kv head h. Under ``dist`` ``p``
+    is this rank's shard, whose local head j is global head ``first +
+    j`` (``local_heads``): whisper at model 2 pads 20 heads to 32, so
+    rank 0's 16 are live and rank 1 holds 4 live and 12 padded."""
     h, _ = eff_heads(cfg)
     if h > cfg.num_heads:
+        first = 0
+        if p["wq"].shape[-2] < h:
+            if dist is None:
+                raise ValueError("a shard of the query heads needs dist=")
+            first = local_heads(cfg, dist)[0]
+        live = min(max(cfg.num_heads - first, 0), p["wq"].shape[-2])
         with torch.no_grad():
-            p["wq"][..., cfg.num_heads:, :].zero_()
-            p["wo"][..., cfg.num_heads:, :, :].zero_()
+            p["wq"][..., live:, :].zero_()
+            p["wo"][..., live:, :, :].zero_()
 
 
 def attn_param_specs(cfg, cross: bool = False) -> dict:

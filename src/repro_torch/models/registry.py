@@ -1,11 +1,12 @@
 """Model registry (port of ``repro/models/registry.py``): family ->
-implementation module and the generic entry points the training loop
-and the serving path call. The dense, MoE and ``vlm`` families run
+implementation module and the generic entry points the training loop and
+the serving path call. The dense, MoE and ``vlm`` families run
 ``models/transformer.py``, ``ssm`` runs ``models/rwkv6.py``, ``hybrid``
-``models/zamba.py`` and ``audio`` ``models/whisper.py``. The serving
-entry points take ``dist=`` (tensor-parallel serving, the transformer's
-dense GLU family only) and hand it on only when it is set, so the other
-families' functions never see it."""
+``models/zamba.py`` and ``audio`` ``models/whisper.py``. The entry
+points take ``dist=`` (tensor-parallel serving and the sharded train
+step: the transformer's families and whisper) and hand it on only when
+it is set; the recurrent families' modules refuse it themselves (ROADMAP
+§1 item 4)."""
 from __future__ import annotations
 
 import math
@@ -94,11 +95,13 @@ def init_cache(cfg, batch, max_len, *, dist=None, **kw):
                                       **_dist_kw(kw, dist))
 
 
-def abstract_cache(cfg, batch, max_len, **kw):
+def abstract_cache(cfg, batch, max_len, *, dist=None, **kw):
     """Shapes and dtypes of the decode cache (no allocation): a
     transformer's KV cache, the recurrent families' state, whisper's
-    self-attention cache with its encoder memory."""
-    return module_for(cfg).abstract_cache(cfg, batch, max_len, **kw)
+    self-attention cache with its encoder memory (the rank's kv heads
+    under ``dist``)."""
+    return module_for(cfg).abstract_cache(cfg, batch, max_len,
+                                          **_dist_kw(kw, dist))
 
 
 def decode_step(cfg, params, cache, tokens, pos, *, dist=None, **kw):

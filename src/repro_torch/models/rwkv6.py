@@ -29,6 +29,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.core import sparse_mlp as sm
+from repro_torch.distributed.context import refuse_dist
 from repro_torch.models.layers import layernorm
 from repro_torch.models.linear_scan import (chunked_linear_attention,
                                             recurrent_step)
@@ -187,9 +188,10 @@ def _layer(cfg, p_l, x, m_l):
     return x + channel_mix(cfg, p_l["mlp"], h, masks=m_l)[0]
 
 
-def forward(cfg, params, tokens, *, masks=None, **_):
+def forward(cfg, params, tokens, *, masks=None, dist=None, **_):
     """Training forward: tokens (B,S) -> (logits (B,S,V) f32, 0.0). With
     ``cfg.remat`` each layer is recomputed in the backward."""
+    refuse_dist(dist, "rwkv6 (ssm)")
     from repro_torch.models.transformer import (_layer_masks, _unbind,
                                                 logits_from_hidden)
     x = _embed(cfg, params, tokens)
@@ -231,10 +233,11 @@ def abstract_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16):
             "x_cmix": AbstractParam((n, batch, d), dtype)}
 
 
-def decode_step(cfg, params, cache, tokens, pos, **_):
+def decode_step(cfg, params, cache, tokens, pos, *, dist=None, **_):
     """One token through every layer's recurrence. tokens (B,1); ``pos``
     does not enter (the state carries the position). Returns (logits
     (B,1,V) f32, cache), the cache updated in place."""
+    refuse_dist(dist, "rwkv6 (ssm)")
     from repro_torch.models.transformer import _layer_view, logits_from_hidden
     x = _embed(cfg, params, tokens)
     st, xt, xc = cache["state"], cache["x_tmix"], cache["x_cmix"]

@@ -18,21 +18,26 @@ keeping what ``layers.remat_policy`` names): this changes memory, not
 numbers. The KV
 caches are updated in place (models/attention.py).
 
-Tensor-parallel serving (``dist=``, a ``distributed.context.DistContext``;
-the dense GLU and MoE families): every rank holds its shard of the params
+Tensor-parallel serving (``dist=``, a
+``distributed.context.DistContext``; the dense family with either MLP,
+the VLM and the MoE family; whisper reuses these pieces,
+``models/whisper.py``): every rank holds its shard of the params
 (``serving/export.py::shard_params``) and runs the same forward on the
 replicated residual stream. The embedding is vocab-sharded (a masked
-local lookup, then an all-reduce); attention computes the rank's query
-heads and the kv heads they read (``attention.local_heads``), and its
-row-parallel ``wo`` is followed by an all-reduce; the MLP is
-``sparse_mlp.glu_mlp``'s tensor-parallel path, or an MoE layer's expert
-parallel one (``moe.moe_forward(axis_name=dist)``: every rank routes the
-whole stream, computes its E/tp experts and the replicated shared
-experts, one all-reduce of the experts' partial sums); the logits come out
-vocab-sharded (each rank's slice of the vocabulary, in rank order), so
-a caller reduces them with ``DistContext.vocab_argmax`` or gathers them
-with ``all_gather``. A cache built with ``dist=`` holds the rank's kv
-heads only.
+local lookup, then an all-reduce; replicated where the vocabulary does
+not divide the model axis, GPT-2's 50,257); attention computes the
+rank's query heads and the kv heads they read
+(``attention.local_heads``; every head on every rank where they do not
+divide it, GPT-2 XL's 25), and its row-parallel ``wo`` is followed by an
+all-reduce; the MLP is ``sparse_mlp.glu_mlp``'s or ``mlp2``'s
+tensor-parallel path (``b_out`` added once, after the sum), or an MoE
+layer's expert parallel one (``moe.moe_forward(axis_name=dist)``: every
+rank routes the whole stream, computes its E/tp experts and the
+replicated shared experts, one all-reduce of the experts' partial sums);
+the logits come out vocab-sharded (each rank's slice of the vocabulary,
+in rank order), so a caller reduces them with
+``DistContext.vocab_argmax`` or gathers them with ``all_gather``. A
+cache built with ``dist=`` holds the rank's kv heads only.
 
 The training forward (``forward`` with ``masks=`` and ``dist=``, the
 sharded train step) runs the same layout through the conjugate pairs of
@@ -51,8 +56,10 @@ is this rank's S shard. The embedding reduce-scatters where it
 all-reduces; each norm acts on the shard, which ``gather_from_seq``
 makes whole along S before attention, the MLP and the head (RoPE sees
 the gathered sequence's positions); ``wo`` and the down projection
-reduce-scatter where they all-reduce. The cache steps keep the
-replicated stream, as the reference's do.
+reduce-scatter where they all-reduce. A VLM's patches land on the
+positions [0, num_patches) of the whole sequence, in whichever shards
+hold them. The cache steps keep the replicated stream, as the
+reference's do.
 """
 from __future__ import annotations
 
@@ -146,12 +153,13 @@ def param_specs(cfg) -> dict:
     return specs
 
 
-def zero_padded_heads(cfg, params) -> None:
+def zero_padded_heads(cfg, params, dist=None) -> None:
     """Zero the padded query heads of every layer stack, in place
-    (``attention.zero_padded_heads``)."""
+    (``attention.zero_padded_heads``; ``params`` this rank's shard under
+    ``dist``)."""
     for stack in ("layers", "layers_local", "layers_global"):
         if stack in params:
-            attn.zero_padded_heads(cfg, params[stack]["attn"])
+            attn.zero_padded_heads(cfg, params[stack]["attn"], dist)
 
 
 def sparse_paths(cfg) -> list[str]:
@@ -213,25 +221,23 @@ def _layer_masks(masks: dict | None, stack: str) -> dict | None:
 
 def mlp_forward(cfg, p, x, masks=None, dist=None, seq=False):
     """-> (MLP output, aux loss: the MoE layer's, else 0.0). Under
-    ``dist`` the GLU is tensor-parallel and the MoE layer expert-parallel
-    (the reference's ``_moe_shardmap``), their output replicated, or with
-    ``seq`` this rank's S shard, as their input is."""
+    ``dist`` the GLU and the two-matrix MLP are tensor-parallel and the
+    MoE layer expert-parallel (the reference's ``_moe_shardmap``), their
+    output replicated, or with ``seq`` this rank's S shard, as their
+    input is."""
     if dist is not None and cfg.is_moe:
         return moe_mod.moe_forward(cfg, p, x, masks=masks, axis_name=dist,
                                    seq=seq)
-    if dist is not None:
-        return sm.glu_mlp(x, p["w_gate"], p["w_up"], p["w_down"],
-                          act=cfg.mlp_act, masks=masks, spec=cfg.blast,
-                          dist=dist, d_ff=cfg.d_ff, seq=seq), 0.0
     if cfg.is_moe:
         return moe_mod.moe_forward(cfg, p, x, masks=masks)
+    tp = dict(dist=dist, d_ff=cfg.d_ff, seq=seq) if dist is not None else {}
     if cfg.mlp_kind == "glu":
         y = sm.glu_mlp(x, p["w_gate"], p["w_up"], p["w_down"],
-                       act=cfg.mlp_act, masks=masks, spec=cfg.blast)
+                       act=cfg.mlp_act, masks=masks, spec=cfg.blast, **tp)
     else:
         y = sm.mlp2(x, p["w_in"], p["w_out"], p.get("b_in"),
                     p.get("b_out"), act=cfg.mlp_act, masks=masks,
-                    spec=cfg.blast)
+                    spec=cfg.blast, **tp)
     return y, 0.0
 
 
@@ -244,17 +250,27 @@ def _heads_out(cfg, out, dist, seq=False):
     return dist.from_parallel(out, dist.shards(attn.eff_heads(cfg)[0]), seq)
 
 
+def _attention(cfg, p, h, positions, dist=None, seq=False, **kw):
+    """Full-sequence attention (``attention.multihead_attention``, ``kw``
+    its options) of the normed stream ``h`` on this rank's heads
+    (``attention.shard_local``), its input gathered along S and its
+    output summed over the model axis (reduce-scattered to the S shard
+    under ``seq``, ``_heads_out``)."""
+    if dist is not None:
+        h = dist.to_parallel(h, dist.shards(attn.eff_heads(cfg)[0]), seq)
+    a = attn.multihead_attention(cfg, attn.shard_local(cfg, p, dist), h,
+                                 positions, **kw)[0]
+    return _heads_out(cfg, a, dist, seq)
+
+
 def _block(cfg, p, x, positions, masks, window, dist=None, seq=False):
     """One pre-norm transformer block (full causal attention) -> (x,
     aux). With ``seq`` the stream ``x`` is this rank's S shard: each norm
     acts on the shard, whose result is gathered along S before attention
     and before the MLP, and their outputs come back reduce-scattered."""
     h = norm(cfg.norm_kind, x, p["ln_attn_scale"], p.get("ln_attn_bias"))
-    if dist is not None:
-        h = dist.to_parallel(h, dist.shards(attn.eff_heads(cfg)[0]), seq)
-    a = attn.multihead_attention(cfg, attn.shard_local(cfg, p["attn"], dist),
-                                 h, positions, causal=True, window=window)[0]
-    x = x + _heads_out(cfg, a, dist, seq)
+    x = x + _attention(cfg, p["attn"], h, positions, dist, seq,
+                       causal=True, window=window)
     h = norm(cfg.norm_kind, x, p["ln_mlp_scale"], p.get("ln_mlp_bias"))
     m, aux = mlp_forward(cfg, p["mlp"], h, masks, dist=dist, seq=seq)
     return x + m, aux
@@ -309,7 +325,8 @@ def embed_inputs(cfg, params, tokens, patch_embeds=None, dist=None,
                  seq=False):
     """Token embeddings (B,S,D) in the compute dtype; with
     ``patch_embeds`` (B, num_patches, D) and a config that has patches,
-    the first ``num_patches`` positions are the patches instead. Under
+    the first ``num_patches`` positions are the patches instead (under
+    ``seq`` those of them that fall in this rank's S shard). Under
     ``dist`` with a vocab-sharded table each rank looks up the tokens in
     its slice, zeros the rest, and the all-reduce sums in the one rank's
     row that holds each token (exact). With ``seq`` (sequence
@@ -330,8 +347,13 @@ def embed_inputs(cfg, params, tokens, patch_embeds=None, dist=None,
     if cfg.scale_embeddings:
         x = x * math.sqrt(cfg.d_model)
     if patch_embeds is not None and cfg.num_patches:
-        x = torch.cat([patch_embeds.to(x.dtype), x[:, cfg.num_patches:]],
-                      dim=1)
+        # the patches hold positions [0, num_patches) of the whole
+        # sequence; under ``seq`` this shard starts at lo
+        lo = dist.model_rank * x.shape[1] if seq else 0
+        k = min(max(cfg.num_patches - lo, 0), x.shape[1])
+        if k:
+            x = torch.cat([patch_embeds[:, lo:lo + k].to(x.dtype),
+                           x[:, k:]], dim=1)
     return x
 
 
@@ -358,11 +380,13 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def abstract_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16):
-    """Shapes and dtypes of ``init_cache``'s K and V (no allocation)."""
+def abstract_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
+                   dist=None):
+    """Shapes and dtypes of ``init_cache``'s K and V (no allocation; KV
+    the rank's kv heads under ``dist``)."""
     from repro_torch.models.params import AbstractParam
     ns, per = n_stacks(cfg)
-    _, kv = attn.eff_heads(cfg)
+    kv = attn.local_heads(cfg, dist)[3]
     shape = (ns * per, batch, max_len, kv, cfg.head_dim)
     return {"k": AbstractParam(shape, dtype), "v": AbstractParam(shape, dtype)}
 

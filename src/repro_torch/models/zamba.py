@@ -33,6 +33,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.core import sparse_mlp as sm
+from repro_torch.distributed.context import refuse_dist
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import norm, rmsnorm
 from repro_torch.models.linear_scan import chunked_ssd, ssd_recurrent_step
@@ -208,10 +209,11 @@ def _mamba_layer(cfg, p_l, x):
     return x + mamba_mixer(cfg, p_l, h)[0]
 
 
-def forward(cfg, params, tokens, *, masks=None, **_):
+def forward(cfg, params, tokens, *, masks=None, dist=None, **_):
     """Training forward: tokens (B,S) -> (logits (B,S,V) f32, 0.0). With
     ``cfg.remat`` each Mamba layer and each application of the shared
     block is recomputed in the backward."""
+    refuse_dist(dist, "zamba (hybrid)")
     from repro_torch.models.transformer import _unbind, logits_from_hidden
     b, s = tokens.shape
     x = _embed(cfg, params, tokens)
@@ -270,11 +272,12 @@ def abstract_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16):
             "v": AbstractParam(kv_shape, dtype)}
 
 
-def decode_step(cfg, params, cache, tokens, pos, **_):
+def decode_step(cfg, params, cache, tokens, pos, *, dist=None, **_):
     """One decode step: each application of the shared block (over its own
     KV cache, the new token at slot ``pos``) followed by its span of Mamba
     layers, the last span shorter when ``attn_every`` does not divide the
     depth. Returns (logits (B,1,V) f32, cache), updated in place."""
+    refuse_dist(dist, "zamba (hybrid)")
     from repro_torch.models.transformer import _layer_view, logits_from_hidden
     x = _embed(cfg, params, tokens)
     apps = _app_layers(cfg)

@@ -83,8 +83,9 @@ each call's host read (``.cpu()``), so a traced run syncs exactly as an
 untraced one.
 
 Tensor-parallel serving (``dist=``, a ``distributed.context.DistContext``
-over a ``model`` axis; the dense GLU family, and the MoE family with its
-experts split over the axis, ``models/moe.py``): every rank builds its own
+over a ``model`` axis; the dense family, GLU or two-matrix MLP (GPT-2),
+the VLM's text, and the MoE family with its experts split over the
+axis, ``models/moe.py``): every rank builds its own
 engine on its shard of the params (``serving/export.py::shard_params``)
 and a pool of its own kv heads, is handed the same requests in the same
 order, and steps in lockstep. Every host decision is a function of the

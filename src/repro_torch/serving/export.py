@@ -25,6 +25,13 @@ The tensor-parallel pack follows the reference's layout
     blocks anywhere in d_ff, so the layer all-gathers the GLU output
     (M x d_ff, in rank order) before ``bspmm`` and all-reduces
     ``bspmm``'s partial sums (``PackedBCSC.partial``);
+  * the two-matrix MLP (``mlp2``: GPT-2, whisper's two stacks): ``w_in``
+    splits on ``nb`` as gate and up do, with ``b_in`` sliced alike;
+    ``w_out`` is a swapped leaf and splits on ``nnz``; ``b_out`` stays
+    whole and is added once, after the sum (``sparse_mlp._mlp2_tp``).
+    whisper-large-v3 at s = 0.8 (blocks of 128 x 64, d_model x d_ff):
+    ``w_in`` has 80 block-columns, 40 a rank; ``w_out`` keeps 16 of 80
+    blocks in each of its 10 columns, 8 a rank;
   * an MoE layer's expert packs (a leading experts dim): that dim alone
     splits, each rank keeping the E/tp experts it computes, with whole
     visit lists (no padding, not partial), as the reference's
@@ -255,8 +262,10 @@ def shard_params(cfg, params, mesh, rules: dict | None = None):
     """One rank's shard of a serving tree (packed, pruned-dense or
     full) on ``mesh`` (a ``distributed.context.Mesh``): each pack split
     by the layout above (``shard_pack``), every other leaf by
-    ``sharding.spec_for`` over its logical axes. Split leaves are copies,
-    so the full tree can be freed; replicated ones are the given
+    ``sharding.spec_for`` over its logical axes, except that the
+    two-matrix MLP's ``b_in`` splits exactly where its packed ``w_in``'s
+    block-columns do (whole where they do not split). Split leaves are
+    copies, so the full tree can be freed; replicated ones are the given
     tensors."""
     from repro_torch.models import registry
     specs = shd.param_specs_tree(registry.param_specs(cfg), mesh, rules)
@@ -264,8 +273,13 @@ def shard_params(cfg, params, mesh, rules: dict | None = None):
 
     def walk(node, spec, path):
         if isinstance(node, dict):
-            return {k: walk(v, spec[k], f"{path}/{k}" if path else k)
-                    for k, v in node.items()}
+            out = {k: walk(v, spec[k], f"{path}/{k}" if path else k)
+                   for k, v in node.items()}
+            w = node.get("w_in")
+            if isinstance(w, packing.PackedBCSC) and "b_in" in node \
+                    and out["w_in"].nb == w.nb:
+                out["b_in"] = node["b_in"]     # w_in's columns stay whole
+            return out
         if isinstance(node, packing.PackedBCSC):
             return shard_pack(node, path, mesh, sm.get_path(axes, path))
         return shd.shard(node, spec, mesh)

@@ -8,10 +8,12 @@ differ from the engine's, as in the reference), and the recurrent
 chunked prefill, as in the reference): their cache is the per-lane
 recurrent state of ``registry.init_cache``; and whisper (``audio``),
 whose encoder frames fill the cross-attention memory (``prefill_cross``)
-before the prompt is prefilled. ``dist=`` serves the dense GLU family
-tensor-parallel and the MoE family expert-parallel (``serving/step.py``):
-every rank runs this loop on its shard of the params, in lockstep, and
-returns the same tokens.
+before the prompt is prefilled. ``dist=`` serves the dense family (GLU
+or the two-matrix MLP), the VLM's text and whisper tensor-parallel and
+the MoE family expert-parallel (``serving/step.py``): every rank runs
+this loop on its shard of the params, in lockstep, and returns the same
+tokens; whisper's ranks take the same frames and project the cross K/V
+of their own kv heads.
 """
 from __future__ import annotations
 
@@ -47,7 +49,8 @@ def prefill_with_decode(cfg, params, prompts, max_len: int, frames=None,
         if not torch.is_tensor(frames):
             frames = torch.from_numpy(np.asarray(frames))
         cache["ck"], cache["cv"] = whisper.prefill_cross(
-            cfg, params, frames.to(device), dtype=cache["k"].dtype)
+            cfg, params, frames.to(device), dtype=cache["k"].dtype,
+            dist=dist)
     logits = None
     for i in range(plen):
         logits, cache = registry.decode_step(cfg, params, cache,

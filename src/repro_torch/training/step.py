@@ -92,7 +92,10 @@ def loss_fn(cfg, params, masks, batch, teacher_logits=None, kd_alpha=1.0,
             kd_temperature=1.0):
     """The distillation loss (plus an MoE model's aux term) of one batch;
     whisper's forward also takes ``batch["frames"]`` and a VLM's
-    ``batch["patch_embeds"]``. Under ``dist`` the forward is the
+    ``batch["patch_embeds"]`` (under ``dist`` the data rank's rows,
+    ``sharding.slice_batch``, whole on every model rank; under ``sp``
+    each rank places the patches that fall in its S shard). Under
+    ``dist`` the forward is the
     rank's shard and the loss this rank's share of the global mean
     (``count_over_data``; False: of its own rows, the deferred step's);
     ``teacher_logits`` are then the rank's vocab shard where the
@@ -223,8 +226,10 @@ def loss_and_grads(cfg, state: TrainState, batch, dist=None,
     part = None
     if dist is not None and dist.tp > 1:
         from repro_torch.distributed import sharding
+        seq_enc = (dist.seq_split(chunks[0]["frames"])
+                   if cfg.family == "audio" else None)
         part = sharding.partial_flags(cfg, dist.seq_split(
-            tuple(chunks[0]["tokens"].shape) + (cfg.d_model,)))
+            tuple(chunks[0]["tokens"].shape) + (cfg.d_model,)), seq_enc)
     total, loss, aux = None, 0.0, 0.0
     for b, tl in zip(chunks, tls):
         leaves = _leaf_params(state.params)

@@ -22,7 +22,8 @@ watchdog.
     one a caller injects, to scrape it).
 
 Multi-device (``dist=``, a ``DistContext`` on a (data, model) mesh; the
-dense GLU family): every rank runs this loop on its shard of the state
+dense family, GLU or two-matrix MLP, the VLM and whisper with their
+frames or patches in the batch, and the MoE family): every rank runs this loop on its shard of the state
 (``sharding.state_shardings``) with the sharded train step. Batches are
 ``source.batch(step)``, the same global batch as one device's, cut to
 the data rank's rows (``sharding.slice_batch``). A checkpoint gathers

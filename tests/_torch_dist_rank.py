@@ -3,7 +3,9 @@
 the card) and of the sharded training ones (``test_torch_dist_train.py``,
 ``train_scenario`` below: a spec with a ``train`` entry;
 ``test_torch_dist_sp.py``, ``sp_scenario``; ``test_torch_dist_kd.py``,
-``kd_scenario``; ``test_torch_dist_moe.py``, ``ep_scenario``). Imports
+``kd_scenario``; ``test_torch_dist_moe.py``, ``ep_scenario``;
+``test_torch_dist_mlp2.py`` and ``test_torch_dist_audio_vlm.py``,
+``tp_scenario``). Imports
 torch and the port only, never JAX:
 
     python tests/_torch_dist_rank.py SPEC RANK
@@ -19,6 +21,7 @@ the engine's block tables and page accounting after every step, gathers
 the full next-token logits of a few prompts, counts the kernel launches,
 and pickles what it saw to ``rank<RANK>.pkl`` beside the spec.
 """
+import dataclasses
 import os
 import pickle
 import subprocess
@@ -643,6 +646,126 @@ def ep_scenario(t: dict, mesh, rank: int) -> dict:
     return out
 
 
+def _tp_logits(cfg, params, m, dist, masks=None) -> dict:
+    """The training forward of ``m["fwd"]`` (tokens and whisper's frames
+    or a VLM's patches) on this rank's shard: the whole logits (the
+    vocab shards gathered) with ``sp`` off and on."""
+    from repro_torch.models import registry
+    toks, extra = m["fwd"]
+    out = {}
+    with torch.no_grad():
+        for sp in (False, True):
+            d = dataclasses.replace(dist, sp=sp)
+            lg, _ = registry.forward(
+                cfg, params, torch.as_tensor(toks), masks=masks, dist=d,
+                **{k: torch.as_tensor(v) for k, v in extra.items()})
+            if d.shards(cfg.vocab_size):
+                lg = d.all_gather(lg, dim=-1)
+            out[sp] = lg.numpy()
+    return out
+
+
+def _tp_train(cfg, m, opt, dist, counts, grads=False, key="batch") -> dict:
+    """One sharded step of ``cfg`` from the logical ``m["state"]`` on
+    this rank's rows of ``m[key]`` (with its frames or patches): the
+    metrics, the logical params and masks after it, the collectives by
+    kind; with ``grads`` the logical dense gradients too."""
+    from repro_torch import interop
+    from repro_torch.distributed import sharding
+    from repro_torch.training import step as ts
+    shd = sharding.state_shardings(cfg, dist.mesh)
+    st = sharding.shard_state(interop.train_state(m["state"], device="cpu"),
+                              shd)
+    b = sharding.slice_batch({k: torch.as_tensor(v)
+                              for k, v in m[key].items()}, dist)
+    out = {"local_bytes": sharding.count_bytes(st.params)}
+    if grads:
+        _, _, g = ts.loss_and_grads(cfg, st, b, dist)
+        out["grads"] = _np(sharding.gather_tree(g, shd.params))
+    counts.clear()
+    st, metrics = ts.make_train_step(cfg, opt, dist=dist)(st, b)
+    out.update(metrics=_host(metrics), collectives=dict(counts),
+               **_gathered(st, shd))
+    return out
+
+
+def _tp_serve_audio(m, dist, mesh) -> dict:
+    """Whisper on this rank's shard of the packed tree: ``prefill_cross``
+    (the rank's cross K/V) and ``serve_loop.generate(frames=)``
+    streams."""
+    from repro_torch import interop
+    from repro_torch.models import whisper
+    from repro_torch.serving import export, serve_loop
+    cfg, sv = m["cfg"], m["serve"]
+    params = interop.to_torch_shard(sv["params"], cfg, mesh, device="cpu")
+    frames = torch.as_tensor(sv["frames"])
+    with torch.inference_mode():
+        ck, cv = whisper.prefill_cross(cfg, params, frames,
+                                       dtype=torch.float32, dist=dist)
+        toks = serve_loop.generate(cfg, params, sv["equal"],
+                                   max_new_tokens=sv["new"], frames=frames,
+                                   device="cpu", dist=dist)[0]
+    return {"loop": toks, "ck": ck.numpy(), "cv": cv.numpy(),
+            "weight_bytes": export.memory_report(cfg, params)["bytes"]}
+
+
+def tp_scenario(t: dict, mesh, rank: int) -> dict:
+    """Tensor parallelism on 4 ranks for the two-matrix MLP and the vlm
+    and audio families. Ranks 0-1 and 2-3 are two (data 1, model 2)
+    meshes, one per model of ``t["pairs"]``: each runs the training
+    forward of its dense shard (``_tp_logits``, ``sp`` off and on),
+    serves its packed shard (whisper: ``_tp_serve_audio``; otherwise
+    ``serve_model``: ``serve_loop.generate`` and the paged engine), and
+    takes one train step with ``sp`` on (with the gradients) and off.
+    Then all four ranks, ``mesh`` (data 2, model 2), take one step of
+    each model on its ``batch2`` (else its ``batch``), ``sp`` on and
+    off, and with ``t["loop"]`` (a model name)
+    run ``train_loop.train`` on that model's token source."""
+    import torch.distributed as tdist
+
+    from repro_torch import interop
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.context import DistContext, make_mesh
+    from repro_torch.training import train_loop
+    counts = count_collectives()
+    pairs = [make_mesh((1, 2), ("data", "model"), ranks=[0, 1]),
+             make_mesh((1, 2), ("data", "model"), ranks=[2, 3])]
+    pair = 0 if pairs[0] is not None else 1
+    m2 = pairs[pair]
+    name = t["pairs"][pair]
+    m = t["models"][name]
+    cfg = m["cfg"]
+    dist = DistContext(m2)
+    dense = sharding.shard_tree(
+        interop.to_torch(m["state"].params, device="cpu"),
+        sharding.state_shardings(cfg, m2).params)
+    out = {"name": name, "model_rank": dist.model_rank,
+           "logits": _tp_logits(cfg, dense, m, dist)}
+    if cfg.family == "audio":
+        out["serve"] = _tp_serve_audio(m, dist, m2)
+    else:
+        out["serve"] = serve_model(m["serve"], dist, m2, "cpu")
+    out["m2"] = {sp: _tp_train(cfg, m, t["opt"], DistContext(m2, sp=sp),
+                               counts, grads=sp) for sp in (True, False)}
+    tdist.barrier()
+    models = t["models"]
+    out["d2m2"] = {n: {sp: _tp_train(
+        models[n]["cfg"], models[n], t["opt"], DistContext(mesh, sp=sp),
+        counts, key="batch2" if "batch2" in models[n] else "batch")
+        for sp in (True, False)} for n in t["pairs"]}
+    if t.get("loop"):
+        lm = t["models"][t["loop"]]
+        _, hist = train_loop.train(
+            lm["cfg"], t["opt"], t["source"],
+            train_loop.TrainLoopConfig(total_steps=2, log_every=1),
+            state=sharding.shard_state(
+                interop.train_state(lm["state"], device="cpu"),
+                sharding.state_shardings(lm["cfg"], mesh)),
+            device="cpu", dist=DistContext(mesh), log_fn=lambda e: None)
+        out["loop"] = [h["loss"] for h in hist if "loss" in h]
+    return out
+
+
 def main(spec_path: str, rank: int) -> None:
     torch.set_num_threads(1)
     from repro_torch.distributed.context import (DistContext,
@@ -655,12 +778,13 @@ def main(spec_path: str, rank: int) -> None:
         torch.cuda.set_device(0)
     init_process_group(spec["dir"], rank, spec["world"])
     try:
-        scenario = next((k for k in ("train", "sp", "kd", "ep")
+        scenario = next((k for k in ("train", "sp", "kd", "ep", "tp")
                          if k in spec), None)
         if scenario is not None:
             t = spec[scenario]
             run = {"train": train_scenario, "sp": sp_scenario,
-                   "kd": kd_scenario, "ep": ep_scenario}[scenario]
+                   "kd": kd_scenario, "ep": ep_scenario,
+                   "tp": tp_scenario}[scenario]
             out = run(t, make_mesh(t["mesh"], ("data", "model")), rank)
         else:
             mesh = make_mesh((1, spec["world"]), ("data", "model"))
@@ -680,8 +804,8 @@ def start(directory: str, world: int, models: dict | None = None,
     """Write the spec into ``directory`` (a fresh one: it holds the gloo
     store) and start ``world`` rank processes; returns them. ``train``
     runs the ``scenario`` ('train': ``train_scenario``, 'sp':
-    ``sp_scenario``, 'kd': ``kd_scenario``, 'ep': ``ep_scenario``)
-    instead of serving ``models``."""
+    ``sp_scenario``, 'kd': ``kd_scenario``, 'ep': ``ep_scenario``, 'tp':
+    ``tp_scenario``) instead of serving ``models``."""
     path = os.path.join(directory, "spec.pkl")
     spec = {"dir": directory, "world": world, "device": device,
             "models": models or {}}

@@ -327,11 +327,12 @@ def test_other_families_refuse_dist(family):
     from repro_torch.serving import engine
     prompts = np.ones((1, 4), np.int32)
     # the MoE family serves expert-parallel where its experts split
-    # evenly over the model axis: 6 experts over 4 do not
+    # evenly over the model axis: 6 experts over 4 do not; the two-matrix
+    # MLP serves tensor-parallel, but not over a data axis of 2
     cfg = {"mlp2": port_cfg(jpm.GPT2_SMALL_SMOKE),
            "moe": reduced(get_config("deepseek-moe-16b"), num_experts=6),
            "ssm": reduced(get_config("rwkv6-3b"))}[family]
-    shape = (1, 4) if family == "moe" else (1, 2)
+    shape = {"mlp2": (2, 2), "moe": (1, 4)}.get(family, (1, 2))
     params = _full_params(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP §1 item 4"):
         tloop.generate(cfg, params, prompts, max_new_tokens=2,

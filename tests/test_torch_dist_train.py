@@ -402,14 +402,22 @@ def test_other_families_refuse_to_train_sharded(arch):
         # evenly over the model axis: 6 experts over 4 do not
         cfg, shape = dataclasses.replace(cfg, num_experts=6), (1, 4)
     _, topt = _opts()
-    for build in (lambda: ts.make_train_step(cfg, topt, dist=_dist(shape)),
-                  lambda: deferred.make_train_step_deferred(cfg, topt,
-                                                            _dist(shape)),
-                  lambda: ts.init_state(cfg, 0, "cpu", dist=_dist(shape)),
-                  lambda: train_loop.train(
-                      cfg, topt, Src(cfg.vocab_size, 8, 4),
-                      train_loop.TrainLoopConfig(total_steps=1),
-                      device="cpu", dist=_dist(shape))):
+    builds = [lambda: ts.make_train_step(cfg, topt, dist=_dist(shape)),
+              lambda: deferred.make_train_step_deferred(cfg, topt,
+                                                        _dist(shape)),
+              lambda: ts.init_state(cfg, 0, "cpu", dist=_dist(shape))]
+    if cfg.family in ("dense", "vlm", "audio"):
+        # the two-matrix MLP, the VLM and whisper train sharded: the
+        # step, the deferred step and the sharded state build (the loop
+        # would reach a collective, and this mesh starts no group)
+        for build in builds:
+            build()
+        return
+    builds.append(lambda: train_loop.train(
+        cfg, topt, Src(cfg.vocab_size, 8, 4),
+        train_loop.TrainLoopConfig(total_steps=1), device="cpu",
+        dist=_dist(shape)))
+    for build in builds:
         with pytest.raises(NotImplementedError, match="ROADMAP §1 item 4"):
             build()
 
