@@ -331,6 +331,38 @@ TP_AV_ENGINE = dict(max_batch=ARCH_BATCH, max_len=TP_AV_PROMPT + TP_AV_TOKENS,
                     page_size=16, prefill_chunk=8, slab_k=8)
 TP_AV_DIR = os.path.join(ROOT, "build", "chip_tp_av")
 TP_AV_WEIGHTS = os.path.join(ROOT, "build", "chip_tp_av_weights")
+# serve_ssm_tp: rwkv6-3b and zamba2-1.2b whole, served at a model axis of
+# SSM_TP_SIZE ranks sharing card 0 over gloo (their store and the trees
+# serve_ssm hands them under the gitignored build/), through
+# serve_loop.generate on serve_tp_av's short traffic (ARCH_BATCH lanes of
+# TP_AV_PROMPT prompt tokens, TP_AV_TOKENS new)
+SSM_TP_SIZE = 2
+# serve_ssm_tp's passes a model, by activation dtype: "served" is served
+# and its streams held against one device's in that dtype; "logits" is a
+# bf16 pass held by its launches, its all-reduces and its teacher-forced
+# last logits. The random weights make both models' bf16 streams chaotic
+# at full depth (one device's bf16 and f32 last logits differ by 0.92 of
+# their magnitude for rwkv6-3b and 0.26 for zamba2-1.2b on an H100, and
+# zamba's bf16 streams at model 2 part from one device's at a top-2
+# margin of 0.39, above the 0.27 near-tie bound), so both serve f32
+# activations on the bf16 weights. f32 activations take the kernels' FMA
+# loops, bf16 their mma path
+SSM_TP_PASSES = {a: {"served": "float32", "logits": "bfloat16"}
+                 for a in ("rwkv6-3b", "zamba2-1.2b")}
+SSM_TP_DIR = os.path.join(ROOT, "build", "chip_ssm_tp")
+SSM_TP_WEIGHTS = os.path.join(ROOT, "build", "chip_ssm_tp_weights")
+# serve_dp: Llama-3.2-1B whole at (data, model) = DP_SHAPE, 4 ranks sharing
+# card 0 over gloo, loading the sealed split artifact beside serve_swap;
+# the engine serves serve_tp's 12 requests with DP_TOKENS new tokens (64
+# in serve_tp) and serve_loop.generate its 4 oracle prompts cut to
+# DP_LOOP_LEN tokens with DP_LOOP_TOKENS new (64 and 32 there). Half the
+# traffic is the cut the time budget forces: on an H100 the ranks alone
+# take 45.8 / 70.7 / 102.9 s from their start to the join at 16 / 32 /
+# 64 new tokens, and the one-device oracle after the join 11.0 / 20.9 /
+# 31.8 s, against ~100 s beside serve_swap and serve_tp (a gloo collective
+# on one card takes ~4.5 ms, and a Llama step makes ~50)
+DP_SHAPE, DP_TOKENS, DP_LOOP_LEN, DP_LOOP_TOKENS = (2, 2), 32, 32, 16
+DP_DIR = os.path.join(ROOT, "build", "chip_dp")
 # train_tp: (a) the first TRAIN_TP_STEPS steps of the train phase's run
 # (its refreshes at 0 and TRAIN_STEP_SIZE) at a model axis of 2; (b)
 # TRAIN_DP_STEPS deferred int8 steps from step TRAIN_DP_START (a
@@ -4945,19 +4977,39 @@ def phase_serve_ssm(torch, card):
     and ``w_out``'s 16 x 128 blocks; zamba: the split and joint GLU and
     ``bspmm`` on the unstacked shared MLP), the chunked forward against
     the decode steps (``ssm_scan``) and the packed export against the
-    pruned-dense one (``ssm_parity``). Returns the serving runs'
-    counts."""
+    pruned-dense one (``ssm_parity``). Each model also runs
+    ``serve_ssm_tp``'s short traffic on one device (its ranks' oracle,
+    ``_ssm_short``) and hands its packed tree to them. Returns (the
+    serving runs' counts, the hand-offs by arch)."""
     import repro_torch.launch.serve as launcher
     from repro_torch.configs import get_config
     from repro_torch.models import registry
     from repro_torch.models import transformer
     t_phase = time.monotonic()
     timer = Timer(torch)
-    served = []
+    served, ssmtp = [], {}
+    saver = concurrent.futures.ThreadPoolExecutor(1)
     for arch in SSM_RUNS:
         full = get_config(arch)
-        res, counts, peaks, wall = _launcher_run(torch, arch)
+        keep = {}
+        res, counts, peaks, wall = _launcher_run(torch, arch, keep)
         served.append(counts)
+        # serve_ssm_tp's oracle: one device's run of its short traffic
+        # in the served pass's dtype, then the packed tree handed to its
+        # ranks
+        short = np.random.default_rng(SEED + 31).integers(
+            0, full.vocab_size, (ARCH_BATCH, TP_AV_PROMPT)).astype(np.int32)
+        f32 = dataclasses.replace(full, compute_dtype="float32")
+        served_cfg = dataclasses.replace(
+            full, compute_dtype=SSM_TP_PASSES[arch]["served"])
+        _reset_counts()
+        toks, st = _ssm_short(torch, served_cfg, keep["packed"], short)
+        served.append(_read_counts())
+        drift = _bf16_drift(torch, full, f32, keep["packed"], short)
+        ssmtp[arch] = _tp_av_handoff(
+            torch, served_cfg, keep.pop("packed"), {"prompts": short}, saver,
+            directory=SSM_TP_WEIGHTS, streams=toks,
+            single_tok_per_s=st["tok_per_s"], bf16_drift=drift)
         tokens, stats = res["tokens"], res["stats"]
         emit(phase="serve_ssm", arch=arch, family=full.family,
              layers=full.num_layers, reduced=None,
@@ -5025,8 +5077,9 @@ def phase_serve_ssm(torch, card):
                       for k, v in kern.items()})
         del params, masks, packed, dense, kern
     torch.cuda.empty_cache()
+    saver.shutdown(wait=False)
     emit(phase="serve_ssm_total", seconds=time.monotonic() - t_phase)
-    return served
+    return served, ssmtp
 
 
 def _whisper_serve(torch, full, saver):
@@ -5135,22 +5188,22 @@ def _whisper_short(torch, cfg, params, prompts, frames, dist=None):
     (generated tokens (B, TP_AV_TOKENS), those logits (B, V) f32 on the
     host, the stats)."""
     from repro_torch.serving import serve_loop
-    seen, orig = {}, serve_loop.prefill_with_decode
+    seen, orig = {}, serve_loop._prefill
 
     def keep(*a, **kw):
-        last, cache = orig(*a, **kw)
-        whole = (dist.all_gather(last, dim=-1) if dist is not None
-                 and dist.shards(cfg.vocab_size) else last)
+        out = orig(*a, **kw)          # (the rows' last logits, cache, ...)
+        whole = (dist.all_gather(out[0], dim=-1) if dist is not None
+                 and dist.shards(cfg.vocab_size) else out[0])
         seen["last"] = whole.float().cpu()
-        return last, cache
+        return out
 
-    serve_loop.prefill_with_decode = keep
+    serve_loop._prefill = keep
     try:
         toks, st = serve_loop.generate(
             cfg, params, prompts, max_new_tokens=TP_AV_TOKENS,
             frames=frames, device=DEVICE, dist=dist)
     finally:
-        serve_loop.prefill_with_decode = orig
+        serve_loop._prefill = orig
     return toks[:, prompts.shape[1]:], seen["last"], st
 
 
@@ -5181,16 +5234,18 @@ def _tp_av_engine(torch, cfg, params, prompts, dist=None):
     return out
 
 
-def _tp_av_handoff(torch, cfg, packed, inputs, saver, **single):
-    """Hand one packed tree to ``serve_tp_av``'s ranks: a host copy (the
-    card's copy is the caller's to free), written with the ranks' inputs
-    to ``TP_AV_WEIGHTS/<name>.pt`` by ``saver``'s thread while the script
-    goes on. Returns what the join needs (``single``: the one-device
+def _tp_av_handoff(torch, cfg, packed, inputs, saver,
+                   directory=TP_AV_WEIGHTS, **single):
+    """Hand one packed tree to ``serve_tp_av``'s ranks (or those whose
+    files are in ``directory``): a host copy (the card's copy is the
+    caller's to free), written with the ranks' inputs to
+    ``<directory>/<name>.pt`` by ``saver``'s thread while the script goes
+    on. Returns what the join needs (``single``: the one-device
     readings)."""
     t0 = time.monotonic()
     host = _tree_to(packed, "cpu")
-    os.makedirs(TP_AV_WEIGHTS, exist_ok=True)
-    path = os.path.join(TP_AV_WEIGHTS, f"{cfg.name}.pt")
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, f"{cfg.name}.pt")
     return dict(cfg=cfg, host=host, inputs=inputs,
                 to_host_s=time.monotonic() - t0,
                 saved=saver.submit(
@@ -5735,6 +5790,568 @@ def phase_serve_tp_av(torch, card, tpav, procs):
     return counts
 
 
+def _ssm_short(torch, cfg, params, prompts, dist=None):
+    """``serve_loop.generate`` of ``TP_AV_TOKENS`` new tokens on
+    ``prompts`` (B, TP_AV_PROMPT). Returns (the generated tokens (B,
+    TP_AV_TOKENS), the stats)."""
+    from repro_torch.serving import serve_loop
+    toks, st = serve_loop.generate(cfg, params, prompts,
+                                   max_new_tokens=TP_AV_TOKENS,
+                                   device=DEVICE, dist=dist)
+    return toks[:, prompts.shape[1]:], st
+
+
+def _bf16_drift(torch, cfg, f32, packed, prompts):
+    """How far one device's bf16 activations move the packed model: the
+    prompts' last logits through the decode step with ``cfg``'s bf16
+    against ``f32``'s f32 activations, as max abs difference and over
+    the f32 logits' magnitude."""
+    from repro_torch.serving import serve_loop
+    lb, _ = serve_loop.prefill_with_decode(cfg, packed, prompts,
+                                           prompts.shape[1], device=DEVICE)
+    lf, _ = serve_loop.prefill_with_decode(f32, packed, prompts,
+                                           prompts.shape[1], device=DEVICE)
+    err, mag = float((lb.float() - lf).abs().max()), float(lf.abs().max())
+    return {"max_abs": err, "over_magnitude": err / mag, "f32_magnitude": mag}
+
+
+def _kernel_variant(torch, pack, dtype):
+    """The ``bspmm`` kernel and split that ``pack`` takes at ARCH_M rows
+    of ``dtype`` activations (``launch_plan``: "fma" or an mma one)."""
+    from repro_torch.kernels import bspmm
+    x = torch.zeros(ARCH_M, pack.kb * pack.blocks.shape[-2], dtype=dtype,
+                    device=pack.blocks.device)
+    return bspmm.launch_plan(x, pack).describe()
+
+
+def _ssm_tp_rank(rank, world, runs):
+    """One rank of ``serve_ssm_tp`` (a spawned process, gloo on card 0):
+    start the group from the ``file://`` store in ``SSM_TP_DIR``; per
+    model wait for the tree ``serve_ssm`` hands over, load it
+    memory-mapped, cut this rank's shard (``export.shard_params``: the
+    time mix's heads and zamba's Mamba heads, its ``in_proj`` and conv
+    cut by meaning, the channel mix and shared MLP packs as mlp2's and the
+    GLU's), move it to the card and serve the short traffic through
+    ``serve_loop.generate(dist=)`` in each pass of ``SSM_TP_PASSES``.
+    The launch counters and the collectives are reset just before and
+    read just after each run; after a "logits" pass, the last logits of
+    the prompts followed by its own streams (teacher-forced through
+    ``prefill_with_decode``, the vocabulary gathered whole). Pickles what
+    it saw to ``rank<r>.pkl`` in ``SSM_TP_DIR``."""
+    import pickle
+    _die_with_parent()
+
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.distributed.context import (DistContext,
+                                                 init_process_group,
+                                                 make_mesh)
+    from repro_torch.models import transformer
+    from repro_torch.serving import export, serve_loop
+    torch.cuda.set_device(0)
+    init_process_group(SSM_TP_DIR, rank, world, "gloo")
+    coll = _count_collectives(tdist)
+    out = {"rank": rank, "device": torch.cuda.current_device(), "runs": {}}
+    try:
+        mesh = make_mesh((1, world), ("data", "model"))
+        dist = DistContext(mesh)
+        for arch, r in runs.items():
+            cfg = r["cfg"]
+            deadline = time.monotonic() + TP_TIMEOUT_S
+            while not os.path.exists(r["path"]):    # being written
+                check(time.monotonic() < deadline,
+                      f"serve_ssm_tp: {r['path']} was never written")
+                time.sleep(0.05)
+            t0 = time.monotonic()
+            saved = torch.load(r["path"], map_location="cpu", mmap=True,
+                               weights_only=False)
+            local = _tree_to(export.shard_params(cfg, saved["params"], mesh),
+                             DEVICE)
+            prompts = saved["inputs"]["prompts"]
+            del saved
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            a = {"shard_s": time.monotonic() - t0,
+                 "weight_bytes": export.memory_report(cfg, local)["bytes"]}
+            pack = (local["shared"]["mlp"]["w_down"]
+                    if cfg.family == "hybrid" else transformer._layer_view(
+                        local["layers"], 0)["mlp"]["w_out"])
+            for kind, dtype in r["passes"].items():
+                pcfg = dataclasses.replace(cfg, compute_dtype=dtype)
+                _reset_counts()
+                coll.clear()
+                t0 = time.monotonic()
+                toks, st = _ssm_short(torch, pcfg, local, prompts, dist)
+                a[kind] = dict(
+                    dtype=dtype, streams=toks, wall_s=time.monotonic() - t0,
+                    launches=_read_counts(),
+                    collectives={k: dict(v) for k, v in coll.items()},
+                    tok_per_s=st["tok_per_s"],
+                    variant=_kernel_variant(torch, pack, getattr(torch,
+                                                                 dtype)))
+                if kind == "logits":
+                    seqs = np.concatenate([prompts, toks[:, :-1]], axis=1)
+                    last, _ = serve_loop.prefill_with_decode(
+                        pcfg, local, seqs, seqs.shape[1], device=DEVICE,
+                        dist=dist)
+                    if dist.shards(cfg.vocab_size):
+                        last = dist.all_gather(last, dim=-1)
+                    a[kind]["last"] = last.float().cpu()
+            a["peak_bytes"] = torch.cuda.max_memory_allocated()
+            del local
+            torch.cuda.empty_cache()
+            out["runs"][arch] = a
+    finally:
+        tdist.destroy_process_group()
+    with open(os.path.join(SSM_TP_DIR, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def _serve_ssm_tp_start(torch):
+    """Spawn ``serve_ssm_tp``'s ``SSM_TP_SIZE`` ranks (``_ssm_tp_rank``),
+    gloo sharing card 0, each pointed at the files ``serve_ssm`` will
+    write. They start before ``serve_ssm`` and serve beside it and the
+    phases after it, and are joined after ``serve_tp_av``."""
+    from repro_torch.configs import get_config
+    shutil.rmtree(SSM_TP_WEIGHTS, ignore_errors=True)
+    runs = {a: {"cfg": get_config(a), "passes": SSM_TP_PASSES[a],
+                "path": os.path.join(SSM_TP_WEIGHTS, f"{a}.pt")}
+            for a in SSM_RUNS}
+    return _start_ranks(SSM_TP_DIR, _ssm_tp_rank, SSM_TP_SIZE,
+                        (SSM_TP_SIZE, runs))
+
+
+def _ssm_decode_collectives(cfg) -> dict:
+    """The collectives of one ``decode_step`` at a model axis of 2: the
+    embedding's all-reduce; rwkv6 a layer: the time mix's ``w_o``
+    all-reduce, the channel mix's all-gather of its activation and the
+    all-reduce of ``w_out``'s partial sums; zamba a Mamba layer: the
+    gated norm's square-sum all-reduce and ``out_proj``'s, and an
+    application of the shared block: attention's all-reduce, the GLU's
+    all-gather and the down projection's all-reduce."""
+    from repro_torch.models import zamba
+    if cfg.family == "ssm":
+        return {"all_reduce": 1 + 2 * cfg.num_layers,
+                "all_gather": cfg.num_layers}
+    napp = zamba.n_shared_applications(cfg)
+    return {"all_reduce": 1 + 2 * napp + 2 * cfg.num_layers,
+            "all_gather": napp}
+
+
+def phase_serve_ssm_tp(torch, card, ssmtp, procs):
+    """The recurrent families under ``dist=``, whole at full width and
+    depth, served at a model axis of ``SSM_TP_SIZE`` ranks over gloo on
+    one card (which measures no tensor-parallel speed and claims none),
+    each rank holding its shard of the tree ``serve_ssm`` packed:
+    rwkv6-3b (32 layers, 48 heads: 24 a rank, rank 1's 16 live and 8
+    padded; its channel mix splits ``w_in`` on its block-columns and
+    ``w_out`` on its kept blocks) and zamba2-1.2b (38 Mamba2 layers of 64
+    heads, 32 a rank, ``in_proj`` and the conv cut by meaning; the shared
+    block's heads and GLU split), through ``serve_loop.generate(dist=)``
+    on the short traffic of ``TP_AV_*``, in the passes of
+    ``SSM_TP_PASSES``. The served pass takes f32 activations on the
+    packed bf16 weights, here and in the one-device oracle, since the
+    random models at full depth are chaotic under bf16 activations (one
+    device's bf16 and f32 runs of the same weights differ by
+    ``bf16_drift``, printed), so a bf16 sum taken in another order, as
+    the model axis takes it, flips tokens no near-tie bound can tell from
+    a fault; the bf16 pass runs the mma kernels under ``dist=`` too.
+
+    Holds, per rank and pass: ``bspmm`` launched exactly twice a layer
+    call for rwkv6, and the split GLU and ``bspmm`` once an application
+    of the shared block for zamba; the all-reduces exactly those of
+    ``_ssm_decode_collectives`` for every decode step (the all-gathers
+    printed: those plus one for each greedy token); the streams equal
+    across ranks. The served pass's streams equal one device's run of the
+    same traffic in its dtype in ``serve_ssm`` (a first divergence only
+    where one device's top-2 margin is below ``TP_NEAR_TIE`` times the
+    logits tolerance, 2**-5 of their magnitude). A "logits" pass's
+    teacher-forced last logits are equal on every rank and within
+    ``TP_NEAR_TIE`` times one device's bf16 drift on the same prefixes
+    (the largest |bf16 - f32| of its last logits) of one device's bf16.
+    Each rank's weight bytes at most ``TP_BYTES_FRACTION`` of one
+    device's plus the leaves every rank holds whole. Then rwkv6's
+    ``bspmm`` at rank 1's shard-local packs of layer 0 at M = ARCH_M
+    (``tp_kernel`` lines). Returns the ranks' launch counts."""
+    from repro_torch.distributed.context import Mesh
+    from repro_torch.models import transformer, zamba
+    from repro_torch.serving import export, serve_loop
+    t_phase = time.monotonic()
+    ranks = _join_ranks("serve_ssm_tp", SSM_TP_DIR, procs)
+    shutil.rmtree(SSM_TP_WEIGHTS)
+    timer = Timer(torch)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 30)
+    counts = []
+    world = len(ranks)
+    steps = TP_AV_PROMPT + TP_AV_TOKENS - 1
+    for arch, e in ssmtp.items():
+        cfg, host = e["cfg"], e["host"]
+        prompts = e["inputs"]["prompts"]
+        mesh1 = Mesh(("data", "model"), (1, world), 1)
+        full_bytes = export.memory_report(cfg, host)["bytes"]
+        whole = _whole_bytes(cfg, host, mesh1)
+        r0 = ranks[0]["runs"][arch]
+        accepted, on_card = [], {}
+
+        def card_tree():
+            # one device's tree, moved to the card only where needed
+            if not on_card:
+                on_card["p"] = _tree_to(host, DEVICE)
+            return on_card["p"]
+
+        def last_of(u, t):
+            seq = np.concatenate([prompts[u], e["streams"][u][:t]]).astype(
+                np.int32)
+            last, _ = serve_loop.prefill_with_decode(
+                cfg, card_tree(), seq[None], len(seq), device=DEVICE)
+            return last[0].float()
+        # the magnitude of one device's f32 last logits of the prompts
+        tol = 2.0 ** -5 * e["bf16_drift"]["f32_magnitude"]
+        near_tie = TP_NEAR_TIE * tol
+        for u, w in enumerate(e["streams"]):
+            t = _first_divergence(r0["served"]["streams"][u], w)
+            if t is None:
+                continue
+            top2 = torch.topk(last_of(u, t), 2).values
+            m = float(top2[0] - top2[1])
+            check(m < near_tie, f"serve_ssm_tp {arch}: lane {u} diverged "
+                                f"at step {t}, margin {m} >= {near_tie}")
+            accepted.append({"lane": u, "step": t, "margin": m})
+        per_step = _ssm_decode_collectives(cfg)
+        want_ar = steps * per_step["all_reduce"]
+        if cfg.family == "ssm":
+            want = {"bspmm": 2 * cfg.num_layers * steps}
+        else:
+            napp = zamba.n_shared_applications(cfg)
+            want = {"bspmm": napp * steps, "fused_glu_split": napp * steps}
+        passes = SSM_TP_PASSES[arch]
+        for r in ranks:
+            a = r["runs"][arch]
+            for kind in passes:
+                check(np.array_equal(a[kind]["streams"], r0[kind]["streams"]),
+                      f"serve_ssm_tp {arch} {kind}: rank {r['rank']}'s "
+                      "streams differ from rank 0's")
+                lc = a[kind]["launches"]
+                for k, n in want.items():
+                    check(lc[k] == n, f"serve_ssm_tp {arch} {kind}: rank "
+                                      f"{r['rank']} launched {lc[k]} {k}, "
+                                      f"{n} expected")
+                ar = sum(a[kind]["collectives"].get("all_reduce",
+                                                    {}).values())
+                check(ar == want_ar, f"serve_ssm_tp {arch} {kind}: rank "
+                                     f"{r['rank']} issued {ar} all-reduces, "
+                                     f"{want_ar} expected")
+                counts.append(lc)
+            check(a["weight_bytes"] <= TP_BYTES_FRACTION * full_bytes + whole,
+                  f"serve_ssm_tp {arch}: rank {r['rank']} holds "
+                  f"{a['weight_bytes']} of {full_bytes} bytes")
+        teacher = None
+        if "logits" in passes:
+            # the logits pass: the ranks' teacher-forced last logits
+            # against one device's in bf16 on the same prefixes, within
+            # TP_NEAR_TIE times one device's bf16 drift there
+            got = r0["logits"]["last"]
+            for r in ranks:
+                check(torch.equal(r["runs"][arch]["logits"]["last"], got),
+                      f"serve_ssm_tp {arch}: rank {r['rank']}'s teacher-"
+                      "forced logits differ from rank 0's")
+            seqs = np.concatenate([prompts, r0["logits"]["streams"][:, :-1]],
+                                  axis=1)
+            one = {}
+            for dtype in ("bfloat16", "float32"):
+                last, _ = serve_loop.prefill_with_decode(
+                    dataclasses.replace(cfg, compute_dtype=dtype),
+                    card_tree(), seqs, seqs.shape[1], device=DEVICE)
+                one[dtype] = last.float().cpu()
+            drift = float((one["bfloat16"] - one["float32"]).abs().max())
+            err = float((got - one["bfloat16"]).abs().max())
+            check(bool(torch.isfinite(got).all()),
+                  f"serve_ssm_tp {arch}: non-finite teacher-forced logits")
+            check(err <= TP_NEAR_TIE * drift,
+                  f"serve_ssm_tp {arch}: teacher-forced bf16 logits off one "
+                  f"device's by {err} > {TP_NEAR_TIE} x drift {drift}")
+            single_streams = _ssm_short(
+                torch, dataclasses.replace(cfg, compute_dtype="bfloat16"),
+                card_tree(), prompts)[0]
+            teacher = dict(
+                prefix_len=int(seqs.shape[1]), max_abs_err=err,
+                one_device_bf16_drift=drift, bound=TP_NEAR_TIE * drift,
+                magnitude=float(one["float32"].abs().max()),
+                bf16_streams_first_divergence=[
+                    _first_divergence(g, w) for g, w in zip(
+                        r0["logits"]["streams"], single_streams)])
+        lines = {}
+        if cfg.family == "ssm":
+            local = export.shard_params(
+                cfg, _tree_to(_first_layers(host, 1), DEVICE), mesh1)
+            mlp0 = transformer._layer_view(local["layers"], 0)["mlp"]
+            for w in ("w_in", "w_out"):
+                lines[w] = _bspmm_line(
+                    torch, card, timer, gen, "tp_kernel", mlp0[w], ARCH_M,
+                    arch=arch, weight=f"layers/mlp/{w}", tp=world, rank=1,
+                    partial=mlp0[w].partial)
+            del local
+
+        def per_rank(kind, key):
+            return [r["runs"][arch][kind][key] for r in ranks]
+        emit(phase="serve_ssm_tp", arch=arch, family=cfg.family,
+             layers=cfg.num_layers, reduced=None, tp=world, backend="gloo",
+             devices=[r["device"] for r in ranks],
+             entry="export.shard_params -> serve_loop.generate(dist=)",
+             lanes=ARCH_BATCH, prompt_len=TP_AV_PROMPT,
+             new_tokens=TP_AV_TOKENS, streams_equal_single_device=True,
+             accepted_divergences=accepted, near_tie=near_tie,
+             decode_steps=steps, collectives_per_decode_step=per_step,
+             all_reduces=want_ar,
+             weight_bytes_per_rank=[r["runs"][arch]["weight_bytes"]
+                                    for r in ranks],
+             single_device_weight_bytes=full_bytes, whole_leaf_bytes=whole,
+             passes={kind: dict(
+                 activations=dtype,
+                 kernel_variant=per_rank(kind, "variant"),
+                 collectives_per_rank=per_rank(kind, "collectives"),
+                 launches=per_rank(kind, "launches"),
+                 wall_s=per_rank(kind, "wall_s"),
+                 tok_per_s=per_rank(kind, "tok_per_s"))
+                 for kind, dtype in passes.items()},
+             teacher_forced=teacher,
+             single_device_tok_per_s=e["single_tok_per_s"],
+             bf16_drift=e["bf16_drift"],
+             shard_s=[r["runs"][arch]["shard_s"] for r in ranks],
+             peak_bytes_per_rank=[r["runs"][arch]["peak_bytes"]
+                                  for r in ranks],
+             to_host_s=e["to_host_s"], save_s=e["saved"].result(),
+             kernel_lines={k: {f: v[f] for f in ("ms", "bound_ms",
+                                                 "library_ms",
+                                                 "max_abs_err")}
+                           for k, v in lines.items()},
+             tok_per_s_note="two ranks on one card over gloo: the phase's "
+                            "own rate, not a tensor-parallel speed")
+        del on_card
+        gc.collect()
+        torch.cuda.empty_cache()
+    ssmtp.clear()
+    emit(phase="serve_ssm_tp_total", seconds=time.monotonic() - t_phase)
+    return counts
+
+
+def _dp_rank(rank, world, cfg, dirs, prompts, loop_prompts, cut):
+    """One rank of ``serve_dp`` (a spawned process, gloo on card 0): start
+    the group from the ``file://`` store in ``DP_DIR`` on a (data, model)
+    = ``DP_SHAPE`` mesh, load the sealed split artifact and keep this
+    rank's shard (the model axis splits it; the data axis does not), then
+    serve the 12 requests through the engine, phased and mixed (one
+    replica a data group, request i to group i mod 2; ``run`` returns
+    every request on every rank), and the cut oracle prompts through
+    ``serve_loop.generate`` (each group its rows). Launch counts and
+    collectives reset before and read after each run. Pickles what it
+    saw to ``rank<r>.pkl`` in ``DP_DIR``. ``cut``: the parent's
+    (``DP_TOKENS``, ``DP_LOOP_LEN``, ``DP_LOOP_TOKENS``)."""
+    import pickle
+    _die_with_parent()
+    new, loop_len, loop_new = cut
+
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.distributed.context import (DistContext,
+                                                 init_process_group,
+                                                 make_mesh)
+    from repro_torch.serving import artifact, export, serve_loop
+    from repro_torch.serving.engine import Engine
+    torch.cuda.set_device(0)
+    init_process_group(DP_DIR, rank, world, "gloo")
+    coll = _count_collectives(tdist)
+    try:
+        mesh = make_mesh(DP_SHAPE, ("data", "model"))
+        dist = DistContext(mesh)
+        out = {"rank": rank, "device": torch.cuda.current_device(),
+               "data_rank": dist.data_rank, "model_rank": dist.model_rank}
+        t0 = time.monotonic()
+        full, _ = artifact.load(dirs["split"], cfg, device=DEVICE)
+        params = export.shard_params(cfg, full, mesh)
+        del full
+        torch.cuda.empty_cache()
+        out["shard_s"] = time.monotonic() - t0
+        out["weight_bytes"] = export.memory_report(cfg, params)["bytes"]
+        runs = {}
+        for name, mode in (("phased", {}), ("mixed", {"mixed": True})):
+            _reset_counts()
+            coll.clear()
+            eng = Engine(cfg, params, device=DEVICE, dist=dist, **ENGINE,
+                         **mode)
+            uids = [eng.submit(p, new) for p in prompts]
+            t0 = time.monotonic()
+            res = eng.run()
+            runs[name] = dict(
+                uids=uids, streams=[res[u].generated for u in uids],
+                ok=all(res[u].ok for u in uids),
+                wall_s=time.monotonic() - t0, lanes=eng.max_batch,
+                digest=eng.lockstep_digest,
+                group_digests=eng.data_group_digests,
+                launches=_read_counts(),
+                collectives={k: dict(v) for k, v in coll.items()},
+                **{k: eng.stats[k] for k in (
+                    "tok_per_s", "stalled_decode_steps", "mixed_steps",
+                    "decode_slabs", "prefill_chunks")})
+            del eng
+        _reset_counts()
+        t0 = time.monotonic()
+        toks, st = serve_loop.generate(
+            cfg, params, np.stack([p[:loop_len] for p in loop_prompts]),
+            max_new_tokens=loop_new, device=DEVICE, dist=dist)
+        runs["serve_loop"] = dict(streams=toks[:, loop_len:],
+                                  wall_s=time.monotonic() - t0,
+                                  launches=_read_counts(),
+                                  tok_per_s=st["tok_per_s"])
+        out["runs"] = runs
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    finally:
+        tdist.destroy_process_group()
+    with open(os.path.join(DP_DIR, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def _serve_dp_start(torch, cfg, dirs, prompts, loop_prompts):
+    """Spawn ``serve_dp``'s ranks (``_dp_rank``), gloo sharing card 0;
+    they load the sealed artifact and serve beside ``serve_swap`` and
+    ``serve_tp``'s ranks, and are joined after ``serve_tp``."""
+    world = math.prod(DP_SHAPE)
+    torch.cuda.synchronize()
+    return _start_ranks(DP_DIR, _dp_rank, world,
+                        (world, cfg, dirs, prompts, loop_prompts,
+                         (DP_TOKENS, DP_LOOP_LEN, DP_LOOP_TOKENS)))
+
+
+def _dp_group_oracle(torch, cfg, packed, prompts, dp):
+    """One device's ``Engine(max_batch=ENGINE's / dp)`` on each data
+    group's requests (request i to group i mod dp), phased and mixed.
+    -> {mode: [per group: (streams, lockstep digest, launches)]}."""
+    from repro_torch.serving.engine import Engine
+    out = {}
+    for name, mode in (("phased", {}), ("mixed", {"mixed": True})):
+        out[name] = []
+        for g in range(dp):
+            _reset_counts()
+            eng = Engine(cfg, packed, device=DEVICE,
+                         **dict(ENGINE, max_batch=ENGINE["max_batch"] // dp),
+                         **mode)
+            uids = [eng.submit(p, DP_TOKENS) for p in prompts[g::dp]]
+            res = eng.run()
+            out[name].append(([res[u].generated for u in uids],
+                              eng.lockstep_digest, _read_counts()))
+            del eng
+    return out
+
+
+def phase_serve_dp(torch, cfg, packed, prompts, loop_prompts, procs):
+    """Llama-3.2-1B served at full width and depth over a serving data
+    axis: (data, model) = ``DP_SHAPE``, four spawned ranks sharing card 0
+    over gloo (so this measures no data- or tensor-parallel speed and
+    claims none), each holding its model-axis shard of the sealed split
+    artifact. The engine runs one replica a data group (4 lanes each of
+    the mesh's 8), request i on group i mod 2, phased and mixed; the
+    oracle prompts run through ``serve_loop.generate`` with each group's
+    rows. The traffic is cut as ``DP_*`` says (printed).
+
+    Holds, per rank: every request's result comes back on every rank (the
+    gather over the data axis) and all are ok; the streams equal one
+    device's (a first divergence only where one device's margin is below
+    ``TP_NEAR_TIE`` logits tolerances) and equal across the 4 ranks; a
+    rank's own digest equals its model partner's and the digest of one
+    device's ``Engine(max_batch=4)`` on its group's requests
+    (``_dp_group_oracle``), and both groups' digests are reported on
+    every rank; the split GLU, ``bspmm`` and paged decode launch on every
+    rank; ``serve_loop`` streams equal one device's on the same cut
+    prompts. Returns the ranks' and the oracles' launch counts."""
+    from repro_torch.serving import serve_loop
+    t_phase = time.monotonic()
+    ranks = _join_ranks("serve_dp", DP_DIR, procs)
+    t_oracle = time.monotonic()
+    dp = DP_SHAPE[0]
+    single = _dp_group_oracle(torch, cfg, packed, prompts, dp)
+    counts = [c for runs in single.values() for _, _, c in runs]
+    lp = np.stack([p[:DP_LOOP_LEN] for p in loop_prompts])
+    loop1, _ = serve_loop.generate(cfg, packed, lp,
+                                   max_new_tokens=DP_LOOP_TOKENS,
+                                   device=DEVICE)
+    single_logits = [_last_logits(torch, cfg, packed, p) for p in prompts[:4]]
+    oracle_s = time.monotonic() - t_oracle
+    tol = 2.0 ** -5 * max(float(x.abs().max()) for x in single_logits)
+    near_tie = TP_NEAR_TIE * tol
+    accepted = {}
+    r0 = ranks[0]["runs"]
+    for name in ("phased", "mixed"):
+        want = {u: single[name][u % dp][0][u // dp]
+                for u in range(len(prompts))}
+        accepted[name] = _near_tie_equal(
+            torch, cfg, packed, prompts, dict(enumerate(r0[name]["streams"])),
+            want, f"serve_dp {name}", tol=near_tie)
+        digests = [d for _, d, _ in single[name]]
+        for r in ranks:
+            got = r["runs"][name]
+            check(got["ok"] and len(got["streams"]) == len(prompts),
+                  f"serve_dp {name}: rank {r['rank']} lacks results")
+            check(got["lanes"] == ENGINE["max_batch"] // dp,
+                  f"serve_dp {name}: {got['lanes']} lanes a group")
+            for a, b in zip(got["streams"], r0[name]["streams"]):
+                check(np.array_equal(a, b), f"serve_dp {name}: rank "
+                      f"{r['rank']}'s streams differ from rank 0's")
+            check(got["digest"] == digests[r["data_rank"]],
+                  f"serve_dp {name}: rank {r['rank']}'s block tables and "
+                  "page accounting differ from one device's replica of "
+                  "its group")
+            check(got["group_digests"] == digests,
+                  f"serve_dp {name}: rank {r['rank']} reports digests "
+                  f"{got['group_digests']}, one device's {digests}")
+            for k in PAGED:
+                check(got["launches"][k] > 0, f"serve_dp {name}: rank "
+                      f"{r['rank']} never launched {k}")
+            counts.append(got["launches"])
+        if name == "mixed":
+            check(all(r["runs"][name]["stalled_decode_steps"] == 0
+                      for r in ranks), "serve_dp mixed: decode stalled")
+    accepted["serve_loop"] = _near_tie_equal(
+        torch, cfg, packed, lp,
+        dict(enumerate(r0["serve_loop"]["streams"])),
+        dict(enumerate(loop1[:, DP_LOOP_LEN:])), "serve_dp serve_loop",
+        tol=near_tie)
+    for r in ranks:
+        lr = r["runs"]["serve_loop"]
+        check(np.array_equal(lr["streams"], r0["serve_loop"]["streams"]),
+              f"serve_dp serve_loop: rank {r['rank']}'s streams differ")
+        check(lr["launches"]["bspmm"] > 0
+              and lr["launches"]["fused_glu_split"] > 0,
+              "serve_dp serve_loop launched no BSpMM kernel")
+        counts.append(lr["launches"])
+    emit(phase="serve_dp", model=cfg.name, depth=cfg.num_layers,
+         mesh={"data": DP_SHAPE[0], "model": DP_SHAPE[1]}, backend="gloo",
+         devices=[r["device"] for r in ranks],
+         coords=[[r["data_rank"], r["model_rank"]] for r in ranks],
+         requests=len(prompts), new_tokens=DP_TOKENS,
+         loop=[len(loop_prompts), DP_LOOP_LEN, DP_LOOP_TOKENS],
+         cut={"new_tokens": [NEW_TOKENS, DP_TOKENS],
+              "loop_prompt_len": [LOOP_LEN, DP_LOOP_LEN],
+              "loop_tokens": [LOOP_TOKENS, DP_LOOP_TOKENS],
+              "why": "the time budget: the ranks alone take 102.9 s "
+                     "uncut against ~100 s beside serve_swap, the "
+                     "oracle 31.8 s"},
+         lanes_per_group=ENGINE["max_batch"] // dp,
+         streams_equal_single_device=True, accepted_divergences=accepted,
+         near_tie=near_tie,
+         group_digests={n: [d for _, d, _ in single[n]] for n in single},
+         weight_bytes_per_rank=[r["weight_bytes"] for r in ranks],
+         peak_bytes_per_rank=[r["peak_bytes"] for r in ranks],
+         shard_s=[r["shard_s"] for r in ranks],
+         runs={name: [{k: v for k, v in r["runs"][name].items()
+                       if k not in ("streams", "uids")} for r in ranks]
+               for name in ("phased", "mixed", "serve_loop")},
+         tok_per_s_note="four ranks on one card over gloo: the phase's "
+                        "own rate, not a data- or tensor-parallel speed",
+         join_s=t_oracle - t_phase, oracle_s=oracle_s,
+         seconds=time.monotonic() - t_phase)
+    return counts
+
+
 def phase_training(torch, cfg):
     """The training phases, in order: ``train``, the packed fine-tuning
     gradients, the train profile, the unlogged ``obs_train`` run, then
@@ -5846,10 +6463,16 @@ def main():
     # serve_tp's ranks serve beside the swap (a few GB of the card; their
     # streams are compared with the single-device runs once joined)
     tp = _serve_tp_start(torch, cfg, dirs, prompts, loop_prompts)
-    with _killed_on_failure(tp[0]):
+    # serve_dp's four ranks (data 2, model 2) load the split artifact and
+    # serve beside the swap too, joined after serve_tp
+    dp_procs = _serve_dp_start(torch, cfg, dirs, prompts, loop_prompts)
+    with _killed_on_failure(tp[0] + dp_procs):
         served += phase_serve_swap(torch, cfg, dirs, prompts, rng)
-    served += phase_serve_tp(torch, card, cfg, packed, joint, prompts,
-                             loop_prompts, single, tp)
+    with _killed_on_failure(dp_procs):
+        served += phase_serve_tp(torch, card, cfg, packed, joint, prompts,
+                                 loop_prompts, single, tp)
+    served += phase_serve_dp(torch, cfg, packed, prompts, loop_prompts,
+                             dp_procs)
     shutil.rmtree(ART_DIR)
     mark("serve_swap_and_serve_tp")
     phase_profile(torch, cfg, packed, prompts)
@@ -5868,16 +6491,23 @@ def main():
     # serve_tp_av's ranks wait for the trees serve_audio_vlm hands them,
     # serve beside it and serve_ep's join, and are joined after that
     av_procs = _serve_tp_av_start(torch)
-    with _killed_on_failure(procs + av_procs):
-        served += phase_serve_ssm(torch, card)
+    # serve_ssm_tp's ranks wait for the trees serve_ssm hands them and
+    # serve beside the phases after it; joined after serve_tp_av
+    ssm_procs = _serve_ssm_tp_start(torch)
+    with _killed_on_failure(procs + av_procs + ssm_procs):
+        counts, ssmtp = phase_serve_ssm(torch, card)
+        served += counts
         counts, tpav = phase_serve_audio_vlm(torch, card)
         served += counts
     mark("serve_ssm_and_audio_vlm")
-    with _killed_on_failure(av_procs):
+    with _killed_on_failure(av_procs + ssm_procs):
         served += phase_serve_ep(torch, card, ep, procs)
     mark("serve_ep_join")
-    served += phase_serve_tp_av(torch, card, tpav, av_procs)
+    with _killed_on_failure(ssm_procs):
+        served += phase_serve_tp_av(torch, card, tpav, av_procs)
     mark("serve_tp_av_join")
+    served += phase_serve_ssm_tp(torch, card, ssmtp, ssm_procs)
+    mark("serve_ssm_tp_join")
     ft = phase_training(torch, cfg)
     mark("training")
 

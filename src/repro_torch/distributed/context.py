@@ -56,11 +56,24 @@ are the serving collectives above):
     backward (after an op every rank computes whole). ``to_parallel`` and
     ``from_parallel`` pick the pair for a product from whether it is
     split and whether the stream is;
+  * ``copy_to_model(reduce_from_model(x))`` sums over the model axis
+    both ways (a value every rank needs whole, made of each rank's
+    partial share, then used by each rank on its own shard: zamba's
+    gated RMSNorm over all of ``d_inner``);
   * ``sum_over_data`` / ``mean_over_data``: a gradient summed or averaged
     over the batch axes, in place, after the backward. Under ``sp`` the
     replicated leaves that act on an S shard (``sharding.seq_partial_flags``:
     the norms' scales and biases) hold partial gradients, which
     ``sum_over_model`` adds up after the backward.
+
+A serving data axis (the batch axes ``pod`` and ``data`` larger than 1):
+every rank is handed the global batch and computes its own rows,
+``batch_rows``, on ``model_only()``, a context that sees the model axis
+alone (so the model's collectives never cross a data group), and
+``gather_rows`` puts the rows back together over the batch axes, so
+every rank returns the whole batch as the reference's global arrays
+are. A batch the batch axes do not divide is computed whole by every
+data group (the reference drops such an axis, ``sharding.batch_sharding``).
 
 ``Mesh`` is the port's stand-in for ``jax.sharding.Mesh``: axis names,
 shape, this rank's coordinates and one process group per axis of size
@@ -240,6 +253,49 @@ class DistContext:
         for a in self.batch_axes:
             r = r * self.mesh.axis_size(a) + c[a]
         return r
+
+    def batch_rows(self, batch: int) -> tuple[int, int]:
+        """(first row, rows) of a global batch that this data group
+        computes: ``[r * B/dp, (r + 1) * B/dp)`` for data rank r of dp,
+        the whole batch where dp does not divide it."""
+        dp = self.data_size
+        if dp == 1 or batch % dp:
+            return 0, batch
+        n = batch // dp
+        return self.data_rank * n, n
+
+    def model_only(self) -> "DistContext":
+        """This rank's view of its model axis alone (the batch axes
+        dropped): the context a data group runs its rows on."""
+        if self.mesh is None or self.data_size == 1:
+            return self
+        m = self.mesh
+        g = {a: v for a, v in m.groups.items() if a == self.model_axis}
+        return dataclasses.replace(self, mesh=Mesh(
+            (self.model_axis,), (self.tp,), self.model_rank, g))
+
+    def gather_rows(self, x: torch.Tensor, batch: int) -> torch.Tensor:
+        """The global batch's rows (dim 0) from every data group's
+        ``batch_rows`` share, in data-rank order (collective over the
+        batch axes); ``x`` itself where every group computed the whole
+        ``batch``."""
+        if self.batch_rows(batch)[1] == batch:
+            return x
+        return torch.cat(self.gather_over_data(x), dim=0)
+
+    def gather_objects(self, obj) -> list:
+        """Every data rank's picklable ``obj``, in data-rank order
+        (collective over the batch axes, one at a time)."""
+        import torch.distributed as tdist
+        parts = [obj]
+        for a in reversed(self.batch_axes):
+            n = self.mesh.axis_size(a)
+            if n == 1:
+                continue
+            got = [None] * n
+            tdist.all_gather_object(got, parts, group=self.mesh.groups[a])
+            parts = [p for part in got for p in part]
+        return parts
 
     # ---------------------------------------------------- collectives
     def _group(self):
@@ -533,44 +589,36 @@ class _GatherFromModel(torch.autograd.Function):
 
 
 def check_training(cfg, dist) -> None:
-    """Refuse a multi-device context where the port does not run: the
-    sharded train step and tensor-parallel serving cover the attention
-    families, dense (GLU or the two-matrix MLP, ``mlp2``), ``vlm``,
-    ``audio`` (whisper), and the MoE family with GLU experts (expert
-    parallel: the experts split evenly over the model axis), the train
-    step on any (data, model) mesh. ``ssm`` and ``hybrid`` stay
-    refused."""
+    """Refuse a multi-device context where the port does not run. The
+    sharded train step and tensor-parallel serving cover every family:
+    the attention families, dense (GLU or the two-matrix MLP, ``mlp2``),
+    ``vlm``, ``audio`` (whisper), the MoE family with GLU experts (expert
+    parallel: the experts split evenly over the model axis), and the
+    recurrent ``ssm`` (rwkv6) and ``hybrid`` (zamba) families
+    head-parallel, their heads split evenly; the train step on any
+    (data, model) mesh."""
     if dist is None:
         return
     moe = cfg.family == "moe"
-    if cfg.family not in ("dense", "moe", "vlm", "audio") \
-            or cfg.is_moe != moe or (moe and cfg.mlp_kind != "glu"):
+    if cfg.is_moe != moe or (moe and cfg.mlp_kind != "glu"):
         raise NotImplementedError(
-            f"dist= covers the attention families (dense, vlm, audio; "
-            f"MoE with GLU experts) only, not {cfg.family!r} with "
-            f"mlp_kind {cfg.mlp_kind!r} (ROADMAP §1 item 4: dist= on ssm "
-            "and hybrid)")
+            f"dist= covers MoE layers with GLU experts in the moe family "
+            f"only, not {cfg.family!r} with mlp_kind {cfg.mlp_kind!r} "
+            "(ROADMAP §1 item 4)")
     if moe and cfg.num_experts % dist.tp:
         raise NotImplementedError(
             f"expert parallelism splits the experts evenly over the model "
             f"axis: {cfg.num_experts} experts do not split {dist.tp} ways "
             "(ROADMAP §1 item 4: uneven splits)")
-
-
-def refuse_dist(dist, what: str) -> None:
-    """Raise for a multi-device context in a module that does not run
-    one (the recurrent families' own entry points, whatever the caller
-    checked before)."""
-    if dist is not None:
+    heads = {"ssm": max(cfg.num_heads, cfg.pad_heads_to or 0),
+             "hybrid": cfg.ssm_heads}.get(cfg.family)
+    if heads is not None and heads % dist.tp:
         raise NotImplementedError(
-            f"{what} does not run under dist= (ROADMAP §1 item 4: dist= "
-            "on ssm and hybrid)")
+            f"{cfg.family} runs head-parallel: its {heads} heads do not "
+            f"split {dist.tp} ways (ROADMAP §1 item 4: uneven splits)")
 
 
 def check_serving(cfg, dist) -> None:
-    """``check_training``, and serving's mesh has batch axes of size 1."""
+    """``check_training``: serving runs on the same families, on any
+    (data, model) mesh (a data group serves its rows, ``batch_rows``)."""
     check_training(cfg, dist)
-    if dist is not None and dist.data_size > 1:
-        raise NotImplementedError(
-            "a serving data axis larger than 1 is not ported (ROADMAP §1 "
-            "item 4: a serving data axis, next in its queue)")

@@ -38,6 +38,21 @@ whole keeps its ``b_in`` whole); ``b_out`` is replicated and, added to
 the S shard under sequence parallelism, partial. Whisper's encoder
 stream splits along its own S (``partial_flags``' ``seq_enc``).
 
+zamba's Mamba2 layers (the ``hybrid`` family) split by heads, and their
+``in_proj`` (z | x | B C | dt columns) and ``conv_w``/``conv_b`` (x | B C
+channels) are cut by meaning rather than in one contiguous slice, as the
+reference's ``ssm_proj``/``ssm_conv`` rules would: the z, x and dt
+columns and the x channels go by the rank's heads, the B and C ones
+(one group, read by every head) stay whole on every rank. The leaf's
+``ParamSpec.cut`` names the segments and the spec holds a ``Cut`` on
+that dim; ``shard``, ``gather`` and the gradient norm
+(``shard_flags``: a ``Cut`` in place of the flag) take it segment by
+segment. rwkv6 (``ssm``) splits its time-mix heads and its channel-mix
+by the default rules; its token-shift mixes ``mu_*`` and the decay
+LoRA's ``lora_a`` stay whole and, used for the rank's heads only, hold
+partial gradients (``partial_flags``), as does the channel mix's
+``w_recept`` under sequence parallelism.
+
 The MoE family is expert parallel, as the reference's ``_moe_shardmap``:
 the expert stacks (and their masks and moments) split on the experts dim
 alone (``experts`` takes the model axis, so ``ff`` cannot), and the
@@ -67,6 +82,62 @@ DEFAULT_RULES: dict[str, tuple[str, ...]] = {
     "kv_seq": ("model",),     # decode-cache sequence dim
     # replicated: embed, embed2, head_dim, layers, seq, None
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class Cut:
+    """A spec entry for a dim made of segments (``parts``: (global
+    length, split over ``axis``) each, in order) that split on their
+    own: a rank holds its slice of every split segment and the whole of
+    the others, in the same order."""
+    axis: str
+    parts: tuple
+
+    def local(self, n: int) -> list[int]:
+        """Each segment's local length over ``n`` ranks."""
+        return [k // n if split else k for k, split in self.parts]
+
+    def shard(self, x: torch.Tensor, dim: int, i: int, n: int
+              ) -> torch.Tensor:
+        out, at = [], 0
+        for k, split in self.parts:
+            seg = x.narrow(dim, at, k)
+            out.append(seg.narrow(dim, i * (k // n), k // n) if split
+                       else seg)
+            at += k
+        return torch.cat(out, dim=dim)
+
+    def gather(self, x: torch.Tensor, dim: int, group, n: int
+               ) -> torch.Tensor:
+        from repro_torch.distributed.context import _gather
+        segs = x.split(self.local(n), dim=dim)
+        return torch.cat([_gather(s, dim, group, n) if split else s
+                          for s, (_, split) in zip(segs, self.parts)],
+                         dim=dim)
+
+    def square_sums(self, x: torch.Tensor, n: int):
+        """(sum of squares over the split segments, over the whole ones)
+        of a rank's block whose last dim this cut cuts."""
+        sq = torch.square(x.float())
+        segs = sq.split(self.local(n), dim=-1)
+        zero = sq.new_zeros(())
+        split = sum((s.sum() for s, (_, f) in zip(segs, self.parts) if f),
+                    zero)
+        whole = sum((s.sum() for s, (_, f) in zip(segs, self.parts)
+                     if not f), zero)
+        return split, whole
+
+
+def cut_spec(spec, mesh, rules: dict | None = None) -> tuple:
+    """The spec of a ``ParamSpec`` with a ``cut``: a ``Cut`` on its last
+    dim where the model axis divides every split segment, else the
+    leaf whole."""
+    n = axis_sizes(mesh).get("model", 1)
+    rules = rules or DEFAULT_RULES
+    ok = n > 1 and all(k % n == 0 for k, split in spec.cut if split) \
+        and "model" in rules.get(spec.axes[-1], ())
+    last = Cut("model", tuple(spec.cut)) if ok else None
+    return (None,) * (len(spec.shape) - 1) + (last,)
 
 
 def axis_sizes(mesh) -> dict[str, int]:
@@ -115,6 +186,12 @@ def shard(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
     for dim, entry in enumerate(spec):
         if entry is None:
             continue
+        if isinstance(entry, Cut):
+            seen.add(entry.axis)
+            n = sizes.get(entry.axis, 1)
+            if n > 1:
+                out = entry.shard(out, dim, coords[entry.axis], n)
+            continue
         names = (entry,) if isinstance(entry, str) else tuple(entry)
         if seen & set(names):
             raise ValueError(f"spec {spec} uses a mesh axis twice")
@@ -145,6 +222,11 @@ def gather(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
     for dim, entry in enumerate(spec):
         if entry is None:
             continue
+        if isinstance(entry, Cut):
+            n = sizes.get(entry.axis, 1)
+            if n > 1:
+                out = entry.gather(out, dim, mesh.groups[entry.axis], n)
+            continue
         names = (entry,) if isinstance(entry, str) else tuple(entry)
         for a in reversed(names):
             if sizes[a] > 1:
@@ -153,8 +235,10 @@ def gather(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
 
 
 def model_sharded(spec: tuple, axis: str = "model") -> bool:
-    """Whether ``spec`` splits a dim over ``axis``."""
+    """Whether ``spec`` splits a dim over ``axis`` (a ``Cut`` splits
+    part of one)."""
     return any(e == axis or (isinstance(e, tuple) and axis in e)
+               or (isinstance(e, Cut) and e.axis == axis)
                for e in spec if e is not None)
 
 
@@ -181,8 +265,10 @@ def _map_specs(fn, specs):
 
 def param_specs_tree(param_specs: dict, mesh,
                      rules: dict | None = None) -> dict:
-    """Spec tree parallel to a ``ParamSpec`` tree."""
-    return _map_specs(lambda s: spec_for(s.shape, s.axes, mesh, rules),
+    """Spec tree parallel to a ``ParamSpec`` tree (a leaf with a ``cut``
+    takes ``cut_spec``)."""
+    return _map_specs(lambda s: cut_spec(s, mesh, rules) if s.cut
+                      else spec_for(s.shape, s.axes, mesh, rules),
                       param_specs)
 
 
@@ -295,15 +381,26 @@ def partial_flags(cfg, seq: bool, seq_enc: bool | None = None) -> dict:
     stream splits on its own (``seq_enc``, the frames' S; default
     ``seq``): its stack and final norm follow it. Whisper's learned
     positions are added to the whole sequence before the split, so
-    their gradient is whole (not flagged: their axes hold None)."""
-    def walk(flags, name, seq):
+    their gradient is whole (not flagged: their axes hold None). rwkv6's
+    time-mix ``mu_*`` and ``lora_a`` always (they feed the rank's heads
+    only), and with ``seq`` its channel-mix ``w_recept`` (applied to the
+    S shard)."""
+    def leaf(flag, path, seq):
+        name = path[-1]
+        return ((seq and flag) or (cfg.is_moe and name == "router")
+                or (seq and cfg.is_moe and name.startswith("ws_"))
+                or (cfg.family == "ssm" and "tmix" in path
+                    and (name.startswith("mu_") or name == "lora_a"))
+                or (seq and cfg.family == "ssm" and name == "w_recept"))
+
+    def walk(flags, path, seq):
         if isinstance(flags, dict):
-            return {k: walk(v, k, seq_enc if k in _ENCODER_KEYS else seq)
+            return {k: walk(v, path + (k,),
+                            seq_enc if k in _ENCODER_KEYS else seq)
                     for k, v in flags.items()}
-        return ((seq and flags) or (cfg.is_moe and name == "router")
-                or (seq and cfg.is_moe and name.startswith("ws_")))
+        return leaf(flags, path, seq)
     seq_enc = seq if seq_enc is None else seq_enc
-    return walk(seq_partial_flags(cfg), "", seq)
+    return walk(seq_partial_flags(cfg), (), seq)
 
 
 # whisper's leaves that act on the encoder's stream
@@ -353,10 +450,29 @@ def gather_state(state, shardings, then=None):
 
 def shard_flags(tree_of_shardings, axis: str = "model"):
     """Per leaf: whether it is split over ``axis`` (a norm counts such a
-    leaf's square sum on every rank, a replicated one once)."""
+    leaf's square sum on every rank, a replicated one once); the
+    ``CutFlag`` of a leaf with a ``Cut`` on ``axis``, split in part."""
     if isinstance(tree_of_shardings, dict):
         return {k: shard_flags(v, axis) for k, v in tree_of_shardings.items()}
-    return model_sharded(tree_of_shardings.spec, axis)
+    spec = tree_of_shardings.spec
+    cut = next((e for e in spec if isinstance(e, Cut) and e.axis == axis),
+               None)
+    if cut is not None:
+        return CutFlag(cut, axis_sizes(tree_of_shardings.mesh)[axis])
+    return model_sharded(spec, axis)
+
+
+@dataclasses.dataclass(frozen=True)
+class CutFlag:
+    """``shard_flags``' entry for a leaf whose last dim holds a ``Cut``
+    over ``n`` ranks: ``square_sums`` parts its square sum into the split
+    segments' (summed over the model axis) and the whole ones' (counted
+    once)."""
+    cut: Cut
+    n: int
+
+    def square_sums(self, x: torch.Tensor):
+        return self.cut.square_sums(x, self.n)
 
 
 def slice_batch(batch: dict, dist, microbatches: int = 1) -> dict:

@@ -35,6 +35,9 @@ class ParamSpec:
     scale: float = 1.0                    # fan-in scaling multiplier
     dtype: str = "float32"
     fan_in: int = 0                       # 0: the second-to-last axis
+    # a last dim made of segments that split on their own: ((length,
+    # split over the model axis), ...) (``distributed/sharding.py::Cut``)
+    cut: tuple = ()
 
     def __post_init__(self):
         if len(self.shape) != len(self.axes):

@@ -4,9 +4,10 @@ the serving path call. The dense, MoE and ``vlm`` families run
 ``models/transformer.py``, ``ssm`` runs ``models/rwkv6.py``, ``hybrid``
 ``models/zamba.py`` and ``audio`` ``models/whisper.py``. The entry
 points take ``dist=`` (tensor-parallel serving and the sharded train
-step: the transformer's families and whisper) and hand it on only when
-it is set; the recurrent families' modules refuse it themselves (ROADMAP
-§1 item 4)."""
+step, every family) and hand it on only when it is set. A decode cache
+made under ``dist`` holds the rank's heads and the rows of its data
+group (``DistContext.batch_rows``, as the reference's
+``cache_sharding`` splits the batch)."""
 from __future__ import annotations
 
 import math
@@ -85,22 +86,27 @@ def init_masks(cfg, params):
     return sm.init_masks(cfg.blast, params, sparse_paths(cfg))
 
 
+def _rows(batch, dist):
+    return batch if dist is None else dist.batch_rows(batch)[1]
+
+
 def init_cache(cfg, batch, max_len, *, dist=None, **kw):
     """The decode cache of ``serve_loop`` (``dtype``, ``device``): the
     contiguous KV cache (layers, batch, max_len, KV, hd) of a transformer,
     the recurrent state of the ``ssm`` and ``hybrid`` families, and
     whisper's self-attention cache (its encoder memory is
-    ``whisper.prefill_cross``'s)."""
-    return module_for(cfg).init_cache(cfg, batch, max_len,
+    ``whisper.prefill_cross``'s); under ``dist`` the rank's heads and its
+    data group's rows of ``batch``."""
+    return module_for(cfg).init_cache(cfg, _rows(batch, dist), max_len,
                                       **_dist_kw(kw, dist))
 
 
 def abstract_cache(cfg, batch, max_len, *, dist=None, **kw):
     """Shapes and dtypes of the decode cache (no allocation): a
     transformer's KV cache, the recurrent families' state, whisper's
-    self-attention cache with its encoder memory (the rank's kv heads
-    under ``dist``)."""
-    return module_for(cfg).abstract_cache(cfg, batch, max_len,
+    self-attention cache with its encoder memory (the rank's kv heads and
+    its data group's rows of ``batch`` under ``dist``)."""
+    return module_for(cfg).abstract_cache(cfg, _rows(batch, dist), max_len,
                                           **_dist_kw(kw, dist))
 
 

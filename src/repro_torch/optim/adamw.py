@@ -75,17 +75,23 @@ def global_norm(tree, dist=None, sharded=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32 (a device
     scalar). Under ``dist``, ``sharded`` (a tree of bools parallel to
     ``tree``, ``sharding.shard_flags``) marks the leaves split over the
-    model axis: their squares are summed over it in one all-reduce."""
+    model axis: their squares are summed over it in one all-reduce (a
+    leaf split in part has a ``sharding.CutFlag`` there)."""
     leaves = tree_leaves(tree)
     if dist is None or dist.tp == 1:
         return torch.sqrt(sum(torch.sum(torch.square(x.float()))
                               for x in leaves))
-    flags = tree_leaves(sharded)
-    sq = [torch.sum(torch.square(x.float())) for x in leaves]
-    split = torch.stack([q for q, f in zip(sq, flags) if f] or
-                        [sq[0].new_zeros(())]).sum()
-    rep = sum(q for q, f in zip(sq, flags) if not f)
-    return torch.sqrt(dist.all_reduce(split) + rep)
+    split, rep = [], []
+    for x, f in zip(leaves, tree_leaves(sharded)):
+        if isinstance(f, bool):
+            (split if f else rep).append(torch.sum(torch.square(x.float())))
+        else:          # split in part (``sharding.CutFlag``)
+            s, w = f.square_sums(x)
+            split.append(s)
+            rep.append(w)
+    zero = leaves[0].new_zeros((), dtype=torch.float32)
+    return torch.sqrt(dist.all_reduce(torch.stack(split or [zero]).sum())
+                      + sum(rep, zero))
 
 
 def clip_by_global_norm(grads, max_norm: float, dist=None, sharded=None):

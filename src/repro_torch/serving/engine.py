@@ -97,7 +97,26 @@ Paged phased, ``mixed=True`` and the prefix cache serve under ``dist``.
 Refused there (``NotImplementedError``; ROADMAP §1 item 4): the
 contiguous cache, deadlines, SLA scheduling (its aging reads the clock),
 preemption, fault plans and recovery, the asyncio front door and its
-watchdog, hot-swap, and a data axis larger than 1.
+watchdog, and hot-swap.
+
+A data axis (``dist`` with batch axes of dp > 1 ranks): one engine
+replica per data group. ``max_batch`` is the mesh's lane count, each
+group serving ``max_batch / dp`` lanes over a pool of its own (``n_pages``
+pages, or by default its lanes' worth), on the model axis alone
+(``DistContext.model_only``). Every rank is handed the same ``submit``
+calls in the same order; request ids are global, as one device numbers
+them, and request i goes to data group ``i mod dp``, so the routing is
+the same on every rank and every host decision of a group is a function
+of the requests it was given. Every rank validates every submit, so an
+infeasible request raises on all ranks alike and counts in no group;
+``admission_queue_limit`` is refused, since a group's queue is its own.
+``run`` returns every request's
+``GenResult`` on every rank, gathered over the batch axes, and each
+group's lockstep digest (``data_group_digests``). A group's pool is not
+shared with the others: the reference's GSPMD pool would all-gather
+every K/V write over the data axis so that any lane, a prefix-cache hit
+included, could read any page; here a lane's pages stay where its lane
+runs.
 
 Not ported: the reference's ``attn_backend=`` (the paged decode kernel
 is the one backend). Everything runs on ``device`` (default the GPU);
@@ -324,10 +343,29 @@ class Engine:
                  admission_queue_limit: int | None = None,
                  enforce_deadlines: bool = False, faults=None,
                  tracer=None, device="cuda", dist=None):
+        # the data axis: this rank's group serves its share of the lanes
+        # on the model axis alone
+        self.data = None
+        self._submitted = 0
+        self.data_group_digests: list[int] = []
         if dist is not None:
             _refuse_under_dist(cfg, dist, paged=paged, preempt=preempt,
                                enforce_deadlines=enforce_deadlines,
                                faults=faults, scheduler=scheduler)
+            if dist.data_size > 1:
+                if admission_queue_limit is not None:
+                    # a group's queue is its own: shedding on it would
+                    # route the groups' later submits apart
+                    raise NotImplementedError(_REFUSED.format(
+                        "admission_queue_limit over a data axis"))
+                if max_batch % dist.data_size:
+                    raise NotImplementedError(
+                        f"max_batch={max_batch} lanes do not split over "
+                        f"{dist.data_size} data groups (ROADMAP §1 item 4: "
+                        "uneven splits)")
+                self.data = dist
+                max_batch //= dist.data_size
+                dist = dist.model_only()
         if not registry.supports_prefill_chunk(cfg):
             raise NotImplementedError(
                 f"family {cfg.family!r} is not servable by the engine; "
@@ -530,7 +568,9 @@ class Engine:
     def submit(self, prompt, max_new_tokens: int = 32,
                uid: int | None = None, *, priority: int = 0,
                deadline_s: float | None = None) -> int:
-        """Queue one request. ``priority`` is the SLA class (smaller is
+        """Queue one request (under a data axis, only the requests of this
+        rank's group: the i-th submitted goes to group i mod dp, every
+        rank numbering them alike). ``priority`` is the SLA class (smaller is
         more urgent; only an ``SLAScheduler`` orders by it), ``deadline_s``
         an optional target latency. Infeasible requests raise ValueError
         here; past ``admission_queue_limit`` a submit is shed with
@@ -548,7 +588,15 @@ class Engine:
         self._uid = max(self._uid, uid) + 1
         req = Request(uid, np.asarray(prompt), max_new_tokens,
                       priority=priority, deadline_s=deadline_s)
+        if self.data is not None and self._submitted % self.data.data_size \
+                != self.data.data_rank:
+            # another data group's request: refused here as there, so
+            # every rank counts the same submits
+            self.scheduler.check(req)
+            self._submitted += 1
+            return uid
         self.scheduler.submit(req)
+        self._submitted += 1
         if self.tracer.enabled:
             self.tracer.event("request.queued", t=req.queued_at,
                               uid=uid, prompt_len=req.prompt_len,
@@ -1613,7 +1661,8 @@ class Engine:
     # ---------------------------------------------------------------- run
     def run(self) -> dict[int, GenResult]:
         """Drain the queue, the lanes and the preempted lanes;
-        {uid: GenResult}."""
+        {uid: GenResult}, every data group's under a data axis (a
+        collective over the batch axes)."""
         out: dict[int, GenResult] = {}
         while (len(self.scheduler) or self.active_lanes or self._preempted
                or self._pending_results):
@@ -1621,6 +1670,10 @@ class Engine:
                 out[r.uid] = r
         self.check_lockstep()
         self.finalize_stats()
+        if self.data is not None:
+            got = self.data.gather_objects((out, self.lockstep_digest))
+            self.data_group_digests = [d for _, d in got]
+            out = {u: r for part, _ in got for u, r in part.items()}
         return out
 
     def finalize_stats(self) -> dict:

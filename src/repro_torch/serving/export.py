@@ -38,8 +38,14 @@ The tensor-parallel pack follows the reference's layout
     ``_moe_shardmap`` shards them (its ``abstract_packed_params`` would
     put the model axis on ``nb`` or ``nnz`` as well); the shared experts'
     packs (weights on ``embed`` x None axes) stay whole on every rank;
+  * rwkv6's channel mix packs as the two-matrix MLP's (``w_in`` on
+    ``nb``, ``w_out`` on ``nnz``; rwkv6-3b at s = 0.8, 128 x 16 and
+    16 x 128 blocks: 280 of ``w_in``'s 560 block-columns a rank, 56 of
+    ``w_out``'s 112 kept blocks a column), zamba's one shared GLU and its
+    down projection as the dense GLU's;
   * every other leaf as ``distributed/sharding.py``'s rules say (query
-    and kv heads, the vocabulary; norms replicated).
+    and kv heads, the vocabulary, rwkv6's time-mix heads; norms
+    replicated), zamba's ``in_proj`` and conv by their ``Cut``.
 
 Per layer of Llama-3.2-1B at s = 0.8 (128 x 128 blocks, bf16), tp 2: gate
 and up keep 4 of 16 blocks in each of 64 columns, 8.4 MB each, 4.2 MB a

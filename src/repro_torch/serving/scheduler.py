@@ -117,13 +117,17 @@ class FIFOScheduler:
         """The request that would be admitted next (None when empty)."""
         return self._queue[0] if self._queue else None
 
-    def submit(self, req: Request) -> None:
+    def check(self, req: Request) -> None:
+        """Raise ValueError where ``submit`` would refuse ``req``."""
         if req.prompt_len >= self.max_len:
             raise ValueError(
                 f"prompt of {req.prompt_len} tokens cannot fit max_len="
                 f"{self.max_len} with room to generate")
         if self.feasibility is not None:
             self.feasibility(req)
+
+    def submit(self, req: Request) -> None:
+        self.check(req)
         req.queued_at = self.clock()       # stamp at enqueue
         req.deadline_at = (req.queued_at + req.deadline_s
                            if req.deadline_s is not None else None)

@@ -13,7 +13,9 @@ Every maker takes ``dist=`` (tensor-parallel serving,
 ``distributed/context.py``): the model then runs on the rank's shard and
 its logits come out vocab-sharded, so each greedy token is
 ``greedy``'s argmax over the whole vocabulary, the same on every rank,
-and a sampled one a draw from the gathered logits.
+and a sampled one a draw from the gathered logits. The cache steps run
+on a data group's rows and the model axis alone (the callers cut the
+rows, ``DistContext.batch_rows``); the prefill step cuts them itself.
 """
 from __future__ import annotations
 
@@ -40,13 +42,22 @@ def make_prefill_step(cfg, dist=None):
     the rank's shard (packed or dense), sequence-parallel where
     ``DistContext.seq_split`` allows it (the reference's ``constrain_seq``
     in ``forward``), and the vocab shards of the last token are gathered
-    for the caller, so every rank returns the whole rows."""
+    for the caller, so every rank returns the whole rows. With batch
+    axes each data group runs its rows (``DistContext.batch_rows``) on
+    the model axis alone and the rows are gathered over the batch axes:
+    every rank returns the whole (B, V)."""
+    run = None if dist is None else dist.model_only()
+
     def prefill_step(params, tokens):
-        logits, _ = registry.forward(cfg, params, tokens, masks=None,
-                                     dist=dist)
+        b = tokens.shape[0]
+        lo, n = (0, b) if dist is None else dist.batch_rows(b)
+        logits, _ = registry.forward(cfg, params, tokens[lo:lo + n],
+                                     masks=None, dist=run)
         last = logits[:, -1]
         if dist is not None and dist.shards(cfg.vocab_size):
             last = dist.all_gather(last, dim=-1)
+        if dist is not None:
+            last = dist.gather_rows(last.contiguous(), b)
         return last
     return prefill_step
 
@@ -234,7 +245,7 @@ def make_scatter_pages_step():
     return scatter_pages
 
 
-def make_decode_step(cfg, temperature: float = 0.0, dist=None):
+def make_decode_step(cfg, temperature: float = 0.0, dist=None, rows=None):
     """decode(params, cache, tokens (B,1), pos, generator) -> (next (B,1)
     int32, cache, last logits (B, V), generator) over the contiguous
     cache. Greedy at ``temperature`` 0; above it, a draw from
@@ -243,7 +254,11 @@ def make_decode_step(cfg, temperature: float = 0.0, dist=None):
     reference holds for greedy decoding only. Under ``dist`` the
     returned logits are the rank's vocab shard, and a draw is made from
     the whole gathered row with a generator seeded alike on every rank,
-    so every rank draws the same token."""
+    so every rank draws the same token. ``rows`` (a context with batch
+    axes, this data group's first row, the global batch) makes the cache
+    a data group's rows: a draw gathers every group's rows, draws for
+    the whole batch (so the generator advances as on one device) and
+    keeps this group's."""
     def decode_step(params, cache, tokens, pos, generator=None):
         logits, cache = registry.decode_step(cfg, params, cache, tokens,
                                              pos, dist=dist)
@@ -251,8 +266,14 @@ def make_decode_step(cfg, temperature: float = 0.0, dist=None):
         if temperature > 0.0:
             full = (dist.all_gather(last, dim=-1) if dist is not None
                     and dist.shards(cfg.vocab_size) else last)
+            n = full.shape[0]
+            if rows is not None:
+                data, lo, b = rows
+                full = data.gather_rows(full.contiguous(), b)
             probs = torch.softmax(full / temperature, dim=-1)
             nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
+            if rows is not None:
+                nxt = nxt[lo:lo + n]
         else:
             nxt = greedy(cfg, last, dist)[0]
         return nxt[:, None].to(torch.int32), cache, last, generator

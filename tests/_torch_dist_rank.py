@@ -5,7 +5,8 @@ the card) and of the sharded training ones (``test_torch_dist_train.py``,
 ``test_torch_dist_sp.py``, ``sp_scenario``; ``test_torch_dist_kd.py``,
 ``kd_scenario``; ``test_torch_dist_moe.py``, ``ep_scenario``;
 ``test_torch_dist_mlp2.py`` and ``test_torch_dist_audio_vlm.py``,
-``tp_scenario``). Imports
+``tp_scenario``; ``test_torch_dist_ssm.py``, ``ssm_scenario``;
+``test_torch_dist_data_serving.py``, ``dp_scenario``). Imports
 torch and the port only, never JAX:
 
     python tests/_torch_dist_rank.py SPEC RANK
@@ -27,6 +28,7 @@ import pickle
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -766,6 +768,241 @@ def tp_scenario(t: dict, mesh, rank: int) -> dict:
     return out
 
 
+def _ssm_serve(m, dist, device="cpu") -> dict:
+    """A recurrent model's packed shard (``m["params"]`` whole, cut
+    here) through ``serve_loop.generate`` (greedy and sampled) and
+    ``prefill_with_decode`` into an f32 cache (the prompts' last
+    logits, the vocab shards gathered), the launch counters reset just
+    before and read just after."""
+    from repro_torch import interop
+    from repro_torch.kernels import bspmm
+    from repro_torch.serving import export, serve_loop
+    cfg = m["cfg"]
+    params = interop.to_torch_shard(m["params"], cfg, dist.mesh,
+                                    device=device)
+    bspmm.LAUNCHES.update(dict.fromkeys(bspmm.LAUNCHES, 0))
+    out = {"weight_bytes": export.memory_report(cfg, params)["bytes"]}
+    with torch.inference_mode():
+        out["loop"] = serve_loop.generate(
+            cfg, params, m["equal"], max_new_tokens=m["new"],
+            device=device, dist=dist)[0]
+        gen = torch.Generator(device=device)
+        gen.manual_seed(7)
+        out["sampled"] = serve_loop.generate(
+            cfg, params, m["equal"], max_new_tokens=m["new"],
+            temperature=0.8, generator=gen, device=device, dist=dist)[0]
+        from repro_torch.models import registry
+        init = registry.init_cache
+
+        def f32(*a, **kw):
+            return init(*a, **dict(kw, dtype=torch.float32))
+        registry.init_cache = f32
+        try:
+            last, _ = serve_loop.prefill_with_decode(
+                cfg, params, m["equal"], m["equal"].shape[1],
+                device=device, dist=dist)
+        finally:
+            registry.init_cache = init
+        if dist.shards(cfg.vocab_size):
+            last = dist.all_gather(last, dim=-1)
+        out["prefill_logits"] = last.numpy()
+    out["launches"] = dict(bspmm.LAUNCHES)
+    return out
+
+
+def ssm_scenario(t: dict, mesh, rank: int) -> dict:
+    """``dist=`` on the recurrent families on 4 ranks. Ranks 0-1 (rwkv6)
+    and 2-3 (zamba) are two (data 1, model 2) meshes: each runs the
+    training forward of its dense shard (``sp`` off and on), one train
+    step with ``sp`` on (with the gradients) and off, and serves its
+    packed shard (``_ssm_serve``). Then all four, ``mesh`` (data 2, model
+    2), take one step of each model, ``sp`` on and off, serve each
+    (rows split over the data axis), and restore a zamba train state
+    saved from the (data 2, model 2) layout onto (data 1, model 4), onto
+    (data 2, model 2) and onto one device (``Checkpointer.restore_state
+    (shardings=)``)."""
+    import torch.distributed as tdist
+
+    from repro_torch import interop
+    from repro_torch.checkpointing.checkpoint import Checkpointer
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.context import DistContext, make_mesh
+    counts = count_collectives()
+    pairs = [make_mesh((1, 2), ("data", "model"), ranks=[0, 1]),
+             make_mesh((1, 2), ("data", "model"), ranks=[2, 3])]
+    pair = 0 if pairs[0] is not None else 1
+    m2 = pairs[pair]
+    name = t["pairs"][pair]
+    m = t["models"][name]
+    cfg = m["cfg"]
+    dist = DistContext(m2)
+    dense = sharding.shard_tree(
+        interop.to_torch(m["state"].params, device="cpu"),
+        sharding.state_shardings(cfg, m2).params)
+    out = {"name": name, "model_rank": dist.model_rank,
+           "logits": _tp_logits(cfg, dense, m, dist),
+           "serve": _ssm_serve(m["serve"], dist)}
+    out["m2"] = {sp: _tp_train(cfg, m, t["opt"], DistContext(m2, sp=sp),
+                               counts, grads=sp) for sp in (True, False)}
+    tdist.barrier()
+    models = t["models"]
+    out["d2m2"] = {n: {sp: _tp_train(models[n]["cfg"], models[n], t["opt"],
+                                     DistContext(mesh, sp=sp), counts)
+                       for sp in (True, False)} for n in t["pairs"]}
+    out["serve22"] = {n: _ssm_serve(models[n]["serve"], DistContext(mesh))
+                      for n in t["pairs"]}
+    # elastic: a zamba state saved from (data 2, model 2), restored onto
+    # other meshes
+    z = models["zamba"]
+    zcfg = z["cfg"]
+    st = interop.train_state(z["state"], device="cpu")
+    sh22 = sharding.state_shardings(zcfg, mesh)
+    local = sharding.shard_state(st, sh22)
+    whole = sharding.gather_state(local, sh22)
+    # one writer: a writer drops stale ``.tmp`` dirs when it is made, so
+    # a second one could remove rank 0's write in flight
+    ck = Checkpointer(t["ckpt_dir"], writer=rank == 0)
+    if rank == 0:
+        ck.save(3, whole)
+        ck.wait()
+    tdist.barrier()
+    m4 = make_mesh((1, 4), ("data", "model"))
+    restored = {}
+    for key, msh in (("m4", m4), ("d2m2", mesh)):
+        sh = sharding.state_shardings(zcfg, msh)
+        got = ck.restore_state(st, shardings=sh)
+        want = sharding.shard_state(st, sh)
+        restored[key] = [bool(torch.equal(a, b)) for a, b in zip(
+            _leaves_of(got), _leaves_of(want))]
+    one = ck.restore_state(st)
+    restored["one"] = [bool(torch.equal(a, b)) for a, b in zip(
+        _leaves_of(one), _leaves_of(st))]
+    restored["cut"] = {k: sharding.model_sharded(v.spec) for k, v in
+                       sharding.state_shardings(zcfg, m4).params[
+                           "layers"].items()}
+    out["elastic"] = restored
+    return out
+
+
+def _leaves_of(state):
+    from repro_torch.optim.adamw import tree_leaves
+    return (tree_leaves(state.params) + tree_leaves(state.masks)
+            + [x for k in ("m", "v") for x in tree_leaves(
+                state.opt_state[k])])
+
+
+def dp_scenario(t: dict, mesh, rank: int) -> dict:
+    """The serving data axis on 4 ranks: first ranks 0-1 as (data 2,
+    model 1), then all four as (data 2, model 2) (``mesh``). On each, per
+    model of ``t["models"]`` that names the mesh in its ``meshes`` (whole
+    packed trees, cut here):
+    ``serve_loop.generate`` greedy and sampled, B = 3 too (which the data
+    axis does not divide), ``make_prefill_step``, and the paged
+    ``Engine`` in each mode of ``t["modes"]`` with the lanes of
+    ``t["max_batch"]`` (block tables and page accounting after every
+    step of this rank's group, its digest, every group's results); an
+    engine of 3 lanes must be refused."""
+    import torch.distributed as tdist
+
+    from repro_torch import interop
+    from repro_torch.distributed.context import DistContext, make_mesh
+    from repro_torch.serving import engine, serve_loop, step
+    meshes = {"d2m1": make_mesh((2, 1), ("data", "model"), ranks=[0, 1]),
+              "d2m2": mesh}
+    out = {"rank": rank}
+    for key, msh in meshes.items():
+        tdist.barrier()
+        if msh is None:
+            continue
+        dist = DistContext(msh)
+        runs = {}
+        for name, m in t["models"].items():
+            if key not in m["meshes"]:
+                continue
+            cfg = m["cfg"]
+            params = interop.to_torch_shard(m["params"], cfg, msh,
+                                            device="cpu")
+            r = {"data_rank": dist.data_rank, "model_rank": dist.model_rank}
+            with torch.inference_mode():
+                r["loop"] = serve_loop.generate(
+                    cfg, params, m["equal"], max_new_tokens=m["new"],
+                    device="cpu", dist=dist)[0]
+                r["loop3"] = serve_loop.generate(
+                    cfg, params, m["equal"][:3], max_new_tokens=m["new"],
+                    device="cpu", dist=dist)[0]
+                gen = torch.Generator(device="cpu")
+                gen.manual_seed(7)
+                r["sampled"] = serve_loop.generate(
+                    cfg, params, m["equal"], max_new_tokens=m["new"],
+                    temperature=0.8, generator=gen, device="cpu",
+                    dist=dist)[0]
+                r["prefill"] = step.make_prefill_step(cfg, dist)(
+                    params, torch.as_tensor(m["equal"])).numpy()
+            for mode in m["modes"]:
+                eng = engine.Engine(cfg, params, device="cpu", dist=dist,
+                                    max_batch=t["max_batch"], **m["engine"],
+                                    **MODES[mode])
+                prompts = m["prefix_prompts" if mode == "prefix"
+                            else "ragged"]
+                uids = [eng.submit(p, m["new"]) for p in prompts]
+                snaps, stepped = [], eng.step
+
+                def step_and_snap(eng=eng, stepped=stepped, snaps=snaps):
+                    done = stepped()
+                    snaps.append(snapshot(eng))
+                    return done
+                eng.step = step_and_snap
+                res = eng.run()
+                r[mode] = {"uids": uids, "snaps": snaps,
+                           "streams": [res[u].tokens for u in uids],
+                           "digests": eng.data_group_digests,
+                           "lanes": eng.max_batch,
+                           "hits": eng.stats["prefix_hits"]}
+            if m.get("invalid"):
+                r["invalid"] = _invalid_submits(engine, cfg, params, dist,
+                                                t["max_batch"], m)
+            try:
+                engine.Engine(cfg, params, device="cpu", dist=dist,
+                              max_batch=3, **m["engine"])
+                r["refused3"] = False
+            except NotImplementedError as e:
+                r["refused3"] = "ROADMAP §1 item 4" in str(e)
+            runs[name] = r
+        out[key] = runs
+    return out
+
+
+def _invalid_submits(engine, cfg, params, dist, lanes, m) -> dict:
+    """A phased engine fed ``m["ragged"]`` with an infeasible submit
+    before each of the first three (an empty prompt, a zero budget, a
+    prompt filling ``max_len``): how many raised here, every request's
+    stream from ``run``, and whether ``admission_queue_limit`` was
+    refused."""
+    eng = engine.Engine(cfg, params, device="cpu", dist=dist,
+                        max_batch=lanes, **m["engine"])
+    bad = [(np.zeros(0, np.int32), m["new"]), (m["ragged"][0], 0),
+           (np.ones(m["engine"]["max_len"], np.int32), m["new"])]
+    uids, raised = [], 0
+    for j, p in enumerate(m["ragged"]):
+        if j < len(bad):
+            try:
+                eng.submit(*bad[j])
+            except ValueError:
+                raised += 1
+        uids.append(eng.submit(p, m["new"]))
+    res = eng.run()
+    out = {"raised": raised, "results": len(res),
+           "streams": [res[u].tokens for u in uids]}
+    try:
+        engine.Engine(cfg, params, device="cpu", dist=dist,
+                      max_batch=lanes, admission_queue_limit=2,
+                      **m["engine"])
+        out["shed_refused"] = False
+    except NotImplementedError as e:
+        out["shed_refused"] = "ROADMAP §1 item 4" in str(e)
+    return out
+
+
 def main(spec_path: str, rank: int) -> None:
     torch.set_num_threads(1)
     from repro_torch.distributed.context import (DistContext,
@@ -778,13 +1015,14 @@ def main(spec_path: str, rank: int) -> None:
         torch.cuda.set_device(0)
     init_process_group(spec["dir"], rank, spec["world"])
     try:
-        scenario = next((k for k in ("train", "sp", "kd", "ep", "tp")
-                         if k in spec), None)
+        scenario = next((k for k in ("train", "sp", "kd", "ep", "tp",
+                                     "ssm", "dp") if k in spec), None)
         if scenario is not None:
             t = spec[scenario]
             run = {"train": train_scenario, "sp": sp_scenario,
                    "kd": kd_scenario, "ep": ep_scenario,
-                   "tp": tp_scenario}[scenario]
+                   "tp": tp_scenario, "ssm": ssm_scenario,
+                   "dp": dp_scenario}[scenario]
             out = run(t, make_mesh(t["mesh"], ("data", "model")), rank)
         else:
             mesh = make_mesh((1, spec["world"]), ("data", "model"))
@@ -805,7 +1043,8 @@ def start(directory: str, world: int, models: dict | None = None,
     store) and start ``world`` rank processes; returns them. ``train``
     runs the ``scenario`` ('train': ``train_scenario``, 'sp':
     ``sp_scenario``, 'kd': ``kd_scenario``, 'ep': ``ep_scenario``, 'tp':
-    ``tp_scenario``) instead of serving ``models``."""
+    ``tp_scenario``, 'ssm': ``ssm_scenario``, 'dp': ``dp_scenario``)
+    instead of serving ``models``."""
     path = os.path.join(directory, "spec.pkl")
     spec = {"dir": directory, "world": world, "device": device,
             "models": models or {}}

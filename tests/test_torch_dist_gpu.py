@@ -10,7 +10,10 @@ rank: the split and joint fused GLU on the rank's gate/up column-blocks
 (13 a column, padded with zero blocks to 14 or 16) over the all-gathered
 (M, 8192) rows, and paged decode on its 16 or 8 query heads over 4 or 2
 kv heads; each held against its plain version within ``chip_smoke.py``'s
-``ulp_tol``. Then a tiny tensor-parallel engine run, two ranks sharing
+``ulp_tol``. rwkv6-3b's channel-mix packs at tp 2 (s = 0.8): ``bspmm`` on
+each rank's ``w_in`` block-columns (128 x 16 blocks, 280 of 560) and on
+its share of ``w_out``'s kept blocks (16 x 128) over the all-gathered
+(M, 8960) rows. Then a tiny tensor-parallel engine run, two ranks sharing
 the card over gloo (``_torch_dist_rank.py``), whose streams must equal a
 single-rank run's (a divergence only at a near-tie) and whose ranks must
 launch the split GLU, ``bspmm`` and paged decode.
@@ -81,6 +84,38 @@ def llama_mlp():
     down, _ = _pack(4, f, d, b, b, 0.8, dev)
     return dict(w_gate=gate, w_up=up, j_gate=dataclasses.replace(
         gate, joint=True), j_up=jup, w_down=down)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [8, 64])
+def test_rwkv6_channel_mix_at_rank_shapes(cuda, m):
+    """rwkv6-3b's ``w_in`` (2560 x 8960, 128 x 16 blocks) and ``w_out``
+    (16 x 128) at s = 0.8, each rank's shard at tp 2 (``shard_pack``),
+    through ``bspmm`` against its plain twin."""
+    from repro_torch.configs import get_config
+    cfg = get_config("rwkv6-3b")
+    d, f = cfg.d_model, cfg.d_ff
+    bi, bo = cfg.blast.b_in, cfg.blast.b_out
+    w_in, _ = _pack(5, d, f, bi, bo, 0.8, cuda)
+    w_out, _ = _pack(6, f, d, bo, bi, 0.8, cuda)
+    gen = torch.Generator().manual_seed(m)
+    x = torch.randn(m, d, generator=gen).to(cuda, torch.bfloat16)
+    h = torch.randn(m, f, generator=gen).to(cuda, torch.bfloat16)
+    for r in range(2):
+        mesh = Mesh(("data", "model"), (1, 2), r)
+        lin = export.shard_pack(w_in, "layers/mlp/w_in", mesh)
+        lout = export.shard_pack(w_out, "layers/mlp/w_out", mesh)
+        assert lin.nb == w_in.nb // 2 and not lin.partial
+        assert lout.partial and lout.nnz == -(-w_out.nnz // 2)
+        before = tbs.LAUNCHES["bspmm"]
+        cases = [(tbs.bspmm(x, lin), tops.bspmm_plain(x, lin)),
+                 (tbs.bspmm(h, lout), tops.bspmm_plain(h, lout))]
+        torch.cuda.synchronize()
+        for got, want in cases:
+            assert got.shape == want.shape
+            assert float((got.float() - want.float()).abs().max()) <= \
+                _ulp_tol(want), (r, m)
+        assert tbs.LAUNCHES["bspmm"] - before == 2
 
 
 @pytest.mark.gpu

@@ -527,9 +527,9 @@ def test_partial_flags_name_router_and_shared_experts(arch, seq):
 
 
 def test_refusals_and_expert_range():
-    """MoE admitted where its experts split; the recurrent families
-    refused, naming the roadmap, the other attention families admitted;
-    each rank's expert range."""
+    """MoE admitted where its experts split; the other families admitted
+    (the recurrent ones where their heads split, refused naming the
+    roadmap where they do not); each rank's expert range."""
     from repro_torch.configs import get_config
     from repro_torch.configs.paper_models import GPT2_SMALL_SMOKE
     from repro_torch.distributed.context import check_serving, \
@@ -548,14 +548,16 @@ def test_refusals_and_expert_range():
         ["--arch", "deepseek-moe-16b", "--smoke", "--frontdoor"])
     with pytest.raises(NotImplementedError, match="ROADMAP §1 item 4"):
         launcher._serve(moe, {}, args, "cpu", dist=d2)
-    for cfg in (get_config("rwkv6-3b", smoke=True),
-                get_config("zamba2-1.2b", smoke=True)):
-        for check in (check_training, check_serving):
-            with pytest.raises(NotImplementedError,
-                               match="ROADMAP §1 item 4"):
-                check(cfg, d2)
-    # the other attention families run under dist= too
+    # the recurrent families where their heads split, refused where
+    # they do not (zamba's 4 SSM heads over 3)
+    d3 = DistContext(Mesh(("data", "model"), (1, 3), 1))
+    zamba = get_config("zamba2-1.2b", smoke=True)
+    for check in (check_training, check_serving):
+        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 4"):
+            check(zamba, d3)
+    # the other families run under dist= too
     for cfg in (GPT2_SMALL_SMOKE, get_config("whisper-large-v3", smoke=True),
-                get_config("internvl2-2b", smoke=True)):
+                get_config("internvl2-2b", smoke=True),
+                get_config("rwkv6-3b", smoke=True), zamba):
         for check in (check_training, check_serving):
             check(cfg, d2)

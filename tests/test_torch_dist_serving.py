@@ -298,8 +298,16 @@ def test_engine_refuses_options_outside_the_slice(option):
           "sla": dict(scheduler=scheduler.SLAScheduler(2, 48)),
           "data_axis": {}}[option]
     dist = _dist((2, 2) if option == "data_axis" else (1, 2))
+    lanes = 2
+    if option == "data_axis":
+        # a data axis serves one replica a data group: 2 lanes split 1 a
+        # group; 3 do not split over 2 groups and stay refused
+        eng = engine.Engine(cfg, _full_params(cfg), max_batch=2,
+                            max_len=48, device="cpu", dist=dist)
+        assert eng.max_batch == 1 and eng.dist.data_size == 1
+        lanes = 3
     with pytest.raises(NotImplementedError):
-        engine.Engine(cfg, _full_params(cfg), max_batch=2, max_len=48,
+        engine.Engine(cfg, _full_params(cfg), max_batch=lanes, max_len=48,
                       device="cpu", dist=dist, **kw)
 
 
@@ -323,21 +331,34 @@ def test_engine_refuses_serving_behind_traffic(what, tmp_path):
 
 @pytest.mark.parametrize("family", ["mlp2", "moe", "ssm"])
 def test_other_families_refuse_dist(family):
+    """What stays refused under ``dist``, naming the roadmap: MoE experts
+    that do not split evenly (6 over 4), an engine whose lanes do not
+    split over the data groups (the two-matrix MLP at (data 2, model 2)
+    with 1 lane, which the data axis otherwise admits), and rwkv6's heads
+    where they do not split (3 over 2; its 48 padded heads are
+    admitted, as is the mesh's data axis)."""
     from repro_torch.configs import get_config, reduced
+    from repro_torch.distributed.context import check_serving
     from repro_torch.serving import engine
     prompts = np.ones((1, 4), np.int32)
-    # the MoE family serves expert-parallel where its experts split
-    # evenly over the model axis: 6 experts over 4 do not; the two-matrix
-    # MLP serves tensor-parallel, but not over a data axis of 2
     cfg = {"mlp2": port_cfg(jpm.GPT2_SMALL_SMOKE),
            "moe": reduced(get_config("deepseek-moe-16b"), num_experts=6),
            "ssm": reduced(get_config("rwkv6-3b"))}[family]
-    shape = {"mlp2": (2, 2), "moe": (1, 4)}.get(family, (1, 2))
+    shape = {"mlp2": (2, 2), "moe": (1, 4)}.get(family, (2, 2))
     params = _full_params(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 4"):
-        tloop.generate(cfg, params, prompts, max_new_tokens=2,
-                       device="cpu", dist=_dist(shape))
-    if family != "ssm":
+    if family == "moe":
+        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 4"):
+            tloop.generate(cfg, params, prompts, max_new_tokens=2,
+                           device="cpu", dist=_dist(shape))
+    else:
+        check_serving(cfg, _dist(shape))
+    if family == "ssm":
+        uneven = dataclasses.replace(cfg, num_heads=3, num_kv_heads=3,
+                                     pad_heads_to=0)
+        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 4"):
+            tloop.generate(uneven, params, prompts, max_new_tokens=2,
+                           device="cpu", dist=_dist(shape))
+    else:
         with pytest.raises(NotImplementedError, match="ROADMAP §1 item 4"):
             engine.Engine(cfg, params, max_batch=1, max_len=16,
                           device="cpu", dist=_dist(shape))

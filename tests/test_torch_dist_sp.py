@@ -214,16 +214,17 @@ def test_ranks_agree_bitwise(runs, scenario):
 def test_packed_prefill_under_sp(runs, scenario):
     """``make_prefill_step`` on packed params, sequence-parallel: every
     rank returns the whole last-token rows, equal to the reference's
-    single device to rel 1e-5; the stream is split and reduce-scatters
-    ran."""
+    single device to rel 1e-5; the stream is split (its S over the model
+    axis, and its rows over the data axis: a data group runs its own)
+    and reduce-scatters ran."""
     want = runs["ref"]["prefill"]
-    tp = SCENARIOS[scenario][1]
+    d, tp = SCENARIOS[scenario]
     for rank in runs[scenario]:
         p = rank["prefill"]
         assert p["logits"].shape == want.shape
         np.testing.assert_allclose(p["logits"], want, rtol=RTOL,
                                    atol=RTOL * np.abs(want).max())
-        assert p["stream"] == [(4, 16 // tp, 64)]
+        assert p["stream"] == [(4 // d, 16 // tp, 64)]
         assert p["collectives"]["reduce_scatter"] > 0
 
 

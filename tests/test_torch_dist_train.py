@@ -406,10 +406,11 @@ def test_other_families_refuse_to_train_sharded(arch):
               lambda: deferred.make_train_step_deferred(cfg, topt,
                                                         _dist(shape)),
               lambda: ts.init_state(cfg, 0, "cpu", dist=_dist(shape))]
-    if cfg.family in ("dense", "vlm", "audio"):
-        # the two-matrix MLP, the VLM and whisper train sharded: the
-        # step, the deferred step and the sharded state build (the loop
-        # would reach a collective, and this mesh starts no group)
+    if cfg.family in ("dense", "vlm", "audio", "ssm", "hybrid"):
+        # the two-matrix MLP, the VLM, whisper and the recurrent
+        # families train sharded: the step, the deferred step and the
+        # sharded state build (the loop would reach a collective, and
+        # this mesh starts no group)
         for build in builds:
             build()
         return
